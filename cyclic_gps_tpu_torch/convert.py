@@ -33,7 +33,7 @@ def params_from_jax(p, device=None) -> LEGParams:
     keeping the dtype."""
 
     def t(a):
-        return torch.as_tensor(np.asarray(a), device=device).clone()
+        return torch.as_tensor(np.array(a), device=device)
 
     return LEGParams(t(p.n_params), t(p.r_params), t(p.lambda_params),
                      t(p.b))
@@ -47,3 +47,10 @@ def params_to_numpy(p: LEGParams) -> NumpyLEGParams:
 
     return NumpyLEGParams(a(p.n_params), a(p.r_params), a(p.lambda_params),
                           a(p.b))
+
+
+def grads_to_numpy(p: LEGParams) -> NumpyLEGParams:
+    """The gradients held in the four leaves' ``.grad``, as numpy arrays
+    in the same order (what ``jax.grad`` returns as a ``LEGParams``)."""
+    return NumpyLEGParams(*(t.grad.detach().cpu().numpy() for t in
+                            (p.n_params, p.r_params, p.lambda_params, p.b)))

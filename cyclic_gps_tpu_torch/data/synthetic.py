@@ -2,7 +2,7 @@
 
 Counterpart of ``cyclic_gps_tpu/data/synthetic.py``: the same numpy
 random stream, so one seed gives the same series in both packages;
-returns tensors on the requested device.
+returns tensors on the requested device, the card unless told otherwise.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from cyclic_gps_tpu_torch import resolve_device
 
 
 def _gaussian_filter1d(x: np.ndarray, sigma: float) -> np.ndarray:
@@ -34,7 +36,8 @@ def generate_data(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Random series: irregular gaps ~ Exp(1) + 0.01 (or unit spacing),
     values = Gaussian-smoothed white noise per dim (sigma = 10).
-    Returns (ts [N], xs [N, data_dim])."""
+    Returns (ts [N], xs [N, data_dim]) on ``device`` (default: the
+    card)."""
     rng = np.random.RandomState(seed)
     if spacing == "irregular":
         gaps = rng.exponential(1.0, size=num_datapoints) + 0.01
@@ -48,5 +51,6 @@ def generate_data(
         ],
         axis=-1,
     )
+    device = resolve_device(device)
     return (torch.as_tensor(ts, dtype=dtype, device=device),
             torch.as_tensor(vals, dtype=dtype, device=device))

@@ -16,7 +16,7 @@ RANK, OBS_DIM, NUM_POINTS = 5, 2, 1024
 def entry(device=None):
     """(fn, example_args): ``fn(params, ts, xs)`` is the log-likelihood;
     the arguments are seeded parameters and a synthetic series on
-    ``device``."""
+    ``device`` (default: the card; pass ``device="cpu"`` without one)."""
     params = leg.init_params(
         RANK, OBS_DIM, generator=torch.Generator().manual_seed(0),
         dtype=torch.float32, device=device,

@@ -1,7 +1,7 @@
-"""LEG (Latent Exponentially Generated) Gaussian-process family, PyTorch
-forward path.
+"""LEG (Latent Exponentially Generated) Gaussian-process family, PyTorch:
+the marginal likelihood and its gradient.
 
-Counterpart of ``cyclic_gps_tpu/models/leg.py`` (the likelihood forward):
+Counterpart of ``cyclic_gps_tpu/models/leg.py`` (the likelihood):
 
     z ~ PEG(N, R)           a stationary latent Markov process with unit
                             stationary covariance and generator
@@ -22,6 +22,17 @@ runs plain tensor code on any device, end to end; ``"cuda"`` demands the
 kernels.  Timestamps may be float64 while the model runs in float32: gaps
 are formed at the timestamps' precision and then cast (at N = 1e6 a
 float32 time axis can no longer resolve a 0.01 gap).
+
+Gradients: every kernel route is a ``torch.autograd.Function`` whose
+backward is the JAX package's custom VJP -- the fused route replays the
+two-kernel route, whose K emission has the analytic adjoint kernel
+(`_KGapParts`) and whose elimination has the analytic solve + selected
+inversion (``partitioned.mahal_and_logdet_cm``); the (e, Q) kernel
+replays its structured Pade-7 twin.  The plain routes differentiate by
+autograd through the same custom backwards.
+
+Entry points put their tensors on the card unless the caller names a
+device (``device="cpu"`` on a machine without one).
 """
 
 from __future__ import annotations
@@ -32,12 +43,16 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from cyclic_gps_tpu_torch import resolve_device
 from cyclic_gps_tpu_torch.ops import partitioned as pt
 from cyclic_gps_tpu_torch.ops import smallblock as sb
 from cyclic_gps_tpu_torch.ops.expm_cuda import (gap_mahal_sweep_cuda,
+                                                k_system_adjoint_cuda,
                                                 k_system_cuda,
-                                                transition_and_noise_cuda)
+                                                transition_and_noise_cuda,
+                                                transition_and_noise_diff)
 
 Tensor = torch.Tensor
 
@@ -112,6 +127,7 @@ def init_params(
     N = noise_level * I (via chol(N N^T)); R = (Z - Z^T) * length_scale
     with Z standard normal drawn from ``generator``; Lambda = 0.1 * I
     (packed raw; softplus applied on read); B = 0.5 * ones / row-norm.
+    On the card unless ``device`` says otherwise.
     """
     n_mat = torch.eye(rank, dtype=dtype) * prior_process_noise_level
     n_mat = torch.linalg.cholesky(n_mat @ n_mat.T)
@@ -130,7 +146,8 @@ def init_params(
 
     b = torch.ones((obs_dim, rank), dtype=dtype)
     b = 0.5 * b / torch.sqrt(torch.sum(b**2, dim=1, keepdim=True))
-    return LEGParams(n_params, r_params, lambda_params, b).to(device)
+    return LEGParams(n_params, r_params, lambda_params, b).to(
+        resolve_device(device))
 
 
 def _unpack(packed: Tensor, n: int, offset: int) -> Tensor:
@@ -197,12 +214,12 @@ def transition_and_noise_em(g: Tensor, diffs: Tensor,
                             backend: str = "auto") -> Tuple[Tensor, Tensor]:
     """Element-major `transition_and_noise`: returns (e, q) as [r, r, T].
 
-    float32 on CUDA runs the (e, Q) kernel (ops/expm_cuda.py);
-    everything else, and ``backend="torch"``, runs the Pade-13 tensor
-    pipeline."""
+    float32 on CUDA runs the (e, Q) kernel (ops/expm_cuda.py), whose
+    gradient replays its structured Pade-7 twin; everything else, and
+    ``backend="torch"``, runs the Pade-13 tensor pipeline."""
     if (g.dtype == torch.float32
             and pt.resolve_backend(backend, diffs) == "cuda"):
-        return transition_and_noise_cuda(g, diffs)
+        return transition_and_noise_diff(g, diffs)
     return _transition_and_noise_em_plain(g, diffs)
 
 
@@ -330,6 +347,32 @@ def _gap_terms_dense(g: Tensor, backend: str = "auto"):
     return fn
 
 
+# Gap-slab size for the streamed emission: the adjoint of the whole-M
+# Pade-13 pipeline holds [4r, 4r, M] Frechet temporaries (~1.5 GB each at
+# rank 5, M = 1e6); 64 K-gap slabs bound them at ~100 MB.
+_ADJ_SLAB = 65536
+
+
+def _gap_terms_dense_streamed(g: Tensor, backend: str = "auto"):
+    """`_gap_terms_dense` evaluated slab by slab under
+    ``torch.utils.checkpoint``: identical values, but the backward
+    recomputes one slab's forward at a time instead of storing every
+    slab's temporaries.  What makes the plain irregular-grid gradient fit
+    at N >= 1e6."""
+    dense = _gap_terms_dense(g, backend)
+
+    def fn(diffs):
+        m = diffs.shape[0]
+        if m <= _ADJ_SLAB:
+            return dense(diffs)
+        parts = [checkpoint(dense, diffs[i:i + _ADJ_SLAB],
+                            use_reentrant=False)
+                 for i in range(0, m, _ADJ_SLAB)]
+        return tuple(torch.cat(leaf, dim=-1) for leaf in zip(*parts))
+
+    return fn
+
+
 # ---------------------------------------------------------------------------
 # Chunk-major assembly of the posterior-precision system K.
 # ---------------------------------------------------------------------------
@@ -358,8 +401,10 @@ def _k_gap_parts_plain(g, boost, ts, s, regular, rank, dtype, backend):
     """(k_cm [s, r, r, C], off_cm, lq_cm [s, C]): the gap-dependent part
     of the chunk-major K system, assembled with tensor ops from the dense
     gap emission.  lq_cm is the valid-masked per-gap log|Q1| (the prior
-    log-determinant is -sum(lq_cm))."""
-    gap_fn = _gap_terms_dense(g, backend)
+    log-determinant is -sum(lq_cm)).  The irregular grid streams the
+    emission in slabs (`_gap_terms_dense_streamed`)."""
+    gap_fn = (_gap_terms_dense(g, backend) if regular
+              else _gap_terms_dense_streamed(g, backend))
     n = ts.shape[0]
     c = -(-n // s)
     diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c, dtype)
@@ -412,45 +457,107 @@ def _wrap_row(g: Tensor, diffs: Tensor, gap_valid: Tensor, s: int):
                      dim=-1).contiguous()
 
 
-def _k_gap_parts_cuda(g: Tensor, boost: Tensor, ts: Tensor, s: int):
+class _KGapParts(torch.autograd.Function):
     """Kernel version of `_k_gap_parts_plain` (irregular grid, dense G,
     float32): the (e, Q) kernel for the chunk-crossing row, then ONE
     K-system kernel pass emits (k_cm, off_cm, per-gap log|Q1|)
     chunk-major at the true chunk count.  CPU tensors run the kernels'
-    plain twins."""
-    n = ts.shape[0]
-    c = -(-n // s)
-    diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c, g.dtype)
-    wrap = _wrap_row(g, diffs, gap_valid, s)
-    return k_system_cuda(g.contiguous(), boost.contiguous(), diffs,
-                         gap_valid, is_real, wrap)
+    plain twins.
+
+    Backward (the JAX ``_k_gap_parts_pallas_bwd``): the K-row cotangents
+    become per-gap cotangents (d_right of gap [j, c] feeds K row [j, c];
+    d_left feeds row [j+1, c], crossing into row [0, c+1] at j = s-1),
+    the adjoint kernel maps them to (c_g, c_sym, c_dt), and c_dt is
+    pulled through the gap geometry to the timestamps."""
+
+    @staticmethod
+    def forward(ctx, g, boost, ts, s):
+        n = ts.shape[0]
+        c = -(-n // s)
+        diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c,
+                                                        g.dtype)
+        wrap = _wrap_row(g, diffs, gap_valid, s)
+        ctx.s = s
+        ctx.save_for_backward(g, ts, diffs, gap_valid, is_real)
+        return k_system_cuda(g.contiguous(), boost.contiguous(), diffs,
+                             gap_valid, is_real, wrap)
+
+    @staticmethod
+    def backward(ctx, gk, goff, glq):
+        g, ts, diffs, gap_valid, is_real = ctx.saved_tensors
+        s = ctx.s
+        rank = g.shape[0]
+        c = diffs.shape[-1]
+        wrap_next = torch.cat([gk[0, :, :, 1:],
+                               gk.new_zeros((rank, rank, 1))], dim=-1)
+        c_dl = torch.cat([gk[1:], wrap_next[None]], dim=0)
+        c_g_raw, c_sym, c_dt = k_system_adjoint_cuda(
+            g.contiguous(), diffs, gap_valid, goff.contiguous(), c_dl,
+            gk.contiguous(), glq.contiguous())
+        c_g = c_g_raw + 0.5 * (c_sym + c_sym.T)
+        c_boost = torch.einsum("sijc,sc->ij", gk, is_real)
+        c_ts = None
+        if ctx.needs_input_grad[2]:
+            with torch.enable_grad():
+                t = ts.detach().requires_grad_()
+                geo = _chunk_gap_geometry(t, s, ts.shape[0], c, g.dtype)[0]
+                (c_ts,) = torch.autograd.grad(geo, t, c_dt)
+        return c_g, c_boost, c_ts, None
 
 
-def _gap_mahal_fused(g, boost, ts, v_cm, s):
+class _GapMahalFused(torch.autograd.Function):
     """(v^T K^{-1} v, log|K|, log|Sigma^{-1}|) straight from the gap
     widths (irregular grid, dense G, float32): the fused gaps -> sweep
     kernel builds and eliminates every chunk interior row without
     storing K; the reduced boundary system finishes on the partitioned
     ladder.  ``v_cm`` [s, r, C] at the true chunk count C = ceil(n / s).
-    CPU tensors run the kernels' plain twins."""
-    n = ts.shape[0]
-    c = -(-n // s)
-    diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c, g.dtype)
-    wrap = _wrap_row(g, diffs, gap_valid, s)
-    (acc00, accy0, w0l, wl, dl, invdl, mh, ld, lq_sum, k0,
-     olast) = gap_mahal_sweep_cuda(g.contiguous(), boost.contiguous(), diffs,
-                                   gap_valid, is_real, wrap, v_cm)
-    state = pt._SweepState(None, w0l, wl, dl, invdl, acc00, accy0, mh, ld)
-    w1 = sb.solve_lower(dl, invdl, sb.transpose(olast))
-    red_diag, red_off, red_rhs = pt._reduced_system(
-        k0[None], v_cm[:1], state, w1
-    )
-    red_mh, red_ld = pt._mahal_and_logdet_impl(
-        sb.from_em(red_diag), sb.from_em(red_off)[: c - 1],
-        sb.vec_from_em(red_rhs), None, 0.0,
-        pt.resolve_backend("auto", v_cm),
-    )
-    return mh + red_mh, 2.0 * ld + red_ld, -lq_sum
+    CPU tensors run the kernels' plain twins.
+
+    Backward (the JAX ``_gap_mahal_fused_bwd``): replay the two-kernel
+    route, whose custom backwards are analytic, by autograd."""
+
+    @staticmethod
+    def forward(ctx, g, boost, ts, v_cm, s):
+        n = ts.shape[0]
+        c = -(-n // s)
+        diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c,
+                                                        g.dtype)
+        wrap = _wrap_row(g, diffs, gap_valid, s)
+        (acc00, accy0, w0l, wl, dl, invdl, mh, ld, lq_sum, k0,
+         olast) = gap_mahal_sweep_cuda(g.contiguous(), boost.contiguous(),
+                                       diffs, gap_valid, is_real, wrap,
+                                       v_cm)
+        state = pt._SweepState(None, w0l, wl, dl, invdl, acc00, accy0, mh,
+                               ld)
+        w1 = sb.solve_lower(dl, invdl, sb.transpose(olast))
+        red_diag, red_off, red_rhs = pt._reduced_system(
+            k0[None], v_cm[:1], state, w1
+        )
+        red_mh, red_ld = pt._mahal_and_logdet_impl(
+            sb.from_em(red_diag), sb.from_em(red_off)[: c - 1],
+            sb.vec_from_em(red_rhs), None, 0.0,
+            pt.resolve_backend("auto", v_cm),
+        )
+        ctx.s = s
+        ctx.save_for_backward(g, boost, ts, v_cm)
+        return mh + red_mh, 2.0 * ld + red_ld, -lq_sum
+
+    @staticmethod
+    def backward(ctx, *cots):
+        needs = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need)
+                   for t, need in zip(ctx.saved_tensors, needs)]
+            g, boost, ts, v_cm = ins
+            k_cm, off_cm, lq_cm = _KGapParts.apply(g, boost, ts, ctx.s)
+            mh, ld = pt.mahal_and_logdet_cm(k_cm, off_cm, v_cm,
+                                            backend="auto")
+            wanted = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                (mh, ld, -torch.sum(lq_cm)), wanted, cots,
+                allow_unused=True))
+        return tuple(next(grads) if need else None for need in needs) + (
+            None,)
 
 
 def _v_chunk_major(params, xs, llt, s: int, c: int, dtype):
@@ -498,7 +605,7 @@ def _k_system_chunked(params, ts: Tensor, xs: Tensor, s: int,
 
     if (not regular and dtype == torch.float32
             and pt.resolve_backend(backend, llt) == "cuda"):
-        k_cm, off_cm, lq_cm = _k_gap_parts_cuda(g, boost, ts, s)
+        k_cm, off_cm, lq_cm = _KGapParts.apply(g, boost, ts, s)
     else:
         k_cm, off_cm, lq_cm = _k_gap_parts_plain(g, boost, ts, s, regular,
                                                  rank, dtype, backend)
@@ -548,7 +655,7 @@ def log_likelihood(
         c = -(-num_obs // s)
         boost = params.b.T @ torch.linalg.solve(llt, params.b)
         v_cm = _v_chunk_major(params, xs, llt, s, c, llt.dtype)
-        k_mahal, k_logdet, sig_inv_logdet = _gap_mahal_fused(
+        k_mahal, k_logdet, sig_inv_logdet = _GapMahalFused.apply(
             g, boost, ts, v_cm, s
         )
     elif num_obs >= max(pt._TERMINAL, 2 * s):

@@ -1,14 +1,22 @@
 """Element-major batched matrix exponential (Pade-13, dynamic squaring),
 PyTorch.
 
-Counterpart of ``cyclic_gps_tpu/ops/expm_em.py`` (forward values).  The
-batch lives on the minor axis ([d, d, N] element-major) and all matrix
-algebra is the unrolled small-block kind (ops/smallblock.py).
+Counterpart of ``cyclic_gps_tpu/ops/expm_em.py``.  The batch lives on
+the minor axis ([d, d, N] element-major) and all matrix algebra is the
+unrolled small-block kind (ops/smallblock.py).
 
 Algorithm: scaling-and-squaring with the degree-13 Pade approximant
 (Higham 2005).  Each matrix is squared back only as often as its own
 norm requires; the loop runs to the batch maximum with per-matrix masks,
-as the JAX version's ``while_loop`` does.
+as the JAX version's ``while_loop`` does.  `expm_em` is a
+``torch.autograd.Function`` whose backward is the JAX package's custom
+VJP, the Frechet-derivative identity
+
+    expm([[A, E], [0, A]]) = [[e^A, L(A, E)], [0, e^A]],
+    adjoint:  A_bar = L(A^T, Y_bar),
+
+i.e. one more (2d x 2d) element-major expm, not autograd through the
+squaring loop.
 """
 
 from __future__ import annotations
@@ -101,8 +109,7 @@ def lu_solve_pivoted(a: Tensor, b: Tensor) -> Tensor:
     return torch.stack(x, dim=0)
 
 
-def expm_em(a: Tensor) -> Tensor:
-    """Batched expm of an element-major batch [d, d, B] -> [d, d, B]."""
+def _expm_em_impl(a: Tensor) -> Tensor:
     d = a.shape[0]
     eye = sb.eye_em(d, a)
 
@@ -131,3 +138,25 @@ def expm_em(a: Tensor) -> Tensor:
         do = (s > k).to(a.dtype)[None, None, :]
         r = do * sb.matmul(r, r) + (1.0 - do) * r
     return r
+
+
+class _ExpmEm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a):
+        ctx.save_for_backward(a)
+        return _expm_em_impl(a)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        (a,) = ctx.saved_tensors
+        d = a.shape[0]
+        a_t = sb.transpose(a)
+        top = torch.cat([a_t, ybar], dim=1)
+        bot = torch.cat([torch.zeros_like(a), a_t], dim=1)
+        return _expm_em_impl(torch.cat([top, bot], dim=0))[:d, d:]
+
+
+def expm_em(a: Tensor) -> Tensor:
+    """Batched expm of an element-major batch [d, d, B] -> [d, d, B],
+    differentiable through the Frechet VJP (module docstring)."""
+    return _ExpmEm.apply(a)

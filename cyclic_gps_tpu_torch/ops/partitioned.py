@@ -25,10 +25,16 @@ log|J| = 2 sum log diag D + log|reduced|;  y^T J^{-1} y = sum ||w||^2 +
 mahal(reduced, rhs).
 
 Backends: ``"torch"`` runs the plain tensor sweep below on any device;
-``"cuda"`` runs the hand-written forward-sweep kernel
-(ops/sweep_cuda.py); ``"auto"`` picks ``"cuda"`` for CUDA tensors.
-Every sweep of the reduced-system ladder dispatches the same way; only
-the terminal cyclic reduction stays plain tensor code.
+``"cuda"`` runs the hand-written sweep kernels (ops/sweep_cuda.py);
+``"auto"`` picks ``"cuda"`` for CUDA tensors.  Every sweep of the
+reduced-system ladder dispatches the same way; only the terminal cyclic
+reduction stays plain tensor code.
+
+Gradients: `mahal_and_logdet_cm` is a ``torch.autograd.Function`` whose
+backward is the JAX package's analytic adjoint (`_mahal_cm_bwd`): one
+collect sweep streaming the shared hat stacks and one descending pass
+running the back-substitution and the hat-form Takahashi recursion
+(`_solve_inverse_from_cm`), on every backend.
 """
 
 from __future__ import annotations
@@ -156,21 +162,48 @@ def _step(state: Optional[_SweepState], R_j, O_j, y_j, O_left, jitter):
     return _SweepState(c_new, w0, w, D, invd, acc00, accy0, mh, ld)
 
 
+def _collect_solve(state: _SweepState):
+    """Per-step back-substitution factors in hat form, so the backward
+    walk is pure multiply-add:
+
+      x_j = hat_w_j - hat_W0_j x_b - hat_C_j x_{j+1}
+
+    with hat_C_j = D_j^{-T} C_j^T, hat_W0_j = D_j^{-T} W0_j and
+    hat_w_j = D_j^{-T} w_j."""
+    hat_c = sb.solve_lower_t(state.dj, state.invd,
+                             sb.transpose(state.c_prev))
+    hat_w0 = sb.solve_lower_t(state.dj, state.invd, state.w0)
+    hat_w = sb.solve_lower_t_vec(state.dj, state.invd, state.w)
+    return hat_c, hat_w0, hat_w
+
+
+def _collect_solve_inverse(state: _SweepState):
+    """The hat factors AND the hat-form Takahashi input from the same
+    step: (hat_c, hat_w0, hat_w, pinv) with pinv = P_j^{-1} =
+    D_j^{-T} D_j^{-1}.  One collect sweep serves both halves of every
+    analytic backward, the solve and the selected inversion."""
+    di = sb.tri_lower_inverse(state.dj, state.invd)
+    pinv = sb.matmul(di, di, ta=True)
+    return _collect_solve(state) + (pinv,)
+
+
 def _collect_ldrows(state: _SweepState):
     """Per-step per-chunk pivot log-determinants 2 log|D_j| ([C] per
     step) -- the per-row decomposition of the sweep's logdet."""
     return 2.0 * sb.chol_log_diag_rows(state.dj)
 
 
-_COLLECTORS = {"ldrows": _collect_ldrows}
+_COLLECTORS = {"ldrows": _collect_ldrows,
+               "solve_inverse": _collect_solve_inverse}
 
 
 def _forward_sweep(R_cm, O_cm, y_cm, jitter, collect):
     """Eliminate all chunk interiors (j = 1 .. s-1).
 
-    ``collect`` is None (fused mahal/logdet: nothing stored) or
-    "ldrows" (per-step pivot log-dets).  Returns (final state, W1,
-    stacked [s-1, C] | None).
+    ``collect`` is None (fused mahal/logdet: nothing stored), "ldrows"
+    (per-step pivot log-dets) or "solve_inverse" (the hat factors of
+    `_collect_solve` + pinv).  Returns (final state, W1, stacked | None):
+    one [s-1, ...] stack, or a tuple of them for a tuple collector.
     """
     s = R_cm.shape[0]
     collector = _COLLECTORS[collect] if collect else None
@@ -180,7 +213,11 @@ def _forward_sweep(R_cm, O_cm, y_cm, jitter, collect):
         state = _step(state, R_cm[j], O_cm[j], y_cm[j], None, jitter)
         if collector:
             outs.append(collector(state))
-    stacked = torch.stack(outs, dim=0) if collector else None
+    stacked = None
+    if collector and isinstance(outs[0], tuple):
+        stacked = tuple(torch.stack(leaf, dim=0) for leaf in zip(*outs))
+    elif collector:
+        stacked = torch.stack(outs, dim=0)
     # right coupling: W1 = D_{s-1}^{-1} O_cm[s-1]^T (zero for the last
     # chunk by the trailing-zero invariant)
     w1 = sb.solve_lower(state.dj, state.invd, sb.transpose(O_cm[s - 1]))
@@ -271,6 +308,51 @@ def mahal_and_logdet(
     return mahal_and_logdet_cm(R_cm, O_cm, y_cm, jitter, backend)
 
 
+def _mahal_cm_primal(R_cm, O_cm, y_cm, jitter, backend):
+    state, w1 = _forward_state(R_cm, O_cm, y_cm, jitter, backend)
+    red_diag, red_off, red_rhs = _reduced_system(R_cm, y_cm, state, w1)
+    red_mh, red_ld = _mahal_and_logdet_em(red_diag, red_off, red_rhs,
+                                          jitter, backend)
+    return state.mh + red_mh, 2.0 * state.ld + red_ld
+
+
+class _MahalCm(torch.autograd.Function):
+    """(mahal, logdet) with the analytic adjoint (O(1) stored state: the
+    residuals are the inputs).  With x = J^{-1} y and Sigma = J^{-1}
+    (selected blocks):
+
+      d(mh)/dR_i = -x_i x_i^T     d(mh)/dO_i = -2 x_{i+1} x_i^T
+      d(ld)/dR_i = Sigma_ii       d(ld)/dO_i = 2 Sigma_{i+1,i}
+      d(mh)/dy   = 2 x
+
+    The counterpart of the JAX ``_mahal_cm`` custom VJP
+    (partitioned.py:400-444); it is also what makes the kernels, whose
+    outputs carry no ``grad_fn``, usable under autograd."""
+
+    @staticmethod
+    def forward(ctx, R_cm, O_cm, y_cm, jitter, backend):
+        ctx.save_for_backward(R_cm, O_cm, y_cm)
+        ctx.jitter, ctx.backend = jitter, backend
+        return _mahal_cm_primal(R_cm, O_cm, y_cm, jitter, backend)
+
+    @staticmethod
+    def backward(ctx, gm, gl):
+        R_cm, O_cm, y_cm = ctx.saved_tensors
+        s, d, _, c = R_cm.shape
+        x_pad, sig_diag, sig_off = _solve_inverse_from_cm(
+            R_cm, O_cm, y_cm, ctx.jitter, ctx.backend)
+        xo = x_pad[:, :, None] * x_pad[:, None, :]
+        x_next = torch.cat([x_pad[1:], x_pad.new_zeros((1, d))], dim=0)
+        xo_off = x_next[:, :, None] * x_pad[:, None, :]  # x_{i+1} x_i^T
+        g_diag = gl * sig_diag - gm * xo
+        g_off = 2.0 * (gl * sig_off - gm * xo_off)
+        g_y = 2.0 * gm * x_pad
+        g_R = g_diag.reshape(c, s, d, d).permute(1, 2, 3, 0)
+        g_O = g_off.reshape(c, s, d, d).permute(1, 2, 3, 0)
+        g_yc = g_y.reshape(c, s, d).permute(1, 2, 0)
+        return g_R, g_O, g_yc, None, None
+
+
 def mahal_and_logdet_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
                         jitter: float = 0.0,
                         backend: str = "auto") -> Tuple[Tensor, Tensor]:
@@ -278,14 +360,176 @@ def mahal_and_logdet_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     (R_cm/O_cm [s, d, d, C], y_cm [s, d, C], trailing-zero O invariant,
     identity/zero padding for any tail).
 
-    ``backend``: "torch" (plain sweep), "cuda" (the forward-sweep kernel,
-    for the top level and every sweep of the reduced ladder) or "auto"
-    (cuda for CUDA tensors).  The JAX counterpart defaults to its plain
+    ``backend``: "torch" (plain sweep), "cuda" (the sweep kernels, for
+    the top level and every sweep of the reduced ladder) or "auto" (cuda
+    for CUDA tensors).  The JAX counterpart defaults to its plain
     backend; here "auto" is the default so that a CUDA caller never runs
-    the plain sweep without asking for it."""
-    backend = resolve_backend(backend, R_cm)
-    state, w1 = _forward_state(R_cm, O_cm, y_cm, jitter, backend)
+    the plain sweep without asking for it.  Differentiable on every
+    backend through the analytic adjoint (`_MahalCm`)."""
+    return _MahalCm.apply(R_cm, O_cm, y_cm, jitter,
+                          resolve_backend(backend, R_cm))
+
+
+# ---------------------------------------------------------------------------
+# The fused solve + selected inversion: the backward of every analytic VJP.
+# The Takahashi recurrence in hat variables needs only (hat_c = D^{-T} C^T,
+# hat_w0 = D^{-T} W0, pinv = P^{-1} = D^{-T} D^{-1}):
+#
+#   phi_off_j = -phi_{j+1} hat_c_j^T
+#   phi_j     = pinv_j + hat_c_j phi_{j+1} hat_c_j^T
+#   u0_j      = hat_w0_j - hat_c_j u0_{j+1}
+#   u1_j      = -hat_c_j u1_{j+1}
+#
+# so one collect sweep (collect="solve_inverse") serves both the
+# back-substitution and the Takahashi walk; on the card both walks run in
+# one descending kernel (ops/sweep_cuda.backward_solve_takahashi_cuda).
+# ---------------------------------------------------------------------------
+
+
+def _back_substitute(state, w1, hat_cs, hat_w0s, hat_ws, xb, c):
+    """Chain back-substitution on the hat factors + the reduced boundary
+    solution xb [d, C] -> the padded natural-order solution [C*s, d]
+    (the plain branch of the JAX function; its kernel branch belongs to
+    the posterior slice)."""
+    s = hat_cs.shape[0] + 1
+    xb_next = sb.shift_up(xb)  # next chunk's boundary (0 for last)
+    hat_w1 = sb.solve_lower_t(state.dj, state.invd, w1)
+    # last interior row j = s-1 (carries the W1 term, no x_{j+1}); hats
+    # recomputed from the live final state
+    hat_w0_l = sb.solve_lower_t(state.dj, state.invd, state.w0)
+    hat_w_l = sb.solve_lower_t_vec(state.dj, state.invd, state.w)
+    x = (hat_w_l - sb.matvec(hat_w0_l, xb) - sb.matvec(hat_w1, xb_next))
+    rows = [x]
+    for t in range(s - 3, -1, -1):
+        x = (hat_ws[t] - sb.matvec(hat_w0s[t], xb)
+             - sb.matvec(hat_cs[t], x))
+        rows.append(x)
+    interior = torch.stack(rows[::-1], dim=0)  # [s-1, d, C], j = 1..s-1
+    x_cm = torch.cat([xb[None], interior], dim=0)
+    d = xb.shape[0]
+    return x_cm.permute(2, 0, 1).reshape(c * s, d)
+
+
+def _takahashi_hat_walk(hc_s, hw0_s, pinv_s, hat_w1, p00, p01, p10, p11):
+    """Hat-form Takahashi recursion over one level's collected stacks
+    (plain loop; the kernel twin is fused into
+    `backward_solve_takahashi_cuda`).
+
+    hc_s / hw0_s / pinv_s: [s-1, d, d, C] per-step stacks (steps
+    j = 1..s-1); hat_w1 = D_{s-1}^{-T} W1; p00/p01/p10/p11: the reduced
+    boundary system's selected-inverse blocks [d, d, C].  Returns
+    (diag_int [s-1, d, d, C] = Sigma_jj rows j = 1..s-1,
+     off_rows [s-1, d, d, C] = Sigma_{j+1, j} rows j = 1..s-1 (row s-1
+     is the right-edge block), u0_final, u1_final [d, d, C])."""
+    mm = sb.matmul
+
+    def sigma_bb_ut(u0, u1):
+        a0 = mm(p00, u0, tb=True) + mm(p01, u1, tb=True)
+        a1 = mm(p10, u0, tb=True) + mm(p11, u1, tb=True)
+        return a0, a1
+
+    # seed at j = s-1: phi / u0 are the stacks' last rows
+    phi, u0, u1 = pinv_s[-1], hw0_s[-1], hat_w1
+    a0, a1 = sigma_bb_ut(u0, u1)
+    diags = [phi + mm(u0, a0) + mm(u1, a1)]
+    offs = [-a1]
+    for t in range(hc_s.shape[0] - 2, -1, -1):
+        hc_j = hc_s[t]
+        phi_off = -mm(phi, hc_j, tb=True)
+        phi_j = pinv_s[t] + mm(mm(hc_j, phi), hc_j, tb=True)
+        u0_j = hw0_s[t] - mm(hc_j, u0)
+        u1_j = -mm(hc_j, u1)
+        a0, a1 = sigma_bb_ut(u0_j, u1_j)
+        diags.append(phi_j + mm(u0_j, a0) + mm(u1_j, a1))
+        offs.append(phi_off + mm(u0, a0) + mm(u1, a1))
+        phi, u0, u1 = phi_j, u0_j, u1_j
+    return (torch.stack(diags[::-1], dim=0), torch.stack(offs[::-1], dim=0),
+            u0, u1)
+
+
+def _solve_inverse_em(diag_em, off_em, y_em, jitter, backend="torch"):
+    """Recursive fused (J^{-1} y, selected inverse) on element-major
+    inputs (off_em valid to n-2).  Returns (x [d, n], sig_diag
+    [d, d, n], sig_off [d, d, n] with sig_off[..., i] = Sigma_{i+1, i}
+    and the trailing slot zero).  The terminal level shares one CR
+    decomposition between the solve and the selected inversion; every
+    other level dispatches by the resolved ``backend``."""
+    d, _, n = diag_em.shape
+    s = default_chunk_len(n)
+    if n < max(_TERMINAL, 2 * s):
+        dec = cr.decompose(sb.from_em(diag_em), sb.from_em(off_em)[: n - 1],
+                           jitter=jitter)
+        x = cr.solve(dec, sb.vec_from_em(y_em))
+        sd, so = cr.inverse_blocks(dec)
+        so_em = torch.cat([sb.to_em(so), diag_em.new_zeros((d, d, 1))],
+                          dim=-1)
+        return sb.vec_to_em(x), sb.to_em(sd), so_em
+    R_cm, O_cm, y_cm, c = _chunk_layout_em(diag_em, off_em, y_em, s)
+    x_nat, sd_nat, so_nat = _solve_inverse_from_cm(R_cm, O_cm, y_cm,
+                                                   jitter, backend)
+    return (sb.vec_to_em(x_nat[:n]), sb.to_em(sd_nat[:n]),
+            sb.to_em(so_nat[:n]))
+
+
+def _solve_inverse_from_cm(R_cm, O_cm, y_cm, jitter, backend="torch"):
+    """Fused (x = J^{-1} y, selected inverse of J) on chunk-major inputs
+    from ONE forward collect sweep; returns padded natural-order
+    (x [C*s, d], sig_diag [C*s, d, d], sig_off [C*s, d, d] with row i =
+    Sigma_{i+1, i}).  ``backend="cuda"`` runs the sweep as the
+    solve+inverse collect kernel and both upward walks as one descending
+    kernel; "torch" runs the plain sweep and walks."""
+    s, d = R_cm.shape[0], R_cm.shape[1]
+    c = R_cm.shape[-1]
+    if backend == "cuda":
+        from .sweep_cuda import (backward_solve_takahashi_cuda,
+                                 forward_sweep_solveinv_cuda)
+
+        (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc_s, hw0_s, hw_s,
+         pinv_s, _) = forward_sweep_solveinv_cuda(R_cm, O_cm, y_cm,
+                                                  jitter=jitter)
+        state = _SweepState(None, w0l, wl, dl, invdl, acc00, accy0, mh, ld)
+        w1 = sb.solve_lower(dl, invdl, sb.transpose(O_cm[s - 1]))
+    else:
+        state, w1, stacked = _forward_sweep(R_cm, O_cm, y_cm, jitter,
+                                            collect="solve_inverse")
+        hc_s, hw0_s, hw_s, pinv_s = stacked
     red_diag, red_off, red_rhs = _reduced_system(R_cm, y_cm, state, w1)
-    red_mh, red_ld = _mahal_and_logdet_em(red_diag, red_off, red_rhs,
-                                          jitter, backend)
-    return state.mh + red_mh, 2.0 * state.ld + red_ld
+    xb, p00, p10 = _solve_inverse_em(red_diag, red_off, red_rhs, jitter,
+                                     backend)
+    p11 = sb.shift_up(p00)
+    p01 = sb.transpose(p10)
+    hat_w1 = sb.solve_lower_t(state.dj, state.invd, w1)
+    xb_next = sb.shift_up(xb)
+
+    if backend == "cuda":
+        (interior, diag_int, off_rows, u0f,
+         u1f) = backward_solve_takahashi_cuda(
+            hc_s, hw0_s, hw_s, pinv_s, *[a.contiguous() for a in (
+                hat_w1, xb, xb_next, p00, p01, p10, p11)])
+    else:
+        interior = None  # assembled below by _back_substitute
+        diag_int, off_rows, u0f, u1f = _takahashi_hat_walk(
+            hc_s, hw0_s, pinv_s, hat_w1, p00, p01, p10, p11)
+
+    off_edge_left = -(sb.matmul(u0f, p00) + sb.matmul(u1f, p10))
+    diag_cm = torch.cat([p00[None], diag_int], dim=0)
+    off_cm = torch.cat([off_edge_left[None], off_rows], dim=0)
+    sig_diag = diag_cm.permute(3, 0, 1, 2).reshape(-1, d, d)
+    sig_off = off_cm.permute(3, 0, 1, 2).reshape(-1, d, d)
+
+    if interior is None:
+        x_nat = _back_substitute(state, w1, hc_s, hw0_s, hw_s, xb, c)
+    else:
+        x_cm = torch.cat([xb[None], interior], dim=0)
+        x_nat = x_cm.permute(2, 0, 1).reshape(c * s, d)
+    return x_nat, sig_diag, sig_off
+
+
+def solve_and_inverse_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
+                         jitter: float = 0.0, backend: str = "auto"):
+    """(J^{-1} y [C*s, d] padded natural order, Sigma_ii [C*s, d, d],
+    Sigma_{i+1,i} [C*s, d, d]) from ONE forward collect sweep and one
+    descending pass -- the backward primitive of `mahal_and_logdet_cm`.
+    Forward-only entry (it is the backward)."""
+    return _solve_inverse_from_cm(R_cm, O_cm, y_cm, jitter,
+                                  resolve_backend(backend, R_cm))

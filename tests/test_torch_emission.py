@@ -111,7 +111,8 @@ def _k_fixture(rank, n, s, seed):
     """Float32 LEG pieces for the emission kernels: (g, boost, ts) as
     tensors, from seeded default-init parameters and exponential gaps."""
     p = leg.init_params(rank, 2,
-                        generator=torch.Generator().manual_seed(seed))
+                        generator=torch.Generator().manual_seed(seed),
+                        device="cpu")
     with torch.no_grad():
         g = leg.g_matrix(p)
         llt = leg.lambda_lambda_t(p)

@@ -53,7 +53,8 @@ def _jax_params(rank, obs, dtype, seed, random_n=True):
 
 def _series(n, obs, dtype, spacing, seed):
     """The same series for both packages (numpy RNG in both)."""
-    ts, xs = generate_data(n, obs, dtype=dtype, spacing=spacing, seed=seed)
+    ts, xs = generate_data(n, obs, dtype=dtype, spacing=spacing, seed=seed,
+                           device="cpu")
     jts, jxs = jgenerate_data(n, obs, dtype=jnp.float64 if dtype ==
                               torch.float64 else jnp.float32,
                               spacing=spacing, seed=seed)
@@ -88,7 +89,8 @@ def test_params_round_trip_and_matrices():
                                        np.asarray(r), rtol=1e-14,
                                        atol=1e-15, err_msg=name)
 
-    q = leg.init_params(5, 2, generator=torch.Generator().manual_seed(0))
+    q = leg.init_params(5, 2, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
     assert sum(t.numel() for t in q.parameters()) == \
         leg.parameter_count(5, 2)
     with torch.no_grad():
@@ -154,7 +156,7 @@ def test_kernel_routes_match_jax_float32(monkeypatch):
     p = params_from_jax(jp)
     ts, xs, jts, jxs = _series(n, 2, torch.float32, "irregular", seed=21)
     tr, xr = generate_data(n, 2, dtype=torch.float32, spacing="regular",
-                           seed=22)
+                           seed=22, device="cpu")
     ref = float(jleg.log_likelihood(jp, jts, jxs, backend="xla"))
     plain = {
         "fused": _ll(p, ts, xs, backend="torch"),
@@ -165,10 +167,10 @@ def test_kernel_routes_match_jax_float32(monkeypatch):
     np.testing.assert_allclose(plain["fused"], ref, rtol=2e-5)
 
     called = []
-    fused = leg._gap_mahal_fused
+    fused = leg._GapMahalFused.apply
     monkeypatch.setattr(pt, "resolve_backend", lambda backend, t: "cuda")
     monkeypatch.setattr(
-        leg, "_gap_mahal_fused",
+        leg._GapMahalFused, "apply",
         lambda *a: called.append(1) or fused(*a))
     before = [w.launches for w in _WRAPPERS]
     routed = {
@@ -186,10 +188,10 @@ def test_kernel_routes_match_jax_float32(monkeypatch):
 
 
 def test_entry_runs_on_cpu():
-    """entry() builds the flagship configuration (rank 5, obs 2, N = 1024
-    irregular float32) and its step runs on the CPU, equal to the plain
-    backend there."""
-    fn, (p, ts, xs) = entry()
+    """entry(device="cpu") builds the flagship configuration (rank 5,
+    obs 2, N = 1024 irregular float32) and its step runs on the CPU,
+    equal to the plain backend there."""
+    fn, (p, ts, xs) = entry(device="cpu")
     with torch.no_grad():
         val = fn(p, ts, xs)
     assert val.shape == () and torch.isfinite(val)
@@ -210,7 +212,7 @@ def test_backend_contract_on_cpu():
         pt.resolve_backend("cuda", t)
     with pytest.raises(ValueError, match="unknown backend"):
         pt.resolve_backend("xla", t)
-    fn, (p, ts, xs) = entry()
+    fn, (p, ts, xs) = entry(device="cpu")
     with pytest.raises(ValueError):
         leg.log_likelihood(p, ts, xs, backend="cuda")
     with pytest.raises(ValueError, match="ROADMAP"):
