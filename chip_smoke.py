@@ -27,7 +27,17 @@ Phases, one line of output each (or more):
   6. train    three Adam train steps on the fused N = 1e6 route, launch
               counts reset just before and read just after; then one
               step under torch.profiler.
-  7. a JSON line of the kernels, then the final JSON status line.
+  7. posterior the four posterior kernels against their twins on the inputs
+              one insample_posterior(method="precision") call hands them
+              at N = 1e6; the solve of bench.py's system (N = 1e6, d = 5)
+              with backend="auto" and "torch"; the posterior path
+              (float32 irregular with launch counts reset just before and
+              read just after, float32 regular, float64 method="auto")
+              and make_predictions (P = 1e6 targets, and a dense P = 4096
+              grid on N = 1024), each against backend="torch"; a float64
+              N = 48 predictive against the dense GP oracle; one profiled
+              insample_posterior call.
+  8. a JSON line of the kernels, then the final JSON status line.
 
 Any failure exits non-zero before the final line.  There is no CPU path:
 without a CUDA device, or without the package beside this script, it
@@ -123,7 +133,7 @@ def compare(label, got, ref, rtol, atol, atol_of_scale=False, atols=None):
             f"err/tol={ratio:.3e} (rtol={rtol:g}, atol={tol:.3g}) "
             f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"{label} output {i} disagrees with its plain twin")
+            fail(f"{label} output {i} disagrees with its reference")
     return worst_abs
 
 
@@ -191,6 +201,8 @@ def _adjoint_flops(g, dt):
 
 def bound(kernel, args, outs, g=None, dt=None):
     """(least ms, "bytes" or "operations") for one kernel call."""
+    if kernel == "takahashi_backward":
+        args = args[:11]  # the step s-1 a0 / a1 are not read
     nbytes = _nbytes(args) + _nbytes(outs)
     if kernel == "transition_and_noise":
         flops = _tn_flops(g, dt)
@@ -204,17 +216,81 @@ def bound(kernel, args, outs, g=None, dt=None):
     elif kernel == "k_system_adjoint":
         flops = _adjoint_flops(g, dt)
     else:
-        s, r, _, c = args[0].shape
-        rows = (s - 1) * c if kernel != "backward_solve_takahashi" else s * c
+        # rows walked: args[0] is R_cm [s, ...] for the sweeps, a stack
+        # [s-1, ...] for the descending walks (Takahashi: its rows s-3..0)
+        s0, r, _, c = args[0].shape
+        rows = c * {"backward_solve_takahashi": s0, "backward_substitute": s0,
+                    "takahashi_backward": s0 - 1}.get(kernel, s0 - 1)
         per_row = {"forward_sweep": _sweep_row_flops(r),
                    "forward_sweep_solveinv": _sweep_row_flops(r)
                    + 7 * r ** 3 + 2 * r ** 2,
-                   "backward_solve_takahashi": 26 * r ** 3 + 4 * r ** 2}
+                   "backward_solve_takahashi": 26 * r ** 3 + 4 * r ** 2,
+                   # the sweep plus two back substitutions and a vector one
+                   "forward_sweep_collect": _sweep_row_flops(r)
+                   + 2 * r ** 3 + r ** 2,
+                   # two matrix-vector products and two subtractions
+                   "backward_substitute": 4 * r ** 2 + 2 * r,
+                   # the sweep without its right-hand side
+                   "forward_sweep_inverse": (8 + 1 / 3) * r ** 3,
+                   # D^{-1}, 14 products, two back substitutions (with the
+                   # four of Sigma_BB U^T)
+                   "takahashi_backward": 33 * r ** 3 + 6 * r ** 2}
         flops = rows * per_row[kernel]
     t_bytes = nbytes / PEAK_BYTES
     t_ops = flops / PEAK_FLOPS_F32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def make_system_cm(n, d, dev, seed=0):
+    """bench.py's system (make_system_cm there): a diagonally dominant SPD
+    block-tridiagonal system, condition number O(1) at any N, built with
+    numpy in chunk-major layout [s, d, d, C] / [s, d, C], float32."""
+    import numpy as np
+
+    s = 32 if n < 32768 else 128  # partitioned.default_chunk_len
+    rng = np.random.RandomState(seed)
+    c = -(-n // s)
+    m = c * s
+    q = rng.randn(n, d, d).astype(np.float32)
+    diag = np.broadcast_to(np.eye(d, dtype=np.float32), (m, d, d)).copy()
+    diag[:n] = q @ q.transpose(0, 2, 1) / d + 4 * np.eye(d, dtype=np.float32)
+    off = np.zeros((m, d, d), dtype=np.float32)
+    off[: n - 1] = (rng.randn(n - 1, d, d) / d).astype(np.float32)
+    v = np.zeros((m, d), dtype=np.float32)
+    v[:n] = rng.randn(n, d).astype(np.float32)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(dev) for a in (
+        diag.reshape(c, s, d, d).transpose(1, 2, 3, 0),
+        off.reshape(c, s, d, d).transpose(1, 2, 3, 0),
+        v.reshape(c, s, d).transpose(1, 2, 0)))
+
+
+def dense_latent_predictive(leg, params, ts, xs, t_star):
+    """Exact dense GP predictive (mean [r], cov [r, r]) of the latent at
+    t_star, float64 (the oracle of tests/test_models.py)."""
+    g = leg.g_matrix(params)
+    b = params.b
+    llt = leg.lambda_lambda_t(params)
+    n, rank = ts.shape[0], params.rank
+
+    def cross_cov(t1, t2):
+        """Cov(z(t1_i), z(t2_j)) as the [len(t1) r, len(t2) r] block
+        matrix: expm(-0.5 d G) for d = t1 - t2 >= 0, its transpose else."""
+        dt = t1[:, None] - t2[None, :]
+        e = torch.linalg.matrix_exp(-0.5 * dt.abs()[..., None, None] * g)
+        e = torch.where((dt >= 0)[..., None, None], e, e.transpose(-1, -2))
+        return e.permute(0, 2, 1, 3).reshape(t1.shape[0] * rank,
+                                             t2.shape[0] * rank)
+
+    eye_n = torch.eye(n, dtype=g.dtype, device=g.device)
+    b_tilde = torch.kron(eye_n, b)
+    cov_xx = (b_tilde @ cross_cov(ts, ts) @ b_tilde.T
+              + torch.kron(eye_n, llt))
+    cov_zx = cross_cov(t_star[None], ts) @ b_tilde.T
+    mean = cov_zx @ torch.linalg.solve(cov_xx, xs.reshape(-1))
+    cov = torch.eye(rank, dtype=g.dtype, device=g.device) - cov_zx @ \
+        torch.linalg.solve(cov_xx, cov_zx.T)
+    return mean, cov
 
 
 def rel_inf(a, b):
@@ -341,14 +417,18 @@ def main():
         twin run in float64 on the same inputs (for values that cancel
         terms far larger than themselves)."""
         kw = kw or {}
+        def outputs(fn, *a):
+            out = fn(*a, **kw)
+            return (out,) if isinstance(out, torch.Tensor) else out
+
         with torch.no_grad():
-            got = kernel(*args, **kw)
+            got = outputs(kernel, *args)
             torch.cuda.synchronize()
-            ref = twin(*args, **kw)
+            ref = outputs(twin, *args)
             atols = {}
             if f64_outputs:
-                ref64 = twin(*[a.double() if isinstance(a, torch.Tensor)
-                               else a for a in args], **kw)
+                ref64 = outputs(twin, *[a.double() if isinstance(
+                    a, torch.Tensor) else a for a in args])
                 for i in f64_outputs:
                     e_twin = float((ref[i].double() - ref64[i]).abs().max())
                     e_kern = float((got[i].double() - ref64[i]).abs().max())
@@ -623,7 +703,176 @@ def main():
             :10]:
         say(f"[train]   {key[:80]}: {ms:.3f} ms, {n} calls")
 
-    # ---- 7. summary --------------------------------------------------------
+    # ---- 7. posterior: kernels 8-11, bench.py's solve, the path ----------
+    post_kernels = ("forward_sweep_collect", "backward_substitute",
+                    "forward_sweep_inverse", "takahashi_backward")
+    captured.clear()
+    origs = [(sweep_cuda, f"{k}_cuda", capture(sweep_cuda, f"{k}_cuda"))
+             for k in post_kernels]
+    with torch.no_grad():
+        leg.insample_posterior(params, ts, xs, method="precision")
+    torch.cuda.synchronize()
+    for module, attr, orig in origs:
+        setattr(module, attr, orig)
+    if len(captured) != 4:
+        fail(f"the posterior reached only {sorted(captured)}")
+    for key, line, why in (
+            ("forward_sweep_collect", 400,
+             "kernel 1's 127 dependent elimination steps plus three back "
+             "substitutions per row; atol is 1e-4 of each output's scale"),
+            ("backward_substitute", 1006,
+             "127 dependent multiply-add steps; atol is 1e-4 of the "
+             "output's scale"),
+            ("forward_sweep_inverse", 534,
+             "kernel 1's 127 dependent elimination steps; atol is 1e-4 of "
+             "each output's scale"),
+            ("takahashi_backward", 648,
+             "126 dependent steps of ~15 products each; atol is 1e-4 of "
+             "each output's scale")):
+        args_k, kw_k = captured[f"{key}_cuda"]
+        source = ("solve_sweep.cu" if key in post_kernels[:2]
+                  else "inverse_sweep.cu")
+        check_kernel(
+            key, f"cyclic_gps_tpu_torch/csrc/{source}",
+            f"cyclic_gps_tpu/ops/pallas_sweep.py:{line}",
+            getattr(sweep_cuda, f"{key}_cuda"),
+            getattr(sweep_cuda, f"{key}_plain"), args_k, 1e-3, 1e-4, why,
+            kw=kw_k, atol_of_scale=True)
+
+    # bench.py's headline op: solve + logdet of its system at N = 1e6, d = 5
+    R_b, O_b, y_b = make_system_cm(N_BIG, 5, dev)
+    with torch.no_grad():
+        x_a, ld_a = pt.solve_cm(R_b, O_b, y_b, backend="auto")
+        x_t, ld_t = pt.solve_cm(R_b, O_b, y_b, backend="torch")
+        ms_a = cuda_ms(lambda: pt.solve_cm(R_b, O_b, y_b, backend="auto"))
+        ms_t = cuda_ms(lambda: pt.solve_cm(R_b, O_b, y_b, backend="torch"))
+    rel_x, rel_ld = rel_inf(x_a, x_t), abs(float(ld_a - ld_t) / float(ld_t))
+    ok = rel_x <= 1e-4 and rel_ld <= 1e-5
+    say(f"[posterior] bench.py solve_cm N={N_BIG}, d=5, float32: auto "
+        f"{ms_a:.3f} ms, torch {ms_t:.3f} ms (CUDA-event median of {REPS}); "
+        f"x rel diff {rel_x:.2e} <= 1e-4, log|J| rel diff {rel_ld:.2e} <= "
+        "1e-5 (diagonally dominant system, cond O(1); float32 sums over "
+        f"1e6 rows in other orders) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("solve_cm: backend='auto' disagrees with 'torch'")
+    del R_b, O_b, y_b, x_a, x_t
+
+    # the posterior path: counts reset just before and read just after
+    for r in rows:
+        r["kernel"].launches = 0
+    with torch.no_grad():
+        post_auto = leg.insample_posterior(params, ts, xs,
+                                           method="precision")
+        torch.cuda.synchronize()
+    post_launches = {r["name"]: r["kernel"].launches for r in rows}
+    say(f"[posterior] launches in one insample_posterior(method="
+        f"'precision') call, N={N_BIG} irregular float32: {post_launches}")
+    for key in ("transition_and_noise", "k_system") + post_kernels:
+        if post_launches[key] <= 0:
+            fail(f"kernel {key} was not launched by the posterior path")
+    for r in rows:
+        if r["name"] in post_kernels:
+            r["launches"] = post_launches[r["name"]]
+
+    post_bar = 1e-3
+    why32 = ("float32 posterior of K (cond ~1e3 at the 0.01 minimum gap): "
+             "Pade-7 kernels vs the Pade-13 plain emission, eliminations "
+             "in other orders; atol is 1e-3 of each output's scale")
+    params64 = leg.LEGParams(*[t.detach().double() for t in
+                               (params.n_params, params.r_params,
+                                params.lambda_params, params.b)])
+    post_cases = [
+        ("insample_posterior N=1e6 irregular float32",
+         lambda b: leg.insample_posterior(params, ts, xs,
+                                          method="precision", backend=b),
+         post_bar, why32),
+        ("insample_posterior N=1e6 regular float32",
+         lambda b: leg.insample_posterior(params, ts_r, xs_r, regular=True,
+                                          method="precision", backend=b),
+         post_bar, why32),
+        ("insample_posterior N=1e6 irregular float64, method='auto'",
+         lambda b: leg.insample_posterior(params64, ts, xs.double(),
+                                          backend=b),
+         1e-9, "float64: the same emission on both backends, eliminations "
+         "in other orders; atol is 1e-9 of each output's scale"),
+    ]
+    for label, call, bar, why in post_cases:
+        with torch.no_grad():
+            ms_auto, got = host_ms(lambda: call("auto"), reps=1)
+            ms_plain, ref = host_ms(lambda: call("torch"), reps=1)
+        compare(label, got, ref, 0.0, bar, atol_of_scale=True)
+        say(f"[posterior] {label}: auto {ms_auto:.2f} ms, torch "
+            f"{ms_plain:.2f} ms (host clock); agree ({why})")
+    del post_auto
+
+    # predictions: P = 1e6 sorted targets (midpoints and forecasts on both
+    # sides), then a dense grid (P >= 2N: the dual geometry branch)
+    mid = 0.5 * (ts[1:] + ts[:-1])
+    edge = torch.tensor([3.0, 0.5], dtype=ts.dtype, device=dev)
+    targets = torch.cat([ts[0] - edge, mid, ts[-1] + edge.flip(0)])
+    ts_d, xs_d = generate_data(1024, OBS, dtype=torch.float64, seed=3,
+                               device=dev)
+    targets_d = torch.sort(ts_d[0] - 1.0 + (ts_d[-1] - ts_d[0] + 2.0)
+                           * torch.rand(4096, dtype=torch.float64,
+                                        generator=torch.Generator()
+                                        .manual_seed(4)).to(dev)).values
+    pred_cases = [
+        (f"make_predictions N={N_BIG}, P={targets.shape[0]} float32",
+         lambda b: leg.make_predictions(params, ts, xs, targets,
+                                        method="precision", backend=b)),
+        ("make_predictions N=1024, P=4096 float32 (dual geometry branch)",
+         lambda b: leg.make_predictions(params, ts_d, xs_d.float(),
+                                        targets_d, method="precision",
+                                        backend=b)),
+    ]
+    for label, call in pred_cases:
+        with torch.no_grad():
+            ms_auto, got = host_ms(lambda: call("auto"), reps=1)
+            ms_plain, ref = host_ms(lambda: call("torch"), reps=1)
+        compare(label, got, ref, 0.0, post_bar, atol_of_scale=True)
+        say(f"[posterior] {label}: auto {ms_auto:.2f} ms, torch "
+            f"{ms_plain:.2f} ms (host clock); agree ({why32}; the "
+            "interpolation exponentials add the same Pade-7 vs Pade-13 "
+            "difference)")
+
+    # float64 N = 48 latent predictive against the dense GP oracle
+    ts48, xs48 = ts_s.double(), xs_s.double()
+    t_star = torch.stack([ts48[0] - 2.3, 0.6 * ts48[10] + 0.4 * ts48[11],
+                          ts48[-1] + 1.7])
+    with torch.no_grad():
+        lat_mean, lat_cov = leg.predictive_posterior(params64, ts48, xs48,
+                                                     t_star)
+        worst = 0.0
+        for i in range(t_star.shape[0]):
+            m_o, c_o = dense_latent_predictive(leg, params64, ts48, xs48,
+                                               t_star[i])
+            for a, b in ((lat_mean[i], m_o), (lat_cov[i], c_o)):
+                err = float(((a - b).abs() / (1e-8 + 1e-7 * b.abs())).max())
+                worst = max(worst, err)
+    say(f"[posterior] N={N_SMALL} float64 predictive (backward forecast, "
+        "interpolation, forward forecast) vs the dense GP oracle: "
+        f"err/tol {worst:.3e} (rtol 1e-7, atol 1e-8, the bar of "
+        f"tests/test_models.py) {'ok' if worst <= 1.0 else 'MISMATCH'}")
+    if worst > 1.0:
+        fail("the float64 predictive disagrees with the dense oracle")
+
+    with torch.no_grad():
+        wall, by_kernel = profiled(lambda: leg.insample_posterior(
+            params, ts, xs, method="precision"))
+    if not by_kernel:
+        say("[posterior] profiled call: the profiler saw no device events; "
+            "device ops and busy share not measured")
+    else:
+        dev_ms = sum(ms for ms, _ in by_kernel.values())
+        n_ops = sum(n for _, n in by_kernel.values())
+        say(f"[posterior] profiled insample_posterior N={N_BIG} irregular "
+            f"float32: wall {wall:.2f} ms (profiler on), {n_ops} device "
+            f"ops, device {dev_ms:.2f} ms, busy share {dev_ms / wall:.3f}")
+    for key, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
+            :10]:
+        say(f"[posterior]   {key[:80]}: {ms:.3f} ms, {n} calls")
+
+    # ---- 8. summary --------------------------------------------------------
     say(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

@@ -1,5 +1,6 @@
-// Shared device functions of the LEG likelihood kernels (forward_sweep.cu,
-// gap_emission.cu): tiny-block algebra on R x R matrices held per thread.
+// Shared device functions of the package's kernels (forward_sweep.cu,
+// gap_emission.cu, gap_adjoint.cu, backward_sweep.cu, solve_sweep.cu,
+// inverse_sweep.cu): tiny-block algebra on R x R matrices held per thread.
 //
 // Every kernel of this package runs ONE THREAD PER LANE (a chunk c of the
 // chunk-major layout, or one gap): the lane's blocks live in per-thread
@@ -261,6 +262,22 @@ __device__ __forceinline__ void solve_lower_t(const T (&L)[R][R],
 #pragma unroll
       for (int k = 0; k < i; ++k) res[k][e] -= L[i][k] * x[i][e];
     }
+}
+
+// L^T x = y (back substitution), vector right-hand side
+template <typename T, int R>
+__device__ __forceinline__ void solve_lower_t_vec(const T (&L)[R][R],
+                                                  const T (&invd)[R],
+                                                  const T (&y)[R], T (&x)[R]) {
+  T res[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) res[i] = y[i];
+#pragma unroll
+  for (int i = R - 1; i >= 0; --i) {
+    x[i] = res[i] * invd[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) res[k] -= L[i][k] * x[i];
+  }
 }
 
 // A X = B by unpivoted Gaussian elimination (expm_pallas._lu_solve_k): for

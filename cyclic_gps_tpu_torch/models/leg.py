@@ -1,7 +1,8 @@
 """LEG (Latent Exponentially Generated) Gaussian-process family, PyTorch:
-the marginal likelihood and its gradient.
+the marginal likelihood and its gradient, the posterior and predictions.
 
-Counterpart of ``cyclic_gps_tpu/models/leg.py`` (the likelihood):
+Counterpart of ``cyclic_gps_tpu/models/leg.py`` (the likelihood, the
+precision-route posterior, intercast and prior sampling):
 
     z ~ PEG(N, R)           a stationary latent Markov process with unit
                             stationary covariance and generator
@@ -17,11 +18,13 @@ packing: N lower-triangular incl. the diagonal, R strictly lower, Lambda
 lower-triangular with a softplus on read, B dense.
 
 Backends (``backend=``): ``"auto"`` runs the hand-written CUDA kernels
-for float32 CUDA tensors and plain tensor code otherwise; ``"torch"``
-runs plain tensor code on any device, end to end; ``"cuda"`` demands the
-kernels.  Timestamps may be float64 while the model runs in float32: gaps
-are formed at the timestamps' precision and then cast (at N = 1e6 a
-float32 time axis can no longer resolve a 0.01 gap).
+for CUDA tensors and plain tensor code otherwise (the engine's sweep
+kernels take float32 and float64; the gap-emission kernels take float32
+only, so float64 emits with tensor code); ``"torch"`` runs plain tensor
+code on any device, end to end; ``"cuda"`` demands the kernels.
+Timestamps may be float64 while the model runs in float32: gaps are
+formed at the timestamps' precision and then cast (at N = 1e6 a float32
+time axis can no longer resolve a 0.01 gap).
 
 Gradients: every kernel route is a ``torch.autograd.Function`` whose
 backward is the JAX package's custom VJP -- the fused route replays the
@@ -46,6 +49,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from cyclic_gps_tpu_torch import resolve_device
+from cyclic_gps_tpu_torch.models.gaussians import (build_2x2_block,
+                                                   build_3x3_block,
+                                                   gaussian_stitch)
 from cyclic_gps_tpu_torch.ops import partitioned as pt
 from cyclic_gps_tpu_torch.ops import smallblock as sb
 from cyclic_gps_tpu_torch.ops.expm_cuda import (gap_mahal_sweep_cuda,
@@ -275,6 +281,14 @@ def peg_precision_and_logdet(g: Tensor, ts: Tensor, backend: str = "auto"):
     Markovianity log|Sigma| = sum_i log|Q1_i|."""
     diag_em, off_em, sig_inv_logdet = _peg_precision_em(g, ts, backend)
     return sb.from_em(diag_em), sb.from_em(off_em), sig_inv_logdet
+
+
+def peg_precision(g: Tensor, ts: Tensor,
+                  backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """Block-tridiagonal precision of the PEG latent on grid ``ts``:
+    ([N, r, r] diag, [N-1, r, r] lower-off) of
+    `peg_precision_and_logdet`."""
+    return peg_precision_and_logdet(g, ts, backend)[:2]
 
 
 def _q1_terms(e, q1):
@@ -684,3 +698,395 @@ def log_likelihood(
     mahal = llt_mahal - k_mahal
     logdet = llt_logdet + k_logdet - sig_inv_logdet
     return -0.5 * (mahal + logdet)
+
+
+# ---------------------------------------------------------------------------
+# The posterior and predictions (the precision route).
+# ---------------------------------------------------------------------------
+
+
+@_highest_precision
+def posterior_precision(params: LEGParams, ts: Tensor,
+                        backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """K = Sigma^{-1} + I_N (x) B^T LLT^{-1} B (reference models.py:254-268):
+    ([N, r, r] diag, [N-1, r, r] lower-off)."""
+    llt = lambda_lambda_t(params)
+    sig_inv_diag, sig_inv_off = peg_precision(g_matrix(params), ts, backend)
+    bt_llt_inv_b = params.b.T @ torch.linalg.solve(llt, params.b)
+    return sig_inv_diag + bt_llt_inv_b[None], sig_inv_off
+
+
+@_highest_precision
+def compute_v(params: LEGParams, xs: Tensor) -> Tensor:
+    """v = (LLT^{-1} x) B (reference models.py:270-280)."""
+    llt = lambda_lambda_t(params)
+    return torch.linalg.solve(llt, xs.T).T @ params.b
+
+
+POSTERIOR_METHODS = ("auto", "precision", "smoother")
+
+
+def _resolve_posterior_method(method: str, dtype) -> str:
+    """Resolve the posterior route.  "precision" factorises the
+    block-tridiagonal posterior precision K (partitioned engine); its
+    condition number scales like 1/(dt * lambda_min(sym G)), beyond
+    1/eps_f32 for very smooth learned processes, so it is the float64
+    route.  "smoother" is the parallel Kalman/RTS smoother, safe in
+    float32.  "auto" picks by dtype."""
+    if method not in POSTERIOR_METHODS:
+        raise ValueError(
+            f"method must be one of {POSTERIOR_METHODS}, got {method!r}")
+    if method == "auto":
+        return "precision" if dtype == torch.float64 else "smoother"
+    return method
+
+
+def _check_precision_route(params: LEGParams, method: str) -> None:
+    """Resolve ``method`` by the model's dtype (the JAX package reads the
+    timestamps' dtype; here float64 timestamps may drive a float32 model)
+    and refuse the smoother route, which is not ported yet."""
+    if _resolve_posterior_method(method, params.b.dtype) == "smoother":
+        raise NotImplementedError(
+            "the Kalman-smoother posterior route is not ported yet "
+            "(ROADMAP.md, Queue 1 item 3); float32 method='auto' resolves "
+            "to it: pass method='precision'")
+
+
+@_highest_precision
+def posterior_mean(params: LEGParams, ts: Tensor, xs: Tensor,
+                   regular: bool = False, method: str = "auto",
+                   backend: str = "auto") -> Tensor:
+    """Posterior mean of the latent z at the observation times [N, r], by
+    one solve of the posterior precision K emitted chunk-major.
+    ``method``: see `_resolve_posterior_method` ("smoother", and float32
+    "auto", raise until the smoother is ported).  ``backend`` selects the
+    engine and the emission only."""
+    _check_precision_route(params, method)
+    n = ts.shape[0]
+    s = pt.default_chunk_len(n)
+    if n < max(pt._TERMINAL, 2 * s):
+        k_diag, k_off = posterior_precision(params, ts, backend)
+        return pt.solve(k_diag, k_off, compute_v(params, xs),
+                        backend=backend)
+    k_cm, o_cm, v_cm, _ = _k_system_chunked(params, ts, xs, s, regular,
+                                            backend)
+    x_pad, _ = pt.solve_cm(k_cm, o_cm, v_cm, backend=backend)
+    return x_pad[:n]
+
+
+@_highest_precision
+def insample_posterior(params: LEGParams, ts: Tensor, xs: Tensor,
+                       regular: bool = False, method: str = "auto",
+                       backend: str = "auto"
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Posterior mean, marginal covariances and lag-1 cross-covariances of
+    the latent z at the observation times (reference models.py:282-298):
+    (mean [N, r], cov_diag [N, r, r], cov_off [N-1, r, r]) with
+    cov_off[i] = Cov(z_{i+1}, z_i | x).
+
+    The precision route: one solve (`partitioned.solve_cm`) and one
+    selected inversion (`partitioned.inverse_blocks_cm`) of K.  On the
+    card (``backend="auto"`` or "cuda") K is emitted by the K-system
+    kernel at float32 and both engine calls run their kernels at every
+    ladder level.  The selected inversion's kernels have no backward:
+    call this under ``torch.no_grad()`` when the parameters require
+    grad.  ``method``: see `posterior_mean`."""
+    _check_precision_route(params, method)
+    n = ts.shape[0]
+    s = pt.default_chunk_len(n)
+    if n < max(pt._TERMINAL, 2 * s):
+        k_diag, k_off = posterior_precision(params, ts, backend)
+        mean = pt.solve(k_diag, k_off, compute_v(params, xs),
+                        backend=backend)
+        cov_diag, cov_off = pt.inverse_blocks(k_diag, k_off,
+                                              backend=backend)
+        return mean, cov_diag, cov_off
+    k_cm, o_cm, v_cm, _ = _k_system_chunked(params, ts, xs, s, regular,
+                                            backend)
+    mean_pad, _ = pt.solve_cm(k_cm, o_cm, v_cm, backend=backend)
+    cov_diag_pad, cov_off_pad = pt.inverse_blocks_cm(k_cm, o_cm,
+                                                     backend=backend)
+    return mean_pad[:n], cov_diag_pad[:n], cov_off_pad[: n - 1]
+
+
+def _forecast(rank, eg, ip_mean, ip_cov):
+    """Extrapolate one step through the prior (reference models.py:394-407),
+    batched over leading dims; eg = expm(-0.5 |dt| G) oriented so that
+    Cov(z_target, z_anchor) = eg."""
+    eye = torch.eye(rank, dtype=eg.dtype, device=eg.device).expand_as(eg)
+    joint_mean = eg.new_zeros(eg.shape[:-2] + (2 * rank,))
+    joint_cov = build_2x2_block(eye, eg.transpose(-1, -2), eg, eye)
+    return gaussian_stitch(joint_mean, joint_cov, ip_mean, ip_cov)
+
+
+def _interpolate(rank, eg1, eg2, prev_mean, prev_cov, prev_cross, next_mean,
+                 next_cov):
+    """Condition a between-points latent on both neighbours (reference
+    models.py:409-451), batched over leading dims.  eg1 = expm(-0.5
+    (t* - t_prev) G), eg2 = expm(-0.5 (t_next - t*) G); prev_cross =
+    Cov(z_next, z_prev | x)."""
+    eye = torch.eye(rank, dtype=eg1.dtype, device=eg1.device).expand_as(eg1)
+    eg3 = eg1 @ eg2
+    t = lambda a: a.transpose(-1, -2)  # noqa: E731
+    joint_mean = eg1.new_zeros(eg1.shape[:-2] + (3 * rank,))
+    joint_cov = build_3x3_block(eye, t(eg3), t(eg1), eg3, eye, eg2, eg1,
+                                t(eg2), eye)
+    joint_ip_mean = torch.cat([prev_mean, next_mean], dim=-1)
+    joint_ip_cov = build_2x2_block(prev_cov, t(prev_cross), prev_cross,
+                                   next_cov)
+    return gaussian_stitch(joint_mean, joint_cov, joint_ip_mean,
+                           joint_ip_cov)
+
+
+def _intercast_geometry(ts: Tensor, target_ts: Tensor, thresh: float):
+    """(is_back, is_fwd, hit_first, hit_last, prev_i, next_i, off_i,
+    d_back, d_fwd, d1, d2) shared by both intercast implementations;
+    ``target_ts`` must be sorted.
+
+    Dense grids (P >= 2N) take the dual search, as the JAX package does:
+    the N observations are searched into the P sorted targets and
+    idx_t = #{i: ts_i < target_t} is recovered by a scatter-add and a
+    cumulative sum; the anchor times come from a scatter-max + cummax
+    (scatter-min + reversed cummin).  Index p marks a dropped update, so
+    the scatters go into p + 1 slots and the last is cut off."""
+    n = ts.shape[0]
+    p = target_ts.shape[0]
+    if p >= 2 * n:
+        # q_i = #{t: target_t <= ts_i}; then ts_i < target_t <=> q_i <= t
+        q = torch.searchsorted(target_ts, ts, right=True)
+        idx = torch.cumsum(torch.zeros(p + 1, dtype=q.dtype,
+                                       device=ts.device).scatter_add_(
+            0, q, torch.ones_like(q))[:p], 0)
+        zmax = torch.full((p + 1,), -math.inf, dtype=ts.dtype,
+                          device=ts.device).scatter_reduce_(0, q, ts, "amax")
+        ts_prev = torch.maximum(torch.cummax(zmax[:p], 0).values, ts[0])
+        qn = torch.where(q >= 1, q - 1, p)
+        zmin = torch.full((p + 1,), math.inf, dtype=ts.dtype,
+                          device=ts.device).scatter_reduce_(0, qn, ts, "amin")
+        ts_next = torch.minimum(
+            torch.flip(torch.cummin(torch.flip(zmin[:p], (0,)), 0).values,
+                       (0,)), ts[-1])
+    else:
+        idx = torch.searchsorted(ts, target_ts)
+        ts_prev = ts[torch.clamp(idx - 1, 0, n - 1)]
+        ts_next = ts[torch.clamp(idx, 0, n - 1)]
+    is_back = idx == 0
+    is_fwd = idx == n
+    hit_first = torch.abs(target_ts - ts[0]) <= thresh
+    hit_last = torch.abs(target_ts - ts[-1]) <= thresh
+    prev_i = torch.clamp(idx - 1, 0, n - 1)
+    next_i = torch.clamp(idx, 0, n - 1)
+    off_i = torch.clamp(idx - 1, 0, max(n - 2, 0))
+    # time gaps, clamped nonnegative so unused branches stay finite
+    d_back = torch.clamp(ts[0] - target_ts, min=0.0)
+    d_fwd = torch.clamp(target_ts - ts[-1], min=0.0)
+    d1 = torch.clamp(target_ts - ts_prev, min=0.0)
+    d2 = torch.clamp(ts_next - target_ts, min=0.0)
+    return (is_back, is_fwd, hit_first, hit_last, prev_i, next_i, off_i,
+            d_back, d_fwd, d1, d2)
+
+
+@_highest_precision
+def intercast(params: LEGParams, ip_mean: Tensor, ip_cov_diag: Tensor,
+              ip_cov_off: Tensor, ts: Tensor, target_ts: Tensor,
+              thresh: float = 1e-10,
+              backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """Latent predictive moments (mean [P, r], cov [P, r, r]) at sorted
+    target times: backward forecast, forward forecast or interpolation
+    per target, with exact passthrough where a target coincides with the
+    first or last observation (reference models.py:454-514).
+
+    Element-major throughout ([*, *, P]), as the JAX package's: the
+    interpolation stitch solves its 2r x 2r system with the element-major
+    Cholesky, and the forecast stitches have closed forms.  The four
+    exponential batches run in one call: the (e, Q) kernel with Q
+    discarded for float32 on the card, the plain Pade-13 exponential
+    elsewhere.  `_intercast_batched` is the per-target oracle."""
+    rank = params.rank
+    g = g_matrix(params)
+    dtype = g.dtype
+    p = target_ts.shape[0]
+    (is_back, is_fwd, hit_first, hit_last, prev_i, _, _,
+     d_back, d_fwd, d1, d2) = _intercast_geometry(ts, target_ts, thresh)
+
+    gaps = torch.cat([d_back, d_fwd, d1, d2]).to(dtype)  # [4P]
+    if dtype == torch.float32 and pt.resolve_backend(backend, gaps) == "cuda":
+        egs = transition_and_noise_em(g, gaps, backend)[0]
+    else:
+        from cyclic_gps_tpu_torch.ops.expm_em import expm_em
+
+        egs = expm_em(-0.5 * gaps[None, None, :] * g[:, :, None])
+    eg_back, eg_fwd = egs[:, :, :p], egs[:, :, p:2 * p]
+    eg1, eg2 = egs[:, :, 2 * p:3 * p], egs[:, :, 3 * p:]
+
+    # the interpolation anchors' moments: one row gather of a packed
+    # [N, 2r + 3r^2] matrix (m_i, m_{i+1}, cd_i, cd_{i+1}, co_i) by prev_i;
+    # for every interpolation target next_i == prev_i + 1 and off_i ==
+    # prev_i, and the other targets read finite values that are discarded
+    m_em = sb.vec_to_em(ip_mean)
+    cd_em = sb.to_em(ip_cov_diag)
+    n_obs = ip_mean.shape[0]
+    r2 = rank * rank
+    z_pack = torch.cat([
+        ip_mean,
+        torch.cat([ip_mean[1:], ip_mean[-1:]], dim=0),
+        ip_cov_diag.reshape(n_obs, r2),
+        torch.cat([ip_cov_diag[1:], ip_cov_diag[-1:]],
+                  dim=0).reshape(n_obs, r2),
+        torch.cat([ip_cov_off, ip_cov_off.new_zeros((1, rank, rank))],
+                  dim=0).reshape(n_obs, r2),
+    ], dim=1)
+    z_g = z_pack[prev_i].T  # [2r + 3r^2, P]
+    m_prev, m_next = z_g[:rank], z_g[rank:2 * rank]
+    p_prev = z_g[2 * rank:2 * rank + r2].reshape(rank, rank, p)
+    p_next = z_g[2 * rank + r2:2 * rank + 2 * r2].reshape(rank, rank, p)
+    c_off = z_g[2 * rank + 2 * r2:].reshape(rank, rank, p)
+
+    eye = sb.eye_em(rank, g)
+    mm = sb.matmul
+
+    def forecast_em(eg, m_a, p_a):
+        # the anchor's conditioning covariance is I: T = eg (closed form)
+        mean = sb.matvec(eg, m_a.expand(rank, p))
+        eg_pa = mm(eg, p_a.expand(rank, rank, p))
+        return mean, eye - mm(eg, eg, tb=True) + mm(eg_pa, eg, tb=True)
+
+    # backward forecast: Cov(z_target, z_first) = expm(-.5 d G)^T
+    mean_b, cov_b = forecast_em(sb.transpose(eg_back), m_em[:, :1],
+                                cd_em[:, :, :1])
+    # forward forecast: Cov(z_target, z_last) = expm(-.5 d G)
+    mean_f, cov_f = forecast_em(eg_fwd, m_em[:, -1:], cd_em[:, :, -1:])
+
+    # interpolation: condition z_target on (z_prev, z_next)
+    eg3 = mm(eg1, eg2)
+    eye_b = eye.expand(rank, rank, p)
+    sxx = torch.cat([torch.cat([eye_b, sb.transpose(eg3)], dim=1),
+                     torch.cat([eg3, eye_b], dim=1)], dim=0)  # [2r, 2r, P]
+    sxy = torch.cat([sb.transpose(eg1), eg2], dim=0)  # [2r, r, P]
+    L, invd = sb.cholesky(sxx)
+    t_t = sb.solve_lower_t(L, invd, sb.solve_lower(L, invd, sxy))
+    mean_i = sb.matvec(t_t, torch.cat([m_prev, m_next], dim=0), ta=True)
+    s_x = torch.cat([torch.cat([p_prev, sb.transpose(c_off)], dim=1),
+                     torch.cat([c_off, p_next], dim=1)], dim=0)
+    cov_i = (eye - mm(t_t, sxy, ta=True)
+             + mm(mm(t_t, s_x, ta=True), t_t))
+
+    def select(mask, a_m, a_c, b_m, b_c):
+        # a select, not arithmetic masking: boundary-hit lanes make the
+        # interpolation system exactly singular, and 0 * nan is nan
+        return (torch.where(mask[None, :], a_m, b_m),
+                torch.where(mask[None, None, :], a_c, b_c))
+
+    mean, cov = select(is_back, mean_b, cov_b, mean_i, cov_i)
+    mean, cov = select(is_fwd, mean_f, cov_f, mean, cov)
+    # exact hits on the first/last observation pass through unchanged
+    mean, cov = select(hit_first, m_em[:, :1].expand(rank, p),
+                       cd_em[:, :, :1].expand(rank, rank, p), mean, cov)
+    mean, cov = select(hit_last, m_em[:, -1:].expand(rank, p),
+                       cd_em[:, :, -1:].expand(rank, rank, p), mean, cov)
+    return sb.vec_from_em(mean), sb.from_em(cov)
+
+
+@_highest_precision
+def _intercast_batched(params: LEGParams, ip_mean: Tensor,
+                       ip_cov_diag: Tensor, ip_cov_off: Tensor, ts: Tensor,
+                       target_ts: Tensor,
+                       thresh: float = 1e-10) -> Tuple[Tensor, Tensor]:
+    """Per-target (batch-major) intercast built from the reference's
+    Gaussian stitches: the readable oracle `intercast` is tested against.
+    Builds [P, 3r, 3r] stitches; not for dense P."""
+    from cyclic_gps_tpu_torch.ops.expm_em import expm_em
+
+    rank = params.rank
+    g = g_matrix(params)
+    p = target_ts.shape[0]
+    (is_back, is_fwd, hit_first, hit_last, prev_i, next_i, off_i,
+     d_back, d_fwd, d1, d2) = _intercast_geometry(ts, target_ts, thresh)
+    gaps = torch.cat([d_back, d_fwd, d1, d2]).to(g.dtype)
+    egs = sb.from_em(expm_em(-0.5 * gaps[None, None, :] * g[:, :, None]))
+    eg_back, eg_fwd = egs[:p], egs[p:2 * p]
+    eg1, eg2 = egs[2 * p:3 * p], egs[3 * p:]
+
+    def first(a):
+        return a[:1].expand((p,) + a.shape[1:])
+
+    def last(a):
+        return a[-1:].expand((p,) + a.shape[1:])
+
+    m_b, v_b = _forecast(rank, eg_back.transpose(-1, -2), first(ip_mean),
+                         first(ip_cov_diag))
+    m_f, v_f = _forecast(rank, eg_fwd, last(ip_mean), last(ip_cov_diag))
+    m_i, v_i = _interpolate(rank, eg1, eg2, ip_mean[prev_i],
+                            ip_cov_diag[prev_i], ip_cov_off[off_i],
+                            ip_mean[next_i], ip_cov_diag[next_i])
+    mean = torch.where(is_back[:, None], m_b,
+                       torch.where(is_fwd[:, None], m_f, m_i))
+    cov = torch.where(is_back[:, None, None], v_b,
+                      torch.where(is_fwd[:, None, None], v_f, v_i))
+    mean = torch.where(hit_first[:, None], first(ip_mean), mean)
+    cov = torch.where(hit_first[:, None, None], first(ip_cov_diag), cov)
+    mean = torch.where(hit_last[:, None], last(ip_mean), mean)
+    cov = torch.where(hit_last[:, None, None], last(ip_cov_diag), cov)
+    return mean, cov
+
+
+def predictive_posterior(params: LEGParams, ts: Tensor, xs: Tensor,
+                         target_ts: Tensor, method: str = "auto",
+                         backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """Latent predictive moments at sorted target times (reference
+    models.py:516-528): `insample_posterior`, then `intercast`."""
+    mean, cov_diag, cov_off = insample_posterior(params, ts, xs,
+                                                 method=method,
+                                                 backend=backend)
+    return intercast(params, mean, cov_diag, cov_off, ts, target_ts,
+                     backend=backend)
+
+
+@_highest_precision
+def make_predictions(params: LEGParams, ts: Tensor, xs: Tensor,
+                     target_ts: Tensor, include_obs_noise: bool = False,
+                     method: str = "auto",
+                     backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """Data-space predictive moments (mean [P, obs], cov [P, obs, obs]) at
+    sorted target times (reference models.py:530-546).  With
+    ``include_obs_noise=False`` this matches the reference, which omits
+    Lambda Lambda^T from the predictive covariance; True adds it.
+    ``target_ts`` has the dtype of ``ts``."""
+    lat_mean, lat_cov = predictive_posterior(params, ts, xs, target_ts,
+                                             method=method, backend=backend)
+    mean = lat_mean @ params.b.T
+    cov = params.b[None] @ lat_cov @ params.b.T[None]
+    if include_obs_noise:
+        cov = cov + lambda_lambda_t(params)[None]
+    return mean, cov
+
+
+@_highest_precision
+def sample_from_prior(params: LEGParams, generator: torch.Generator,
+                      ts: Tensor, num: int = 1) -> Tuple[Tensor, Tensor]:
+    """Joint samples (zs [num, N, r], xs [num, N, obs]) from the LEG prior
+    on grid ``ts``, by the exact discrete-time bridge: for gap d,
+    z_{i+1} = expm(-0.5 d G) z_i + w_i with Cov(w_i) = I - A A^T, then
+    x_i = B z_i + Lambda e_i.  ``generator`` takes the place of the JAX
+    key (the two give different numbers from one seed); its draws are
+    made on its own device and moved to the parameters'."""
+    rank = params.rank
+    g = g_matrix(params)
+    diffs = (ts[1:] - ts[:-1]).to(g.dtype)
+    a, q = transition_and_noise(g, diffs)
+    q_chol = torch.linalg.cholesky(
+        q + 1e-12 * torch.eye(rank, dtype=g.dtype, device=g.device))
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, dtype=g.dtype,
+                           device=generator.device).to(g.device)
+
+    z = normal(num, rank)
+    ws = normal(diffs.shape[0], num, rank)
+    zs = [z]
+    for i in range(diffs.shape[0]):
+        z = z @ a[i].T + ws[i] @ q_chol[i].T
+        zs.append(z)
+    zs = torch.stack(zs, dim=1)  # [num, N, rank]
+    es = normal(num, ts.shape[0], params.obs_dim)
+    return zs, zs @ params.b.T + es @ lambda_matrix(params).T

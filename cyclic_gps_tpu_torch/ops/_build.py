@@ -30,7 +30,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _SOURCES = ("forward_sweep.cu", "gap_emission.cu", "backward_sweep.cu",
-            "gap_adjoint.cu")
+            "gap_adjoint.cu", "solve_sweep.cu", "inverse_sweep.cu")
 _HEADERS = ("blockmath.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -58,6 +58,18 @@ _SIGNATURES = {
     "cgt_backward_solve_takahashi_f64": [_P] * 11 + [_I, _I, _I] + [_P] * 5
     + [_P],
     "cgt_k_system_adjoint_f32": [_P] * 7 + [_I, _I, _I] + [_P] * 3 + [_P],
+    "cgt_forward_sweep_collect_f32": [_P, _P, _P, ctypes.c_float, _I, _I,
+                                      _I] + [_P] * 12 + [_P],
+    "cgt_forward_sweep_collect_f64": [_P, _P, _P, ctypes.c_double, _I, _I,
+                                      _I] + [_P] * 12 + [_P],
+    "cgt_backward_substitute_f32": [_P] * 6 + [_I, _I, _I] + [_P] + [_P],
+    "cgt_backward_substitute_f64": [_P] * 6 + [_I, _I, _I] + [_P] + [_P],
+    "cgt_forward_sweep_inverse_f32": [_P, _P, ctypes.c_float, _I, _I, _I]
+    + [_P] * 8 + [_P],
+    "cgt_forward_sweep_inverse_f64": [_P, _P, ctypes.c_double, _I, _I, _I]
+    + [_P] * 8 + [_P],
+    "cgt_takahashi_backward_f32": [_P] * 11 + [_I, _I, _I] + [_P] * 4 + [_P],
+    "cgt_takahashi_backward_f64": [_P] * 11 + [_I, _I, _I] + [_P] * 4 + [_P],
 }
 
 

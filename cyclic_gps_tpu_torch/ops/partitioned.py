@@ -24,21 +24,34 @@ and the reduced system over the C boundary blocks is
 log|J| = 2 sum log diag D + log|reduced|;  y^T J^{-1} y = sum ||w||^2 +
 mahal(reduced, rhs).
 
-Backends: ``"torch"`` runs the plain tensor sweep below on any device;
-``"cuda"`` runs the hand-written sweep kernels (ops/sweep_cuda.py);
-``"auto"`` picks ``"cuda"`` for CUDA tensors.  Every sweep of the
-reduced-system ladder dispatches the same way; only the terminal cyclic
-reduction stays plain tensor code.
+Entries: (mahal, logdet) `mahal_and_logdet(_cm)` and `logdet`; the solve
+`solve(_cm)` / `solve_and_logdet`; the per-row pivot log-dets
+`logdet_rows(_cm)`, `logdet_per_segment` and the fused
+`solve_and_ld_rows_cm`; the selected inversion `inverse_blocks(_cm)`; and
+the fused solve + selected inversion `solve_and_inverse_cm`.
 
-Gradients: `mahal_and_logdet_cm` is a ``torch.autograd.Function`` whose
-backward is the JAX package's analytic adjoint (`_mahal_cm_bwd`): one
+Backends: ``"torch"`` runs the plain tensor sweeps below on any device;
+``"cuda"`` runs the hand-written sweep kernels (ops/sweep_cuda.py);
+``"auto"`` picks ``"cuda"`` for CUDA tensors, at float32 and float64
+alike.  Every sweep of the reduced-system ladder dispatches the same way
+(the JAX package runs its ladder levels on XLA); only the terminal
+cyclic reduction stays plain tensor code.
+
+Gradients: `mahal_and_logdet_cm`, `solve_cm`, `logdet_rows_cm` and
+`solve_and_ld_rows_cm` are ``torch.autograd.Function``s whose backwards
+are the JAX package's analytic adjoints (`_mahal_cm_bwd`,
+`_solve_cm_bwd`, `_ld_rows_cm_bwd`, `_solve_ldr_cm_bwd`), built on one
 collect sweep streaming the shared hat stacks and one descending pass
 running the back-substitution and the hat-form Takahashi recursion
-(`_solve_inverse_from_cm`), on every backend.
+(`_solve_inverse_from_cm`), on every backend.  The selected inversion
+has no backward of its own: its plain route differentiates by autograd,
+its kernel route refuses inputs that require grad (as the JAX package's
+TPU kernels have no VJP either).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -193,17 +206,37 @@ def _collect_ldrows(state: _SweepState):
     return 2.0 * sb.chol_log_diag_rows(state.dj)
 
 
-_COLLECTORS = {"ldrows": _collect_ldrows,
-               "solve_inverse": _collect_solve_inverse}
+def _collect_inverse(state: _SweepState):
+    """Per-step raw factors for the selected inversion (D, invd, C, W0)."""
+    return state.dj, state.invd, state.c_prev, state.w0
+
+
+def _collect_solve_ldrows(state: _SweepState):
+    """The hat factors AND the per-row pivot log-dets from the same step
+    (the fused solve + per-row log-det sweep, `solve_and_ld_rows_cm`)."""
+    return _collect_solve(state) + (_collect_ldrows(state),)
+
+
+def _collect_solve_inverse_ld(state: _SweepState):
+    """`_collect_solve_inverse` plus the per-row pivot log-dets."""
+    return _collect_solve_inverse(state) + (_collect_ldrows(state),)
+
+
+_COLLECTORS = {"solve": _collect_solve, "inverse": _collect_inverse,
+               "ldrows": _collect_ldrows,
+               "solve_ldrows": _collect_solve_ldrows,
+               "solve_inverse": _collect_solve_inverse,
+               "solve_inverse_ld": _collect_solve_inverse_ld}
 
 
 def _forward_sweep(R_cm, O_cm, y_cm, jitter, collect):
     """Eliminate all chunk interiors (j = 1 .. s-1).
 
-    ``collect`` is None (fused mahal/logdet: nothing stored), "ldrows"
-    (per-step pivot log-dets) or "solve_inverse" (the hat factors of
-    `_collect_solve` + pinv).  Returns (final state, W1, stacked | None):
-    one [s-1, ...] stack, or a tuple of them for a tuple collector.
+    ``collect`` is None (fused mahal/logdet: nothing stored) or a key of
+    `_COLLECTORS` ("solve": the hat factors of `_collect_solve`,
+    "inverse": the raw factors, "ldrows": per-step pivot log-dets, and
+    their combinations).  Returns (final state, W1, stacked | None): one
+    [s-1, ...] stack, or a tuple of them for a tuple collector.
     """
     s = R_cm.shape[0]
     collector = _COLLECTORS[collect] if collect else None
@@ -370,6 +403,14 @@ def mahal_and_logdet_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
                           resolve_backend(backend, R_cm))
 
 
+def logdet(diag: Tensor, off: Tensor, s: Optional[int] = None,
+           jitter: float = 0.0) -> Tensor:
+    """log|J| via partitioned elimination (no right-hand side)."""
+    n, d, _ = diag.shape
+    zeros = diag.new_zeros((n, d))
+    return mahal_and_logdet(diag, off, zeros, s=s, jitter=jitter)[1]
+
+
 # ---------------------------------------------------------------------------
 # The fused solve + selected inversion: the backward of every analytic VJP.
 # The Takahashi recurrence in hat variables needs only (hat_c = D^{-T} C^T,
@@ -386,28 +427,45 @@ def mahal_and_logdet_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _back_substitute(state, w1, hat_cs, hat_w0s, hat_ws, xb, c):
-    """Chain back-substitution on the hat factors + the reduced boundary
-    solution xb [d, C] -> the padded natural-order solution [C*s, d]
-    (the plain branch of the JAX function; its kernel branch belongs to
-    the posterior slice)."""
+def _back_substitute(state, w1, hat_cs, hat_w0s, hat_ws, xb, c,
+                     backend="torch"):
+    """Chain back-substitution shared by the solve entries: the hat
+    factors + the reduced boundary solution xb [d, C] -> the padded
+    natural-order solution [C*s, d].  ``backend="cuda"`` runs the
+    descending walk as the back-substitution kernel, which reads the
+    whole stack; the plain walk recomputes the last row's hats from the
+    live final state instead (the same values)."""
     s = hat_cs.shape[0] + 1
     xb_next = sb.shift_up(xb)  # next chunk's boundary (0 for last)
     hat_w1 = sb.solve_lower_t(state.dj, state.invd, w1)
-    # last interior row j = s-1 (carries the W1 term, no x_{j+1}); hats
-    # recomputed from the live final state
-    hat_w0_l = sb.solve_lower_t(state.dj, state.invd, state.w0)
-    hat_w_l = sb.solve_lower_t_vec(state.dj, state.invd, state.w)
-    x = (hat_w_l - sb.matvec(hat_w0_l, xb) - sb.matvec(hat_w1, xb_next))
-    rows = [x]
-    for t in range(s - 3, -1, -1):
-        x = (hat_ws[t] - sb.matvec(hat_w0s[t], xb)
-             - sb.matvec(hat_cs[t], x))
-        rows.append(x)
-    interior = torch.stack(rows[::-1], dim=0)  # [s-1, d, C], j = 1..s-1
+    if backend == "cuda":
+        from .sweep_cuda import backward_substitute_cuda
+
+        interior = backward_substitute_cuda(
+            hat_cs, hat_w0s, hat_ws,
+            *[a.contiguous() for a in (hat_w1, xb, xb_next)])
+    else:
+        # last interior row j = s-1 (carries the W1 term, no x_{j+1})
+        hat_w0_l = sb.solve_lower_t(state.dj, state.invd, state.w0)
+        hat_w_l = sb.solve_lower_t_vec(state.dj, state.invd, state.w)
+        x = (hat_w_l - sb.matvec(hat_w0_l, xb)
+             - sb.matvec(hat_w1, xb_next))
+        rows = [x]
+        for t in range(s - 3, -1, -1):
+            x = (hat_ws[t] - sb.matvec(hat_w0s[t], xb)
+                 - sb.matvec(hat_cs[t], x))
+            rows.append(x)
+        interior = torch.stack(rows[::-1], dim=0)  # [s-1, d, C]
     x_cm = torch.cat([xb[None], interior], dim=0)
     d = xb.shape[0]
     return x_cm.permute(2, 0, 1).reshape(c * s, d)
+
+
+def _sigma_bb_ut(p00, p01, p10, p11, u0, u1):
+    """(Sigma_BB U^T) rows: a0 = row b_c, a1 = row b_{c+1}."""
+    mm = sb.matmul
+    return (mm(p00, u0, tb=True) + mm(p01, u1, tb=True),
+            mm(p10, u0, tb=True) + mm(p11, u1, tb=True))
 
 
 def _takahashi_hat_walk(hc_s, hw0_s, pinv_s, hat_w1, p00, p01, p10, p11):
@@ -422,15 +480,9 @@ def _takahashi_hat_walk(hc_s, hw0_s, pinv_s, hat_w1, p00, p01, p10, p11):
      off_rows [s-1, d, d, C] = Sigma_{j+1, j} rows j = 1..s-1 (row s-1
      is the right-edge block), u0_final, u1_final [d, d, C])."""
     mm = sb.matmul
-
-    def sigma_bb_ut(u0, u1):
-        a0 = mm(p00, u0, tb=True) + mm(p01, u1, tb=True)
-        a1 = mm(p10, u0, tb=True) + mm(p11, u1, tb=True)
-        return a0, a1
-
     # seed at j = s-1: phi / u0 are the stacks' last rows
     phi, u0, u1 = pinv_s[-1], hw0_s[-1], hat_w1
-    a0, a1 = sigma_bb_ut(u0, u1)
+    a0, a1 = _sigma_bb_ut(p00, p01, p10, p11, u0, u1)
     diags = [phi + mm(u0, a0) + mm(u1, a1)]
     offs = [-a1]
     for t in range(hc_s.shape[0] - 2, -1, -1):
@@ -439,7 +491,7 @@ def _takahashi_hat_walk(hc_s, hw0_s, pinv_s, hat_w1, p00, p01, p10, p11):
         phi_j = pinv_s[t] + mm(mm(hc_j, phi), hc_j, tb=True)
         u0_j = hw0_s[t] - mm(hc_j, u0)
         u1_j = -mm(hc_j, u1)
-        a0, a1 = sigma_bb_ut(u0_j, u1_j)
+        a0, a1 = _sigma_bb_ut(p00, p01, p10, p11, u0_j, u1_j)
         diags.append(phi_j + mm(u0_j, a0) + mm(u1_j, a1))
         offs.append(phi_off + mm(u0, a0) + mm(u1, a1))
         phi, u0, u1 = phi_j, u0_j, u1_j
@@ -533,3 +585,502 @@ def solve_and_inverse_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     Forward-only entry (it is the backward)."""
     return _solve_inverse_from_cm(R_cm, O_cm, y_cm, jitter,
                                   resolve_backend(backend, R_cm))
+
+
+# ---------------------------------------------------------------------------
+# The solve: J^{-1} y and log|J| from one forward sweep that streams the hat
+# factors (`_collect_solve`) and one descending back-substitution.  On the
+# card both passes are kernels (the collect sweep and the
+# back-substitution of ops/sweep_cuda.py), at every ladder level.
+# ---------------------------------------------------------------------------
+
+
+def _hat_sweep(R_cm, O_cm, y_cm, jitter, backend, collect):
+    """The forward sweep streaming the hat factors: (final state, W1,
+    (hat_cs, hat_w0s, hat_ws[, ld_rows])) for ``collect`` "solve" (or
+    "solve_ldrows", which adds the per-row pivot log-dets).  "cuda" runs
+    the collect kernel, which streams the log-dets either way."""
+    if backend == "cuda":
+        from .sweep_cuda import forward_sweep_collect_cuda
+
+        s = R_cm.shape[0]
+        (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc_s, hw0_s, hw_s,
+         ld_int) = forward_sweep_collect_cuda(R_cm, O_cm, y_cm,
+                                              jitter=jitter)
+        state = _SweepState(None, w0l, wl, dl, invdl, acc00, accy0, mh, ld)
+        w1 = sb.solve_lower(dl, invdl, sb.transpose(O_cm[s - 1]))
+        stacks = (hc_s, hw0_s, hw_s)
+        if collect == "solve_ldrows":
+            stacks += (ld_int,)
+        return state, w1, stacks
+    return _forward_sweep(R_cm, O_cm, y_cm, jitter, collect)
+
+
+def _solve_em(diag_em, off_em, y_em, jitter, backend="torch"):
+    """(J^{-1} y element-major [d, n], log|J|) on element-major inputs
+    (off_em valid to n-2): the reduced boundary ladder's native format."""
+    d, _, n = diag_em.shape
+    s = default_chunk_len(n)
+    if n < max(_TERMINAL, 2 * s):
+        dec = cr.decompose(sb.from_em(diag_em), sb.from_em(off_em)[: n - 1],
+                           jitter=jitter)
+        x = cr.solve(dec, sb.vec_from_em(y_em))
+        return sb.vec_to_em(x), cr.logdet(dec)
+    R_cm, O_cm, y_cm, _ = _chunk_layout_em(diag_em, off_em, y_em, s)
+    x_nat, ld = _solve_from_cm(R_cm, O_cm, y_cm, jitter, backend)
+    return sb.vec_to_em(x_nat[:n]), ld
+
+
+def _solve_impl(diag, off, y, s, jitter, backend="torch"):
+    """(J^{-1} y, log|J|) on natural-order inputs: the log-det falls out of
+    the same forward sweep."""
+    n = y.shape[0]
+    s = s or default_chunk_len(n)
+    if n < max(_TERMINAL, 2 * s):
+        dec = cr.decompose(diag, off, jitter=jitter)
+        return cr.solve(dec, y), cr.logdet(dec)
+    R_cm, O_cm, y_cm, _ = _chunk_layout(diag, off, y, s)
+    x_nat, ld = _solve_from_cm(R_cm, O_cm, y_cm, jitter, backend)
+    return x_nat[:n], ld
+
+
+def _solve_from_cm(R_cm, O_cm, y_cm, jitter, backend="torch"):
+    """Solve + logdet on chunk-major inputs; returns the full padded
+    natural-order solution [C*s, d] and log|J|.  The forward sweep
+    stores the hat factors, so the back-substitution is pure
+    multiply-add: x_j = hat_w_j - hat_W0_j x_b - hat_C_j x_{j+1}."""
+    c = R_cm.shape[-1]
+    state, w1, (hat_cs, hat_w0s, hat_ws) = _hat_sweep(
+        R_cm, O_cm, y_cm, jitter, backend, "solve")
+    red_diag, red_off, red_rhs = _reduced_system(R_cm, y_cm, state, w1)
+    x_b_em, red_ld = _solve_em(red_diag, red_off, red_rhs, jitter, backend)
+    x_nat = _back_substitute(state, w1, hat_cs, hat_w0s, hat_ws, x_b_em, c,
+                             backend)
+    return x_nat, 2.0 * state.ld + red_ld
+
+
+def _solve_adjoint(R_cm, O_cm, x_nat, gx, w_rows, jitter, backend):
+    """The analytic adjoint shared by the solve entries: with u = J^{-1} gx
+    and Sigma = J^{-1} (selected blocks) from ONE fused solve + selected
+    inversion,
+
+      g_diag_i = w_i Sigma_ii - u_i x_i^T
+      g_off_i  = 2 w_i Sigma_{i+1,i} - u_{i+1} x_i^T - x_{i+1} u_i^T
+      g_y      = u
+
+    where ``w_rows`` is the log-det cotangent per natural row ([C*s, 1, 1],
+    or a scalar).  Returns chunk-major (g_R, g_O, g_y)."""
+    s, d, _, c = R_cm.shape
+    gx_cm = gx.reshape(c, s, d).permute(1, 2, 0).contiguous()
+    u_nat, sig_diag, sig_off = _solve_inverse_from_cm(R_cm, O_cm, gx_cm,
+                                                      jitter, backend)
+    zrow = x_nat.new_zeros((1, d))
+    x_next = torch.cat([x_nat[1:], zrow], dim=0)
+    u_next = torch.cat([u_nat[1:], zrow], dim=0)
+    g_diag = w_rows * sig_diag - u_nat[:, :, None] * x_nat[:, None, :]
+    g_off = (2.0 * w_rows * sig_off
+             - u_next[:, :, None] * x_nat[:, None, :]
+             - x_next[:, :, None] * u_nat[:, None, :])
+    g_R = g_diag.reshape(c, s, d, d).permute(1, 2, 3, 0)
+    g_O = g_off.reshape(c, s, d, d).permute(1, 2, 3, 0)
+    g_y = u_nat.reshape(c, s, d).permute(1, 2, 0)
+    return g_R, g_O, g_y
+
+
+class _SolveCm(torch.autograd.Function):
+    """(x, log|J|) = (J^{-1} y, log|J|) with the analytic adjoint of the
+    JAX ``_solve_cm`` custom VJP (`_solve_cm_bwd`, `_solve_adjoint` with
+    the scalar log-det cotangent); the residuals are the inputs and x."""
+
+    @staticmethod
+    def forward(ctx, R_cm, O_cm, y_cm, jitter, backend):
+        x_nat, ld = _solve_from_cm(R_cm, O_cm, y_cm, jitter, backend)
+        ctx.save_for_backward(R_cm, O_cm, x_nat)
+        ctx.jitter, ctx.backend = jitter, backend
+        return x_nat, ld
+
+    @staticmethod
+    def backward(ctx, gx, gl):
+        R_cm, O_cm, x_nat = ctx.saved_tensors
+        return _solve_adjoint(R_cm, O_cm, x_nat, gx, gl, ctx.jitter,
+                              ctx.backend) + (None, None)
+
+
+def solve_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor, jitter: float = 0.0,
+             backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """(J^{-1} y [C*s, d] padded natural order, log|J|) on chunk-major
+    inputs (see `mahal_and_logdet_cm`).  ``backend``: "torch", "cuda"
+    (the collect and back-substitution kernels at every ladder level) or
+    "auto" (cuda for CUDA tensors; the JAX counterpart defaults to its
+    plain backend).  Differentiable on every backend through the
+    analytic adjoint (`_SolveCm`)."""
+    return _SolveCm.apply(R_cm, O_cm, y_cm, jitter,
+                          resolve_backend(backend, R_cm))
+
+
+def solve_and_logdet(diag: Tensor, off: Tensor, y: Tensor,
+                     s: Optional[int] = None, jitter: float = 0.0,
+                     backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """(J^{-1} y, log|J|) in one forward sweep + back-substitution (the
+    JAX package's headline benchmark op).  diag [N, d, d], off
+    [N-1, d, d], y [N, d]."""
+    n = y.shape[0]
+    s = s or default_chunk_len(n)
+    if n < max(_TERMINAL, 2 * s):
+        dec = cr.decompose(diag, off, jitter=jitter)
+        return cr.solve(dec, y), cr.logdet(dec)
+    R_cm, O_cm, y_cm, _ = _chunk_layout(diag, off, y, s)
+    x_pad, ld = solve_cm(R_cm, O_cm, y_cm, jitter, backend)
+    return x_pad[:n], ld
+
+
+def solve(diag: Tensor, off: Tensor, y: Tensor, s: Optional[int] = None,
+          jitter: float = 0.0, backend: str = "auto") -> Tensor:
+    """J^{-1} y: recursive partitioned elimination + chain
+    back-substitution."""
+    return solve_and_logdet(diag, off, y, s=s, jitter=jitter,
+                            backend=backend)[0]
+
+
+# ---------------------------------------------------------------------------
+# Per-row pivot log-determinants.  Every pivot of the partitioned
+# elimination belongs to exactly one block row, so log|J| decomposes as a
+# per-row vector with sum == logdet.  For a system that is block-diagonal
+# over contiguous row segments, segment sums of the rows are each
+# segment's exact log-determinant (`logdet_per_segment`); for a coupled
+# system only the total is meaningful.
+# ---------------------------------------------------------------------------
+
+
+def _ld_rows_seq(diag, off, jitter):
+    """Terminal per-row sweep: sequential block Cholesky over natural
+    [n, d, d] rows; ld_rows [n] with ld_rows[i] = 2 sum log diag L_i."""
+    n, d, _ = diag.shape
+    off_prev = torch.cat([diag.new_zeros((1, d, d)), off[: n - 1]], dim=0)
+    l_prev, invd_prev = sb.eye_em(d, diag), diag.new_ones((d, 1))
+    lds = []
+    for i in range(n):
+        w = sb.solve_lower(l_prev, invd_prev,
+                           sb.transpose(sb.to_em(off_prev[i][None])))
+        p = sb.to_em(diag[i][None]) - sb.matmul(w, w, ta=True)
+        l_prev, invd_prev = sb.cholesky(p, jitter=jitter)
+        lds.append(2.0 * sb.chol_log_diag_rows(l_prev)[0])
+    return torch.stack(lds)
+
+
+def _ld_rows_cm_impl(R_cm, O_cm, jitter, backend="torch"):
+    """Chunk-major per-row pivot log-dets [s, C]: rows j >= 1 from the
+    interior elimination sweep (the forward-sweep kernel's per-row output
+    on "cuda"), row j = 0 of chunk c from the reduced boundary system's
+    own recursion (reduced row c IS natural row c*s)."""
+    s, d, _, c = R_cm.shape
+    zy = R_cm.new_zeros((s, d, c))
+    if backend == "cuda":
+        from .sweep_cuda import forward_sweep_cuda
+
+        (acc00, accy0, w0l, wl, dl, invdl, _, _,
+         ld_int) = forward_sweep_cuda(R_cm, O_cm, zy, jitter=jitter)
+        zero = R_cm.new_zeros(())
+        state = _SweepState(None, w0l, wl, dl, invdl, acc00, accy0, zero,
+                            zero)
+        w1 = sb.solve_lower(dl, invdl, sb.transpose(O_cm[s - 1]))
+    else:
+        state, w1, ld_int = _forward_sweep(R_cm, O_cm, zy, jitter,
+                                           collect="ldrows")
+    red_diag, red_off, _ = _reduced_system(R_cm, zy, state, w1)
+    red_rows = _logdet_rows_impl(sb.from_em(red_diag),
+                                 sb.from_em(red_off)[: c - 1], None, jitter,
+                                 backend)
+    return torch.cat([red_rows[None], ld_int], dim=0)
+
+
+def _logdet_rows_impl(diag, off, s, jitter, backend="torch"):
+    n = diag.shape[0]
+    s_ = s or default_chunk_len(n)
+    if n < max(_TERMINAL, 2 * s_):
+        return _ld_rows_seq(diag, off, jitter)
+    R_cm, O_cm, _, c = _chunk_layout(diag, off, None, s_)
+    rows_cm = _ld_rows_cm_impl(R_cm, O_cm, jitter, backend)
+    return rows_cm.transpose(0, 1).reshape(c * s_)[:n]
+
+
+def logdet_rows(diag: Tensor, off: Tensor, s: Optional[int] = None,
+                jitter: float = 0.0) -> Tensor:
+    """Per-row pivot log-determinant partials [n] (sum == logdet), on the
+    kernels for CUDA tensors.  Differentiable by autograd through the
+    plain sweeps; for the analytic adjoint use `logdet_per_segment` /
+    `logdet_rows_cm`."""
+    return _logdet_rows_impl(diag, off, s, jitter,
+                             resolve_backend("auto", diag))
+
+
+def _rows_cotangent_guard(w, O_cm, c, s):
+    """0.0 when the per-row cotangent ``w`` (natural order, [c*s]) is
+    constant across every nonzero coupling of J, NaN otherwise: the
+    validity domain of the per-row adjoints (segment-sum consumers), so a
+    misuse poisons the gradient loudly instead of silently."""
+    onorm = torch.sum(torch.abs(O_cm), dim=(1, 2)).transpose(0, 1).reshape(
+        c * s)
+    coupled = onorm[: c * s - 1] > 0
+    bad = torch.any(coupled & (w[:-1] != w[1:]))
+    return torch.where(bad, w.new_full((), math.nan), w.new_zeros(()))
+
+
+def _row_weights(w_cm, O_cm):
+    """Per-row log-det cotangent [s, C] -> natural order [C*s, 1, 1], with
+    the validity guard added."""
+    s, c = w_cm.shape
+    w = w_cm.transpose(0, 1).reshape(c * s)
+    w = w + _rows_cotangent_guard(w, O_cm, c, s)
+    return w[:, None, None]
+
+
+class _LdRowsCm(torch.autograd.Function):
+    """Per-row pivot log-dets [s, C] with the segment-wise analytic adjoint
+    of the JAX ``_ld_rows_cm`` custom VJP (`_ld_rows_cm_bwd`): for a
+    cotangent w constant within each block-diagonal segment of J,
+      d/dR_i = w_i Sigma_ii,   d/dO_i = 2 w_i Sigma_{i+1,i}
+    from one selected inversion.  A cotangent outside that domain gives
+    NaN (`_rows_cotangent_guard`)."""
+
+    @staticmethod
+    def forward(ctx, R_cm, O_cm, jitter, backend):
+        ctx.save_for_backward(R_cm, O_cm)
+        ctx.jitter, ctx.backend = jitter, backend
+        return _ld_rows_cm_impl(R_cm, O_cm, jitter, backend)
+
+    @staticmethod
+    def backward(ctx, w_cm):
+        R_cm, O_cm = ctx.saved_tensors
+        s, d, _, c = R_cm.shape
+        sig_diag, sig_off = _inverse_from_cm(R_cm, O_cm, ctx.jitter,
+                                             ctx.backend)
+        w = _row_weights(w_cm, O_cm)
+        g_R = (w * sig_diag).reshape(c, s, d, d).permute(1, 2, 3, 0)
+        g_O = (2.0 * w * sig_off).reshape(c, s, d, d).permute(1, 2, 3, 0)
+        return g_R, g_O, None, None
+
+
+def logdet_rows_cm(R_cm: Tensor, O_cm: Tensor, jitter: float = 0.0,
+                   backend: str = "auto") -> Tensor:
+    """Per-row pivot log-dets [s, C] on chunk-major inputs.  ``backend``
+    selects the engine of both the forward sweep and the adjoint's
+    selected inversion.  Gradient validity: see `_LdRowsCm`."""
+    return _LdRowsCm.apply(R_cm, O_cm, jitter,
+                           resolve_backend(backend, R_cm))
+
+
+def logdet_per_segment(diag: Tensor, off: Tensor, seg_ids: Tensor,
+                       num_segments: int, s: Optional[int] = None,
+                       jitter: float = 0.0,
+                       backend: str = "auto") -> Tensor:
+    """Per-segment log-determinants [num_segments] of a block-tridiagonal
+    system that is block-diagonal over contiguous row segments
+    (``seg_ids`` sorted, off blocks crossing segment boundaries zero), in
+    one streaming elimination."""
+    n = diag.shape[0]
+    s_ = s or default_chunk_len(n)
+    if n < max(_TERMINAL, 2 * s_):
+        rows = _ld_rows_seq(diag, off, jitter)
+    else:
+        R_cm, O_cm, _, c = _chunk_layout(diag, off, None, s_)
+        rows_cm = _LdRowsCm.apply(R_cm, O_cm, jitter,
+                                  resolve_backend(backend, R_cm))
+        rows = rows_cm.transpose(0, 1).reshape(c * s_)[:n]
+    return rows.new_zeros((num_segments,)).index_add(0, seg_ids.long(),
+                                                     rows)
+
+
+def _solve_ldr_impl(diag, off, y, s, jitter, backend="torch"):
+    """Natural-layout recursion: (J^{-1} y [n, d], per-row pivot log-dets
+    [n])."""
+    n = y.shape[0]
+    s = s or default_chunk_len(n)
+    if n < max(_TERMINAL, 2 * s):
+        dec = cr.decompose(diag, off, jitter=jitter)
+        return cr.solve(dec, y), _ld_rows_seq(diag, off, jitter)
+    R_cm, O_cm, y_cm, c = _chunk_layout(diag, off, y, s)
+    x_nat, rows_cm = _solve_ldr_from_cm(R_cm, O_cm, y_cm, jitter, backend)
+    rows = rows_cm.transpose(0, 1).reshape(c * s)
+    return x_nat[:n], rows[:n]
+
+
+def _solve_ldr_from_cm(R_cm, O_cm, y_cm, jitter, backend="torch"):
+    """Chunk-major fused solve + per-row log-dets from one collect sweep:
+    the padded natural-order solution [C*s, d] and rows [s, C] (row
+    c*s + j at [j, c])."""
+    c = R_cm.shape[-1]
+    state, w1, (hat_cs, hat_w0s, hat_ws, ld_int) = _hat_sweep(
+        R_cm, O_cm, y_cm, jitter, backend, "solve_ldrows")
+    red_diag, red_off, red_rhs = _reduced_system(R_cm, y_cm, state, w1)
+    x_b, red_rows = _solve_ldr_impl(
+        sb.from_em(red_diag), sb.from_em(red_off)[: c - 1],
+        sb.vec_from_em(red_rhs), None, jitter, backend)
+    x_nat = _back_substitute(state, w1, hat_cs, hat_w0s, hat_ws,
+                             sb.vec_to_em(x_b), c, backend)
+    return x_nat, torch.cat([red_rows[None], ld_int], dim=0)
+
+
+class _SolveLdrCm(torch.autograd.Function):
+    """(x, rows) = (J^{-1} y, per-row pivot log-dets) with the JAX
+    ``_solve_ldr_cm`` custom VJP's adjoint (`_solve_ldr_cm_bwd`): one
+    fused solve + selected inversion shared by both parts; the per-row
+    cotangent must be segment-constant (see `_LdRowsCm`)."""
+
+    @staticmethod
+    def forward(ctx, R_cm, O_cm, y_cm, jitter, backend):
+        x_nat, rows_cm = _solve_ldr_from_cm(R_cm, O_cm, y_cm, jitter,
+                                            backend)
+        ctx.save_for_backward(R_cm, O_cm, x_nat)
+        ctx.jitter, ctx.backend = jitter, backend
+        return x_nat, rows_cm
+
+    @staticmethod
+    def backward(ctx, gx, w_cm):
+        R_cm, O_cm, x_nat = ctx.saved_tensors
+        return _solve_adjoint(R_cm, O_cm, x_nat, gx,
+                              _row_weights(w_cm, O_cm), ctx.jitter,
+                              ctx.backend) + (None, None)
+
+
+def solve_and_ld_rows_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
+                         jitter: float = 0.0,
+                         backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """(J^{-1} y [C*s, d] padded natural order, per-row pivot log-dets
+    [s, C]) from ONE forward sweep + one back-substitution (separate
+    `solve_cm` + `logdet_rows_cm` calls pay two passes over J).
+    Differentiable with a shared analytic adjoint (`_SolveLdrCm`)."""
+    return _SolveLdrCm.apply(R_cm, O_cm, y_cm, jitter,
+                             resolve_backend(backend, R_cm))
+
+
+# ---------------------------------------------------------------------------
+# Selected inversion: the diagonal and lag-1 off-diagonal blocks of J^{-1}.
+# With J = [[A, Bc], [Bc^T, S]] (chunk interiors / boundaries) and Sigma_BB
+# the selected inverse of the reduced boundary system:
+#
+#   Sigma_II = A^{-1} + U Sigma_BB U^T,    U = A^{-1} Bc = L_A^{-T} W,
+#   Sigma_IB = -U Sigma_BB,
+#
+# with W = [W0, W1] the sweep's coupling solves.  A^{-1}'s tridiagonal
+# blocks come from the Takahashi recursion along each chain (a descending
+# walk), U by back-substitution of W.  One forward sweep and one descending
+# walk per ladder level; on the card both are kernels (the raw-factor sweep
+# and the Takahashi recursion of ops/sweep_cuda.py).
+# ---------------------------------------------------------------------------
+
+
+def _inverse_impl(diag, off, s, jitter, backend="torch"):
+    """Recursive partitioned selected inversion on natural-order blocks:
+    (Sigma_ii [n, d, d], Sigma_{i+1,i} [n-1, d, d])."""
+    n = diag.shape[0]
+    s = s or default_chunk_len(n)
+    if n < max(_TERMINAL, 2 * s):
+        dec = cr.decompose(diag, off, jitter=jitter)
+        return cr.inverse_blocks(dec)
+    R_cm, O_cm, _, _ = _chunk_layout(diag, off, None, s)
+    diag_nat, off_nat = _inverse_from_cm(R_cm, O_cm, jitter, backend)
+    return diag_nat[:n], off_nat[: n - 1]
+
+
+def _boundary_blocks(red_diag, red_off, c, jitter, backend):
+    """Sigma_BB of the reduced system as the four per-chunk blocks
+    (p00, p01, p10, p11) [d, d, C]: Sigma at (b_c, b_c), (b_c, b_{c+1}),
+    (b_{c+1}, b_c) and (b_{c+1}, b_{c+1}); zero past the last chunk."""
+    d = red_diag.shape[0]
+    bb_diag, bb_off = _inverse_impl(sb.from_em(red_diag),
+                                    sb.from_em(red_off)[: c - 1], None,
+                                    jitter, backend)
+    p00 = sb.to_em(bb_diag)
+    p10 = torch.cat([sb.to_em(bb_off), red_diag.new_zeros((d, d, 1))],
+                    dim=-1)
+    return p00, sb.transpose(p10), p10, sb.shift_up(p00)
+
+
+def _inverse_from_cm(R_cm, O_cm, jitter, backend="torch"):
+    """Selected inverse on chunk-major inputs; returns padded
+    natural-order (diag [C*s, d, d], off [C*s, d, d] with row i =
+    Sigma_{i+1, i}).  ``backend="cuda"`` with s >= 3 runs the raw-factor
+    sweep and the Takahashi recursion as kernels (the counterpart of the
+    JAX ``_inverse_from_cm_pallas``); the reduced boundary system recurses
+    on the same backend, and the step s-1 seeds of the recursion and the
+    per-chunk edge rows are tensor glue on either route."""
+    mm = sb.matmul
+    s, d, _, c = R_cm.shape
+    kernels = backend == "cuda" and s >= 3
+    if kernels:
+        from .sweep_cuda import (forward_sweep_inverse_cuda,
+                                 takahashi_backward_cuda)
+
+        (acc00, w0l, dl, invdl, *stacks) = forward_sweep_inverse_cuda(
+            R_cm, O_cm, jitter=jitter)
+    else:
+        state, _, stacks = _forward_sweep(
+            R_cm, O_cm, R_cm.new_zeros((s, d, c)), jitter, collect="inverse")
+        acc00, w0l, dl, invdl = state.acc00, state.w0, state.dj, state.invd
+    w1 = sb.solve_lower(dl, invdl, sb.transpose(O_cm[s - 1]))
+    red_diag = R_cm[0] - acc00 - sb.shift_down(mm(w1, w1, ta=True))
+    red_off = -mm(w1, w0l, ta=True)  # J[b_{c+1}, b_c]
+    p00, p01, p10, p11 = _boundary_blocks(red_diag, red_off, c, jitter,
+                                          backend)
+
+    # seeds at j = s-1, from the last step's factors
+    di_last = sb.tri_lower_inverse(dl, invdl)
+    phi = mm(di_last, di_last, ta=True)
+    u0 = sb.solve_lower_t(dl, invdl, w0l)
+    u1 = sb.solve_lower_t(dl, invdl, w1)
+    a0, a1 = _sigma_bb_ut(p00, p01, p10, p11, u0, u1)
+    diag_last = phi + mm(u0, a0) + mm(u1, a1)
+    # right-edge off block: Sigma[(c+1)s, (c+1)s-1] = -(P10 u0^T + P11 u1^T)
+    off_edge_right = -(mm(p10, u0, tb=True) + mm(p11, u1, tb=True))
+    if kernels:
+        diag_mid, off_mid, u0, u1 = takahashi_backward_cuda(
+            *stacks, *[a.contiguous() for a in (p00, p01, p10, p11, phi, u0,
+                                                u1, a0, a1)])
+    else:
+        ds, invds, cs_, w0s = stacks
+        diags, offs = [], []
+        for t in range(s - 3, -1, -1):
+            d_j, invd_j, c_j = ds[t], invds[t], cs_[t]
+            di = sb.tri_lower_inverse(d_j, invd_j)
+            cd = mm(c_j, di)
+            phi_off = -mm(phi, cd)  # Phi_{j+1, j}
+            phi_j = mm(di, di, ta=True) + mm(mm(cd, phi, ta=True), cd)
+            u0_j = sb.solve_lower_t(d_j, invd_j,
+                                    w0s[t] - mm(c_j, u0, ta=True))
+            u1_j = -sb.solve_lower_t(d_j, invd_j, mm(c_j, u1, ta=True))
+            a0, a1 = _sigma_bb_ut(p00, p01, p10, p11, u0_j, u1_j)
+            diags.append(phi_j + mm(u0_j, a0) + mm(u1_j, a1))
+            # off pair (j, j+1): Sigma[cs+j+1, cs+j]
+            offs.append(phi_off + mm(u0, a0) + mm(u1, a1))
+            phi, u0, u1 = phi_j, u0_j, u1_j
+        diag_mid = torch.stack(diags[::-1]) if diags else dl.new_zeros(
+            (0, d, d, c))
+        off_mid = torch.stack(offs[::-1]) if offs else diag_mid
+    # left-edge off block: Sigma[cs+1, cs] = -(u0_1 P00 + u1_1 P10)
+    off_edge_left = -(mm(u0, p00) + mm(u1, p10))
+    diag_cm = torch.cat([p00[None], diag_mid, diag_last[None]], dim=0)
+    off_cm = torch.cat([off_edge_left[None], off_mid, off_edge_right[None]],
+                       dim=0)
+    return (diag_cm.permute(3, 0, 1, 2).reshape(-1, d, d),
+            off_cm.permute(3, 0, 1, 2).reshape(-1, d, d))
+
+
+def inverse_blocks_cm(R_cm: Tensor, O_cm: Tensor, jitter: float = 0.0,
+                      backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """Selected inverse on chunk-major inputs; padded natural order
+    ([C*s, d, d], [C*s, d, d]; the caller slices to [:n] / [:n-1]).
+    ``backend``: "torch", "cuda" (the raw-factor sweep and Takahashi
+    kernels at every ladder level) or "auto" (cuda for CUDA tensors)."""
+    return _inverse_from_cm(R_cm, O_cm, jitter,
+                            resolve_backend(backend, R_cm))
+
+
+def inverse_blocks(diag: Tensor, off: Tensor, s: Optional[int] = None,
+                   jitter: float = 0.0,
+                   backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """Diagonal and lower off-diagonal blocks of J^{-1} (selected
+    inversion) via recursive partitioned elimination: (Sigma_ii
+    [N, d, d], Sigma_{i+1,i} [N-1, d, d]).  Matches cr.inverse_blocks."""
+    return _inverse_impl(diag, off, s, jitter,
+                         resolve_backend(backend, diag))

@@ -9,7 +9,18 @@ Counterparts of ``cyclic_gps_tpu/ops/pallas_sweep.py``:
   stacks every analytic VJP's backward consumes;
 * `backward_solve_takahashi_cuda` (``csrc/backward_sweep.cu``) replaces
   :918 backward_solve_takahashi_pallas, the descending pass running the
-  back-substitution and the hat-form Takahashi recursion together.
+  back-substitution and the hat-form Takahashi recursion together;
+* `forward_sweep_collect_cuda` (``csrc/solve_sweep.cu``) replaces :400
+  forward_sweep_collect_pallas, the solve's sweep streaming the hat
+  back-substitution factors and the per-row pivot log-dets;
+* `backward_substitute_cuda` (``csrc/solve_sweep.cu``) replaces :1006
+  backward_substitute_pallas, the solve's descending back-substitution;
+* `forward_sweep_inverse_cuda` (``csrc/inverse_sweep.cu``) replaces :534
+  forward_sweep_inverse_pallas, the selected inversion's sweep streaming
+  the raw factors (D, 1/diag D, C, W0);
+* `takahashi_backward_cuda` (``csrc/inverse_sweep.cu``) replaces :648
+  takahashi_backward_pallas, the descending raw-factor Takahashi
+  recursion.
 
 Each wrapper launches its kernel for CUDA tensors; for CPU tensors it runs
 its plain twin (``*_plain``), which computes the same function with tensor
@@ -107,6 +118,19 @@ def _check_sweep_inputs(name: str, R_cm: Tensor, O_cm: Tensor,
     return s, d, c
 
 
+def _launch(name: str, symbol: str, dtype, *args) -> None:
+    """Call the C entry ``symbol`` + ``_f32``/``_f64`` with ``args``
+    (tensors become their data pointers) on the current stream, and raise
+    if the launch failed."""
+    lib = _build.load()
+    fn = getattr(lib, symbol + ("_f32" if dtype == torch.float32
+                                else "_f64"))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, name)
+
+
 def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
                        jitter: float = 0.0):
     """Fused forward sweep on chunk-major inputs (the function of
@@ -129,18 +153,12 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     if not R_cm.is_cuda:
         return forward_sweep_plain(R_cm, O_cm, y_cm, jitter)
     s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm)
-    f32 = R_cm.dtype == torch.float32
-    lib = _build.load()
     outs = [R_cm.new_empty(shape) for shape in
             [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
              (c,), (c,), (s - 1, c)]]
     with torch.cuda.device(R_cm.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = lib.cgt_forward_sweep_f32 if f32 else lib.cgt_forward_sweep_f64
-        err = fn(R_cm.data_ptr(), O_cm.data_ptr(), y_cm.data_ptr(),
-                 float(jitter), s, d, c, *[o.data_ptr() for o in outs],
-                 stream)
-    _build.check_launch(err, name)
+        _launch(name, "cgt_forward_sweep", R_cm.dtype, R_cm, O_cm, y_cm,
+                float(jitter), s, d, c, *outs)
     forward_sweep_cuda.launches += 1
     acc00, accy0, w0l, wl, dl, invdl, mh, ld, ld_rows = outs
     return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
@@ -194,20 +212,13 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     if not R_cm.is_cuda:
         return forward_sweep_solveinv_plain(R_cm, O_cm, y_cm, jitter)
     s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm)
-    f32 = R_cm.dtype == torch.float32
-    lib = _build.load()
     outs = [R_cm.new_empty(shape) for shape in
             [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
              (c,), (c,), (s - 1, d, d, c), (s - 1, d, d, c), (s - 1, d, c),
              (s - 1, d, d, c), (s - 1, c)]]
     with torch.cuda.device(R_cm.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        fn = (lib.cgt_forward_sweep_solveinv_f32 if f32
-              else lib.cgt_forward_sweep_solveinv_f64)
-        err = fn(R_cm.data_ptr(), O_cm.data_ptr(), y_cm.data_ptr(),
-                 float(jitter), s, d, c, *[o.data_ptr() for o in outs],
-                 stream)
-    _build.check_launch(err, name)
+        _launch(name, "cgt_forward_sweep_solveinv", R_cm.dtype, R_cm, O_cm,
+                y_cm, float(jitter), s, d, c, *outs)
     forward_sweep_solveinv_cuda.launches += 1
     (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0, hw, pinv,
      ld_rows) = outs
@@ -218,6 +229,15 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 forward_sweep_solveinv_cuda.launches = 0
 
 
+def _sig_ut(p00, p01, p10, p11, u0, u1):
+    """(a0, a1) = Sigma_BB U^T: a0 = p00 u0^T + p01 u1^T, a1 = p10 u0^T +
+    p11 u1^T (the boundary rows of the selected inverse applied to the
+    chunk's coupling solves)."""
+    mm = sb.matmul
+    return (mm(p00, u0, tb=True) + mm(p01, u1, tb=True),
+            mm(p10, u0, tb=True) + mm(p11, u1, tb=True))
+
+
 def backward_solve_takahashi_plain(hat_cs, hat_w0s, hat_ws, pinvs, hat_w1,
                                    xb, xb_next, p00, p01, p10, p11):
     """Plain twin of the fused descending kernel (see
@@ -225,12 +245,6 @@ def backward_solve_takahashi_plain(hat_cs, hat_w0s, hat_ws, pinvs, hat_w1,
     descending loop doing both walks per step."""
     sm1 = hat_cs.shape[0]
     mm = sb.matmul
-
-    def sig_ut(u0, u1):
-        a0 = mm(p00, u0, tb=True) + mm(p01, u1, tb=True)
-        a1 = mm(p10, u0, tb=True) + mm(p11, u1, tb=True)
-        return a0, a1
-
     xs, diags, offs = [None] * sm1, [None] * sm1, [None] * sm1
     for t in reversed(range(sm1)):
         hc_j, hw0_j, pinv_j = hat_cs[t], hat_w0s[t], pinvs[t]
@@ -238,7 +252,7 @@ def backward_solve_takahashi_plain(hat_cs, hat_w0s, hat_ws, pinvs, hat_w1,
         if t == sm1 - 1:
             x = common - sb.matvec(hat_w1, xb_next)
             phi, u0, u1 = pinv_j, hw0_j, hat_w1
-            a0, a1 = sig_ut(u0, u1)
+            a0, a1 = _sig_ut(p00, p01, p10, p11, u0, u1)
             diags[t] = phi + mm(u0, a0) + mm(u1, a1)
             offs[t] = -a1
         else:
@@ -247,7 +261,7 @@ def backward_solve_takahashi_plain(hat_cs, hat_w0s, hat_ws, pinvs, hat_w1,
             phi_j = pinv_j + mm(mm(hc_j, phi), hc_j, tb=True)
             u0_j = hw0_j - mm(hc_j, u0)
             u1_j = -mm(hc_j, u1)
-            a0, a1 = sig_ut(u0_j, u1_j)
+            a0, a1 = _sig_ut(p00, p01, p10, p11, u0_j, u1_j)
             diags[t] = phi_j + mm(u0_j, a0) + mm(u1_j, a1)
             offs[t] = phi_off + mm(u0, a0) + mm(u1, a1)
             phi, u0, u1 = phi_j, u0_j, u1_j
@@ -297,17 +311,267 @@ def backward_solve_takahashi_cuda(hat_cs: Tensor, hat_w0s: Tensor,
         _build.check_shape(name, key, t, shape)
     outs = [hat_cs.new_empty(shape) for shape in (stepv, step, step, mat,
                                                   mat)]
-    lib = _build.load()
     with torch.cuda.device(hat_cs.device):
-        fn = (lib.cgt_backward_solve_takahashi_f32
-              if hat_cs.dtype == torch.float32
-              else lib.cgt_backward_solve_takahashi_f64)
-        err = fn(*[a.data_ptr() for a in args], sm1 + 1, d, c,
-                 *[o.data_ptr() for o in outs],
-                 torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, name)
+        _launch(name, "cgt_backward_solve_takahashi", hat_cs.dtype, *args,
+                sm1 + 1, d, c, *outs)
     backward_solve_takahashi_cuda.launches += 1
     return tuple(outs)
 
 
 backward_solve_takahashi_cuda.launches = 0
+
+
+
+def forward_sweep_collect_plain(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
+                                jitter: float = 0.0):
+    """Plain twin of the solve's collect kernel (see
+    `forward_sweep_collect_cuda`): the forward sweep of
+    `forward_sweep_plain`, with each step's hats by back substitution
+    against D^T, as the TPU kernel writes them."""
+    hcs, hw0s, hws = [], [], []
+
+    def emit(D, invd, w0, w, cprev):
+        hcs.append(sb.solve_lower_t(D, invd, sb.transpose(cprev)))
+        hw0s.append(sb.solve_lower_t(D, invd, w0))
+        hws.append(sb.solve_lower_t_vec(D, invd, w))
+
+    outs = _plain_sweep(R_cm, O_cm, y_cm, jitter, emit)
+    st = torch.stack
+    return outs[:8] + (st(hcs), st(hw0s), st(hws), outs[8])
+
+
+def forward_sweep_collect_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
+                               jitter: float = 0.0):
+    """Forward sweep collecting the solve's hat factors (the function of
+    partitioned._forward_sweep with collect="solve_ldrows", on the TPU
+    kernels' Cholesky).
+
+    R_cm, O_cm [s, d, d, C], y_cm [s, d, C] (float32 or float64, s >= 2,
+    d <= 8).  Returns (acc00, accy0, w0_last, w_last, d_last, invd_last,
+    mh, ld, hat_cs [s-1, d, d, C], hat_w0s [s-1, d, d, C], hat_ws
+    [s-1, d, C], ld_rows [s-1, C]), with stack row j-1 holding step j:
+    hat_C = D^{-T} C^T, hat_W0 = D^{-T} W0, hat_w = D^{-T} w and the
+    pivot log-det 2 log|D_j|.  The stacks come at the true chunk count C
+    (the TPU kernel pads them to its lane tile).
+
+    CUDA tensors launch ``csrc/solve_sweep.cu``
+    (``forward_sweep_collect_cuda.launches``); CPU tensors run
+    `forward_sweep_collect_plain`.
+    """
+    name = "forward_sweep_collect_cuda"
+    _build.check_no_grad(name, R_cm, O_cm, y_cm)
+    if not R_cm.is_cuda:
+        return forward_sweep_collect_plain(R_cm, O_cm, y_cm, jitter)
+    s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm)
+    outs = [R_cm.new_empty(shape) for shape in
+            [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
+             (c,), (c,), (s - 1, d, d, c), (s - 1, d, d, c), (s - 1, d, c),
+             (s - 1, c)]]
+    with torch.cuda.device(R_cm.device):
+        _launch(name, "cgt_forward_sweep_collect", R_cm.dtype, R_cm, O_cm,
+                y_cm, float(jitter), s, d, c, *outs)
+    forward_sweep_collect_cuda.launches += 1
+    (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0, hw,
+     ld_rows) = outs
+    return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
+            hc, hw0, hw, ld_rows)
+
+
+forward_sweep_collect_cuda.launches = 0
+
+
+def backward_substitute_plain(hat_cs, hat_w0s, hat_ws, hat_w1, xb,
+                              xb_next):
+    """Plain twin of the back-substitution kernel (see
+    `backward_substitute_cuda`), written as its grid runs: one descending
+    loop over the whole stack."""
+    sm1 = hat_cs.shape[0]
+    xs = [None] * sm1
+    for t in reversed(range(sm1)):
+        common = hat_ws[t] - sb.matvec(hat_w0s[t], xb)
+        if t == sm1 - 1:
+            x = common - sb.matvec(hat_w1, xb_next)
+        else:
+            x = common - sb.matvec(hat_cs[t], x)
+        xs[t] = x
+    return torch.stack(xs)
+
+
+def backward_substitute_cuda(hat_cs: Tensor, hat_w0s: Tensor,
+                             hat_ws: Tensor, hat_w1: Tensor, xb: Tensor,
+                             xb_next: Tensor) -> Tensor:
+    """Chunk-interior back-substitution on the hat factors of
+    `forward_sweep_collect_cuda` (steps s-1 .. 1, descending):
+
+      x_{s-1} = hat_w - hat_W0 x_b - hat_W1 x_{b,next}
+      x_j     = hat_w - hat_W0 x_b - hat_C x_{j+1}
+
+    hat_cs / hat_w0s [s-1, d, d, C], hat_ws [s-1, d, C], hat_w1 =
+    D_{s-1}^{-T} W1 [d, d, C], xb / xb_next [d, C] the reduced boundary
+    solution and its next-chunk shift.  Returns x rows [s-1, d, C] for
+    steps 1..s-1.  float32 or float64.
+
+    CUDA tensors launch ``csrc/solve_sweep.cu``
+    (``backward_substitute_cuda.launches``); CPU tensors run
+    `backward_substitute_plain`.
+    """
+    name = "backward_substitute_cuda"
+    args = (hat_cs, hat_w0s, hat_ws, hat_w1, xb, xb_next)
+    _build.check_no_grad(name, *args)
+    if not hat_cs.is_cuda:
+        return backward_substitute_plain(*args)
+    keys = ("hat_cs", "hat_w0s", "hat_ws", "hat_w1", "xb", "xb_next")
+    _build.check_tensors(name, (torch.float32, torch.float64),
+                         **dict(zip(keys, args)))
+    sm1, d, _, c = hat_cs.shape
+    _build.check_rank(d, name)
+    shapes = ((sm1, d, d, c), (sm1, d, d, c), (sm1, d, c), (d, d, c),
+              (d, c), (d, c))
+    for key, t, shape in zip(keys, args, shapes):
+        _build.check_shape(name, key, t, shape)
+    x = hat_cs.new_empty((sm1, d, c))
+    with torch.cuda.device(hat_cs.device):
+        _launch(name, "cgt_backward_substitute", hat_cs.dtype, *args,
+                sm1 + 1, d, c, x)
+    backward_substitute_cuda.launches += 1
+    return x
+
+
+backward_substitute_cuda.launches = 0
+
+
+def forward_sweep_inverse_plain(R_cm: Tensor, O_cm: Tensor,
+                                jitter: float = 0.0):
+    """Plain twin of the selected inversion's sweep kernel (see
+    `forward_sweep_inverse_cuda`): the elimination of `forward_sweep_plain`
+    on a zero right-hand side, keeping each step's raw factors."""
+    ds, invds, cs, w0s = [], [], [], []
+
+    def emit(D, invd, w0, w, cprev):
+        ds.append(D)
+        invds.append(invd)
+        cs.append(cprev)
+        w0s.append(w0)
+
+    s, d, _, c = R_cm.shape
+    acc00, _, w0l, _, dl, invdl = _plain_sweep(
+        R_cm, O_cm, R_cm.new_zeros((s, d, c)), jitter, emit)[:6]
+    st = torch.stack
+    return acc00, w0l, dl, invdl, st(ds), st(invds), st(cs), st(w0s)
+
+
+def forward_sweep_inverse_cuda(R_cm: Tensor, O_cm: Tensor,
+                               jitter: float = 0.0):
+    """Forward sweep for the selected inversion (the function of
+    partitioned._forward_sweep with collect="inverse" and no right-hand
+    side, on the TPU kernels' Cholesky).
+
+    R_cm, O_cm [s, d, d, C] (float32 or float64, s >= 2, d <= 8).
+    Returns (acc00, w0_last, d_last [d, d, C], invd_last [d, C], ds
+    [s-1, d, d, C], invds [s-1, d, C], cs [s-1, d, d, C], w0s
+    [s-1, d, d, C]), with stack row j-1 holding step j's D_j, 1/diag(D_j),
+    C_j = O_j D_j^{-T} and W0_j, at the true chunk count C.
+
+    CUDA tensors launch ``csrc/inverse_sweep.cu``
+    (``forward_sweep_inverse_cuda.launches``); CPU tensors run
+    `forward_sweep_inverse_plain`.
+    """
+    name = "forward_sweep_inverse_cuda"
+    _build.check_no_grad(name, R_cm, O_cm)
+    if not R_cm.is_cuda:
+        return forward_sweep_inverse_plain(R_cm, O_cm, jitter)
+    s, d, _, c = R_cm.shape
+    _check_sweep_inputs(name, R_cm, O_cm, R_cm.new_empty((s, d, c)))
+    outs = [R_cm.new_empty(shape) for shape in
+            [(d, d, c), (d, d, c), (d, d, c), (d, c), (s - 1, d, d, c),
+             (s - 1, d, c), (s - 1, d, d, c), (s - 1, d, d, c)]]
+    with torch.cuda.device(R_cm.device):
+        _launch(name, "cgt_forward_sweep_inverse", R_cm.dtype, R_cm, O_cm,
+                float(jitter), s, d, c, *outs)
+    forward_sweep_inverse_cuda.launches += 1
+    return tuple(outs)
+
+
+forward_sweep_inverse_cuda.launches = 0
+
+
+def takahashi_backward_plain(ds, invds, cs, w0s, p00, p01, p10, p11, phi0,
+                             u00, u10, a00, a10):
+    """Plain twin of the raw-factor Takahashi kernel (see
+    `takahashi_backward_cuda`), written as its grid runs.  ``a00`` and
+    ``a10`` are not read (see the wrapper)."""
+    mm = sb.matmul
+    sm1, d = ds.shape[0], ds.shape[1]
+    eye = sb.eye_em(d, ds).expand_as(ds[0])
+    phi, u0, u1 = phi0, u00, u10
+    diags, offs = [None] * (sm1 - 1), [None] * (sm1 - 1)
+    for t in reversed(range(sm1 - 1)):
+        d_j, invd_j, c_j = ds[t], invds[t], cs[t]
+        di = sb.solve_lower(d_j, invd_j, eye)
+        cd = mm(c_j, di)
+        phi_off = -mm(phi, cd)
+        phi_j = mm(di, di, ta=True) + mm(mm(cd, phi, ta=True), cd)
+        u0_j = sb.solve_lower_t(d_j, invd_j, w0s[t] - mm(c_j, u0, ta=True))
+        u1_j = -sb.solve_lower_t(d_j, invd_j, mm(c_j, u1, ta=True))
+        a0, a1 = _sig_ut(p00, p01, p10, p11, u0_j, u1_j)
+        diags[t] = phi_j + mm(u0_j, a0) + mm(u1_j, a1)
+        offs[t] = phi_off + mm(u0, a0) + mm(u1, a1)
+        phi, u0, u1 = phi_j, u0_j, u1_j
+    return torch.stack(diags), torch.stack(offs), u0, u1
+
+
+def takahashi_backward_cuda(ds: Tensor, invds: Tensor, cs: Tensor,
+                            w0s: Tensor, p00: Tensor, p01: Tensor,
+                            p10: Tensor, p11: Tensor, phi0: Tensor,
+                            u00: Tensor, u10: Tensor, a00: Tensor,
+                            a10: Tensor):
+    """Takahashi recursion over the raw factors of
+    `forward_sweep_inverse_cuda`, steps s-2 .. 1 descending (stack rows
+    s-3 .. 0):
+
+      di = D^{-1},  cd = C di,  phi_off = -phi_{j+1} cd
+      phi_j = di^T di + cd^T phi_{j+1} cd
+      u0_j = D^{-T} (W0_j - C^T u0_{j+1}),  u1_j = -D^{-T} C^T u1_{j+1}
+      Sigma_jj = phi_j + u0_j a0_j + u1_j a1_j
+      Sigma_{j+1,j} = phi_off + u0_{j+1} a0_j + u1_{j+1} a1_j
+
+    Stacks [s-1, d, d, C] (invds [s-1, d, C], s >= 3); p00/p01/p10/p11
+    the reduced system's selected-inverse blocks and (phi0, u00, u10) the
+    step s-1 seeds, all [d, d, C].  ``a00`` / ``a10`` (the step s-1
+    values of a0 / a1) keep the TPU kernel's argument list; no step reads
+    them, so they are checked but not passed to the kernel.  Returns
+    (diag rows [s-2, d, d, C] = Sigma_jj, off rows [s-2, d, d, C] =
+    Sigma_{j+1,j}, u0_final, u1_final [d, d, C]).  float32 or float64.
+
+    CUDA tensors launch ``csrc/inverse_sweep.cu``
+    (``takahashi_backward_cuda.launches``); CPU tensors run
+    `takahashi_backward_plain`.
+    """
+    name = "takahashi_backward_cuda"
+    args = (ds, invds, cs, w0s, p00, p01, p10, p11, phi0, u00, u10, a00,
+            a10)
+    _build.check_no_grad(name, *args)
+    if not ds.is_cuda:
+        return takahashi_backward_plain(*args)
+    keys = ("ds", "invds", "cs", "w0s", "p00", "p01", "p10", "p11", "phi0",
+            "u00", "u10", "a00", "a10")
+    _build.check_tensors(name, (torch.float32, torch.float64),
+                         **dict(zip(keys, args)))
+    sm1, d, _, c = ds.shape
+    _build.check_rank(d, name)
+    if sm1 < 2:
+        raise ValueError(f"{name}: chunk length {sm1 + 1} < 3")
+    step, mat = (sm1, d, d, c), (d, d, c)
+    for key, t, shape in zip(keys, args, (step, (sm1, d, c), step, step)
+                             + (mat,) * 9):
+        _build.check_shape(name, key, t, shape)
+    outs = [ds.new_empty(shape) for shape in ((sm1 - 1, d, d, c),
+                                              (sm1 - 1, d, d, c), mat, mat)]
+    with torch.cuda.device(ds.device):
+        _launch(name, "cgt_takahashi_backward", ds.dtype, *args[:11],
+                sm1 + 1, d, c, *outs)
+    takahashi_backward_cuda.launches += 1
+    return tuple(outs)
+
+
+takahashi_backward_cuda.launches = 0
