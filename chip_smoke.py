@@ -8,7 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases, one line of output each (or more):
   1. device   the card's name and power limit; TF32 off for the model math.
   2. build    nvcc builds the package's CUDA kernels from csrc/; the
-              compiler's registers / stack / spills at rank 5.
+              compiler's registers / stack / spills at rank 5, of the
+              celerite kernels at nblocks 2 and 8, and of kernels 1, 6
+              and 7 at rank 16.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -37,7 +39,17 @@ Phases, one line of output each (or more):
               grid on N = 1024), each against backend="torch"; a float64
               N = 48 predictive against the dense GP oracle; one profiled
               insample_posterior call.
-  8. a JSON line of the kernels, then the final JSON status line.
+  8. celerite the celerite family at nblocks = 8 (rank 16), obs 1, N = 1e6
+              on the bench grid (gaps randint(1, 5) * 0.125, float32): the
+              four celerite kernels against their twins, and the engine's
+              kernels 1, 6 and 7 at block size 16, on the inputs one
+              gradient of each likelihood route hands them; both routes
+              and their gradients with backend="auto" against "torch" at
+              nblocks 2 and 8; one likelihood call and three Adam steps on
+              nll_loss with launch counts reset just before and read just
+              after; one profiled step; make_predictions(method=
+              "precision") at nblocks 2.
+  9. a JSON line of the kernels, then the final JSON status line.
 
 Any failure exits non-zero before the final line.  There is no CPU path:
 without a CUDA device, or without the package beside this script, it
@@ -59,6 +71,7 @@ import torch
 N_BIG = 1_000_000
 N_SMALL = 48
 RANK, OBS = 5, 2
+CEL_NB, CEL_NB_SMALL = 8, 2  # celerite: rank 16 (the full width) and 4
 REPS = 7  # timed runs per kernel / twin (median reported)
 TRAIN_STEPS = 3
 # published peaks of one H100 SXM (the bound's denominators)
@@ -124,7 +137,11 @@ def compare(label, got, ref, rtol, atol, atol_of_scale=False, atols=None):
         if atols and i in atols:
             tol = atols[i]
         diff = (a - b).abs()
-        ratio = float((diff / (tol + rtol * b.abs())).max())
+        # an exact match is no error even where the tolerance is zero (an
+        # output that underflows to zero in both, e.g. W0 after 31 decaying
+        # steps of the boundary chain)
+        ratio = float(torch.where(diff == 0, 0.0,
+                                  diff / (tol + rtol * b.abs())).max())
         max_abs = float(diff.max())
         worst_abs = max(worst_abs, max_abs)
         ok = ratio <= 1.0
@@ -146,9 +163,17 @@ def compare(label, got, ref, rtol, atol, atol_of_scale=False, atols=None):
 # ---------------------------------------------------------------------------
 
 
+def _flat(xs):
+    """The tensors of a (nested) tuple of arguments or outputs."""
+    for x in xs:
+        if isinstance(x, (tuple, list)):
+            yield from _flat(x)
+        elif isinstance(x, torch.Tensor):
+            yield x
+
+
 def _nbytes(tensors):
-    return sum(t.numel() * t.element_size() for t in tensors
-               if isinstance(t, torch.Tensor))
+    return sum(t.numel() * t.element_size() for t in _flat(tensors))
 
 
 def _rounds(g, dt):
@@ -199,12 +224,44 @@ def _adjoint_flops(g, dt):
     return _tn_flops(g, dt) + float(dt.numel() * per_gap + back)
 
 
+# operations of one oscillator's closed-form gap terms (celerite.cuh
+# osc_core: ~60 with each transcendental counted once) and of turning them
+# into the precision row terms (adjugate inverse, off, d_right, d_left)
+_OSC_FLOPS, _OSC_ROW_FLOPS = 60, 30
+
+
+def _celerite_flops(kernel, args):
+    """Operations of the celerite kernels, per step from each kernel's
+    code, times the s * C steps of this call."""
+    nb = args[0].shape[0]
+    r = 2 * nb
+    if kernel == "celerite_gap_mahal_sweep":
+        steps = args[2].numel()
+        # closed forms and row terms, K row, one elimination row
+        return steps * (nb * (_OSC_FLOPS + _OSC_ROW_FLOPS) + 3 * r * r
+                        + _sweep_row_flops(r))
+    q = args[1].shape[0]
+    steps = args[3].numel()
+    if kernel == "celerite_filter_adjoint":
+        # recompute (4q), P1 (2q), ebar blocks (4q + 10), the e^T
+        # transforms (9), Kbar and PBtbar (6q), Gbar (5q), Sibar (2q^2),
+        # the B cotangent (4q), the carry (6q), all times r^2
+        per = (31 * q + 2 * q * q + 19) * r * r
+    else:
+        # B P, B F (4q), the H, F, P updates (6q), the predict's row and
+        # column mixes (9), all times r^2
+        per = (10 * q + 9) * r * r
+    return steps * (per + nb * _OSC_FLOPS)
+
+
 def bound(kernel, args, outs, g=None, dt=None):
     """(least ms, "bytes" or "operations") for one kernel call."""
     if kernel == "takahashi_backward":
         args = args[:11]  # the step s-1 a0 / a1 are not read
     nbytes = _nbytes(args) + _nbytes(outs)
-    if kernel == "transition_and_noise":
+    if kernel.startswith("celerite"):
+        flops = _celerite_flops(kernel, args)
+    elif kernel == "transition_and_noise":
         flops = _tn_flops(g, dt)
     elif kernel == "k_system":
         r = g.shape[0]
@@ -293,6 +350,19 @@ def dense_latent_predictive(leg, params, ts, xs, t_star):
     return mean, cov
 
 
+def bench_grid(n, dev, seed=0):
+    """examples/bench_celerite_train.py's grid: gaps randint(1, 5) * 0.125
+    (float32 timestamps exact up to 2^24 * 0.125) and standard normal
+    observations, obs_dim 1, float32."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ts = np.cumsum(rng.randint(1, 5, n) * 0.125)
+    xs = rng.randn(n, 1)
+    return (torch.as_tensor(ts, dtype=torch.float32).to(dev),
+            torch.as_tensor(xs, dtype=torch.float32).to(dev))
+
+
 def rel_inf(a, b):
     """||a - b||_inf / ||b||_inf."""
     a, b = a.detach().double(), b.detach().double()
@@ -340,11 +410,29 @@ def main():
     for fn_name, (regs, stack, spill) in sorted(
             _build.ptxas_report(RANK).items()):
         base = re.search(r"\d+([a-z_]+?)I([fd]?)Li\d+E", fn_name)
-        if base is None:
+        if base is None or "celerite" in base.group(1):
             continue
         kind = " (float64)" if base.group(2) == "d" else ""
         say(f"[build] rank {RANK} {base.group(1)}{kind}: registers {regs}, "
             f"stack {stack} B, spill stores {spill} B")
+    # the celerite kernels at nblocks 2 and 8 (rank 4 and 16; template
+    # arguments nblocks, obs_dim, collect) and kernels 1, 6, 7 at rank 16
+    sweeps16 = ("forward_sweep_kernel", "forward_sweep_solveinv_kernel",
+                "backward_solve_takahashi_kernel")
+    for tag in (CEL_NB_SMALL, CEL_NB, 16):
+        for fn_name, (regs, stack, spill) in sorted(
+                _build.ptxas_report(tag).items()):
+            base = re.search(r"\d+([a-z_]+?)I(\w*?)EEv", fn_name)
+            if base is None or regs is None:
+                continue
+            if tag == 16:
+                if base.group(1) not in sweeps16:
+                    continue
+            elif ("celerite" not in base.group(1)
+                  or not base.group(2).startswith(f"Li{tag}E")):
+                continue
+            say(f"[build] {base.group(1)}<{base.group(2)}>: registers "
+                f"{regs}, stack {stack} B, spill stores {spill} B")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -411,15 +499,18 @@ def main():
 
     def check_kernel(key, source, replaces, kernel, twin, args, rtol, atol,
                      why, kw=None, atol_of_scale=False, gaps_of=None,
-                     f64_outputs=()):
+                     f64_outputs=(), record=True):
         """Kernel vs twin.  For the outputs in ``f64_outputs`` the
         absolute tolerance is 4x the twin's own float32 error against the
         twin run in float64 on the same inputs (for values that cancel
-        terms far larger than themselves)."""
+        terms far larger than themselves).  ``record=False`` checks
+        without adding a row to the kernels line (another block size of
+        a kernel that has its row)."""
         kw = kw or {}
         def outputs(fn, *a):
             out = fn(*a, **kw)
-            return (out,) if isinstance(out, torch.Tensor) else out
+            return (out,) if isinstance(out, torch.Tensor) else tuple(
+                _flat(out))
 
         with torch.no_grad():
             got = outputs(kernel, *args)
@@ -439,14 +530,16 @@ def main():
             ms = cuda_ms(lambda: kernel(*args, **kw))
             plain_ms = cuda_ms(lambda: twin(*args, **kw))
         b_ms, b_by = bound(key, args, got, g, gaps_of)
-        say(f"[kernels] {key}: max_abs_err={err:.3e} ({why}); "
+        tag = "kernels" if record else "celerite"
+        say(f"[{tag}] {key}: max_abs_err={err:.3e} ({why}); "
             f"kernel {ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
-        rows.append({"name": key, "route": "cuda", "source": source,
-                     "replaces": replaces, "kernel": kernel,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+        if record:
+            rows.append({"name": key, "route": "cuda", "source": source,
+                         "replaces": replaces, "kernel": kernel,
+                         "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None})
         return got
 
     check_kernel(
@@ -872,7 +965,203 @@ def main():
             :10]:
         say(f"[posterior]   {key[:80]}: {ms:.3f} ms, {n} calls")
 
-    # ---- 8. summary --------------------------------------------------------
+    # ---- 8. celerite: nblocks 8 (rank 16), the bench grid ------------------
+    from cyclic_gps_tpu_torch.models import celerite
+    from cyclic_gps_tpu_torch.ops import celerite_cuda
+
+    torch.cuda.empty_cache()
+    ts_c, xs_c = bench_grid(N_BIG, dev)
+    p8 = celerite.init_params(CEL_NB, 1, generator=torch.Generator()
+                              .manual_seed(0), device=dev)
+    p2 = celerite.init_params(CEL_NB_SMALL, 1, generator=torch.Generator()
+                              .manual_seed(1), device=dev)
+    say(f"[celerite] nblocks {CEL_NB} (rank {2 * CEL_NB}) and "
+        f"{CEL_NB_SMALL}, obs 1, N {N_BIG}, bench grid (gaps randint(1, 5)"
+        " * 0.125, float32 timestamps exact), float32, seeded weights")
+
+    # the inputs the main path hands the kernels: one forward of the
+    # precision route (kernel 12) and one gradient of the filter route
+    # (kernels 13-15, and 1, 6 and 7 at block size 16 on its boundary
+    # chain)
+    captured.clear()
+    cel_kernels = ("celerite_gap_mahal_sweep", "celerite_filter",
+                   "celerite_filter_collect", "celerite_filter_adjoint")
+    origs = [(celerite, f"{k}_cuda", capture(celerite, f"{k}_cuda"))
+             for k in cel_kernels]
+    with torch.no_grad():
+        celerite.log_likelihood(p8, ts_c, xs_c)
+    origs += [(sweep_cuda, f"{k}_cuda", capture(sweep_cuda, f"{k}_cuda"))
+              for k in ("forward_sweep", "forward_sweep_solveinv",
+                        "backward_solve_takahashi")]
+    torch.autograd.grad(celerite.log_likelihood_filter(p8, ts_c, xs_c),
+                        list(p8.parameters()))
+    torch.cuda.synchronize()
+    for module, attr, orig in origs:
+        setattr(module, attr, orig)
+    if len(captured) != 7:
+        fail(f"the celerite routes reached only {sorted(captured)}")
+    for key, source, line, rtol, why in (
+            ("celerite_gap_mahal_sweep", "celerite_sweep.cu", 285, 1e-3,
+             "127 dependent elimination steps on closed-form rank-16 rows; "
+             "mh, ld and the log|Q1| sum over 1e6 rows in another order; "
+             "atol 1e-4 of each output's scale"),
+            ("celerite_filter", "celerite_filter.cu", 479, 1e-3,
+             "128 dependent filter steps, the Cholesky of S against the "
+             "twin's inverse; atol 1e-4 of each output's scale"),
+            ("celerite_filter_collect", "celerite_filter.cu", 592, 1e-3,
+             "kernel 13 plus its per-step history; atol 1e-4 of each "
+             "output's scale"),
+            ("celerite_filter_adjoint", "celerite_adjoint.cu", 813, 1e-3,
+             "128 dependent adjoint steps; bbar and lambar summed over 1e6 "
+             "steps in another order; atol 1e-4 of each output's scale")):
+        args_k, kw_k = captured[f"{key}_cuda"]
+        check_kernel(
+            key, f"cyclic_gps_tpu_torch/csrc/{source}",
+            f"cyclic_gps_tpu/ops/celerite_pallas.py:{line}",
+            getattr(celerite_cuda, f"{key}_cuda"),
+            getattr(celerite_cuda, f"{key}_plain"), args_k, rtol, 1e-4, why,
+            kw=kw_k, atol_of_scale=True)
+    for key in ("forward_sweep", "forward_sweep_solveinv",
+                "backward_solve_takahashi"):
+        args_k, kw_k = captured[f"{key}_cuda"]
+        check_kernel(
+            key, "", "", getattr(sweep_cuda, f"{key}_cuda"),
+            getattr(sweep_cuda, f"{key}_plain"), args_k, 1e-3, 1e-4,
+            f"block size {args_k[0].shape[1]}, the boundary chain's top "
+            f"level (C = {args_k[0].shape[-1]} chunks); atol 1e-4 of each "
+            "output's scale",
+            kw=kw_k, atol_of_scale=True, record=False)
+    captured.clear()
+    torch.cuda.empty_cache()
+
+    # both routes and their gradients, backend="auto" against "torch"
+    cel_cases = [(f"{name} nblocks {p.nblocks}", fn, p)
+                 for p in (p2, p8)
+                 for name, fn in (("log_likelihood (precision)",
+                                   celerite.log_likelihood),
+                                  ("log_likelihood_filter",
+                                   celerite.log_likelihood_filter))]
+    cel_vals = {}
+    for label, fn, p in cel_cases:
+        with torch.no_grad():
+            ms_auto, v_auto = host_ms(lambda: fn(p, ts_c, xs_c), reps=1)
+            ms_plain, v_plain = host_ms(
+                lambda: fn(p, ts_c, xs_c, backend="torch"), reps=1)
+        cel_vals[label] = float(v_auto)
+        rel = abs(float(v_auto) - float(v_plain)) / abs(float(v_plain))
+        ok = bool(torch.isfinite(v_auto)) and rel <= 1e-4
+        say(f"[celerite] {label}: auto {float(v_auto):.6f} ({ms_auto:.2f} "
+            f"ms), torch {float(v_plain):.6f} ({ms_plain:.2f} ms), rel "
+            f"diff {rel:.3e} <= 1e-4 (float32 sums over 1e6 rows in other "
+            f"orders) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"celerite {label}: backend='auto' disagrees with 'torch'")
+    for nb in (CEL_NB_SMALL, CEL_NB):
+        a = cel_vals[f"log_likelihood (precision) nblocks {nb}"]
+        b = cel_vals[f"log_likelihood_filter nblocks {nb}"]
+        rel = abs(a - b) / abs(b)
+        say(f"[celerite] nblocks {nb}: fused precision route vs filter "
+            f"route (kernels) rel diff {rel:.3e} <= 1e-4 (two exact "
+            f"decompositions of one likelihood, float32) "
+            f"{'ok' if rel <= 1e-4 else 'MISMATCH'}")
+        if rel > 1e-4:
+            fail(f"celerite nblocks {nb}: the two routes disagree")
+    cel_leaves = ("n_diag", "n_sub", "r_sub", "lambda_params", "b")
+    for label, fn, p in cel_cases:
+        def grads(**kw):
+            return torch.autograd.grad(fn(p, ts_c, xs_c, **kw),
+                                       list(p.parameters()))
+        ms_auto, g_auto = host_ms(grads, reps=1)
+        ms_plain, g_plain = host_ms(lambda: grads(backend="torch"), reps=1)
+        rels = [rel_inf(a, b) for a, b in zip(g_auto, g_plain)]
+        ok = (all(bool(torch.isfinite(a).all()) for a in g_auto)
+              and max(rels) <= grad_bar)
+        say(f"[celerite] grad {label}: auto {ms_auto:.1f} ms, torch "
+            f"{ms_plain:.1f} ms; per-leaf rel diff "
+            + ", ".join(f"{k} {v:.2e}" for k, v in zip(cel_leaves, rels))
+            + f" <= {grad_bar:g} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"celerite {label}: the backend='auto' gradient disagrees")
+
+    # the path: one likelihood call (precision route, kernel 12) and three
+    # Adam steps on nll_loss (filter route, kernels 13-15; the boundary
+    # chain through 1, 6 and 7 at block size 16), counts reset just
+    # before and read just after
+    path_kernels = cel_kernels + ("forward_sweep", "forward_sweep_solveinv",
+                                  "backward_solve_takahashi")
+    counters = {r["name"]: r["kernel"] for r in rows}
+    p_train = celerite.init_params(CEL_NB, 1, generator=torch.Generator()
+                                   .manual_seed(0), device=dev)
+    opt = loop.make_optimizer("adam", 1e-3, reduce_on_plateau=False)
+
+    def adam_step():
+        loss = celerite.nll_loss(p_train, ts_c, xs_c)
+        for t in p_train.parameters():
+            t.grad = None
+        loss.backward()
+        opt.step(p_train, loss.item())
+        return loss.item()
+
+    for r in rows:
+        r["kernel"].launches = 0
+    with torch.no_grad():
+        ll_path = float(celerite.log_likelihood(p_train, ts_c, xs_c))
+    torch.cuda.synchronize()
+    ll_launches = {k: counters[k].launches for k in path_kernels}
+    step_ms, cel_losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cel_losses.append(adam_step())
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    cel_launches = {k: counters[k].launches for k in path_kernels}
+    say(f"[celerite] launches in one log_likelihood call: {ll_launches}; "
+        f"then with {TRAIN_STEPS} Adam steps on nll_loss: {cel_launches}")
+    for k in path_kernels:
+        if cel_launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the celerite path")
+    for r in rows:
+        if r["name"] in cel_kernels:
+            r["launches"] = cel_launches[r["name"]]
+    if not all(math.isfinite(v) for v in cel_losses + [ll_path]):
+        fail(f"non-finite celerite loss: {ll_path}, {cel_losses}")
+    say(f"[celerite] log_likelihood {ll_path:.6f}; Adam losses "
+        f"{cel_losses}; step ms {[round(t, 2) for t in step_ms]}, median "
+        f"{statistics.median(step_ms):.2f} ms (host clock, synchronised; "
+        "the first step includes warm-up)")
+    wall, by_kernel = profiled(adam_step)
+    if not by_kernel:
+        say("[celerite] profiled step: the profiler saw no device events; "
+            "device ops and busy share not measured")
+    else:
+        dev_ms = sum(ms for ms, _ in by_kernel.values())
+        n_ops = sum(n for _, n in by_kernel.values())
+        say(f"[celerite] profiled Adam step: wall {wall:.2f} ms (profiler "
+            f"on), {n_ops} device ops, device {dev_ms:.2f} ms, busy share "
+            f"{dev_ms / wall:.3f}")
+    for key, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
+            :10]:
+        say(f"[celerite]   {key[:80]}: {ms:.3f} ms, {n} calls")
+
+    # predictions through the expanded LEG posterior (kernels 2, 3, 8-11
+    # stop at rank 8: nblocks 2)
+    targets_c = torch.sort(ts_c[0] + (ts_c[-1] - ts_c[0]) * torch.rand(
+        10_000, generator=torch.Generator().manual_seed(5)).to(dev)).values
+    with torch.no_grad():
+        ms_auto, got = host_ms(lambda: celerite.make_predictions(
+            p2, ts_c, xs_c, targets_c, method="precision"), reps=1)
+        ms_plain, ref = host_ms(lambda: celerite.make_predictions(
+            p2, ts_c, xs_c, targets_c, method="precision", backend="torch"),
+            reps=1)
+    compare(f"celerite make_predictions nblocks {CEL_NB_SMALL}", got, ref,
+            0.0, post_bar, atol_of_scale=True)
+    say(f"[celerite] make_predictions(method='precision') nblocks "
+        f"{CEL_NB_SMALL}, N={N_BIG}, P={targets_c.shape[0]}: auto "
+        f"{ms_auto:.2f} ms, torch {ms_plain:.2f} ms (host clock); agree "
+        f"(atol 1e-3 of each output's scale: {why32})")
+
+    # ---- 9. summary --------------------------------------------------------
     say(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

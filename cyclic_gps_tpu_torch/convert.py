@@ -1,9 +1,10 @@
-"""Carry LEG weights between the JAX package and this one.
+"""Carry LEG and celerite weights between the JAX package and this one.
 
-Both packages pack the parameters the same way (N lower-triangular,
-R strictly lower, raw Lambda lower-triangular, dense B), so converting is
-a copy of four arrays.  Nothing here imports JAX: the JAX side hands over
-and takes back plain numpy arrays.
+Both packages pack the parameters the same way (LEG: N lower-triangular,
+R strictly lower, raw Lambda lower-triangular, dense B; celerite: the
+N diagonal and subdiagonal, the R subdiagonal, raw Lambda, B), so
+converting is a copy of the arrays.  Nothing here imports JAX: the JAX
+side hands over and takes back plain numpy arrays.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from cyclic_gps_tpu_torch.models.celerite import CeleriteParams
 from cyclic_gps_tpu_torch.models.leg import LEGParams
 
 
@@ -54,3 +56,30 @@ def grads_to_numpy(p: LEGParams) -> NumpyLEGParams:
     in the same order (what ``jax.grad`` returns as a ``LEGParams``)."""
     return NumpyLEGParams(*(t.grad.detach().cpu().numpy() for t in
                             (p.n_params, p.r_params, p.lambda_params, p.b)))
+
+
+class NumpyCeleriteParams(NamedTuple):
+    """The five celerite arrays, in the JAX ``CeleriteParams`` field order
+    (so ``cyclic_gps_tpu.models.celerite.CeleriteParams(*map(jnp.asarray,
+    p))`` rebuilds the JAX parameters)."""
+
+    n_diag: np.ndarray
+    n_sub: np.ndarray
+    r_sub: np.ndarray
+    lambda_params: np.ndarray
+    b: np.ndarray
+
+
+def celerite_params_from_jax(p, device=None) -> CeleriteParams:
+    """A JAX ``CeleriteParams`` (or anything with its five fields as
+    array-likes) -> this package's ``CeleriteParams`` on ``device``,
+    keeping the dtype."""
+    return CeleriteParams(*(torch.as_tensor(np.array(getattr(p, k)),
+                                            device=device)
+                            for k in NumpyCeleriteParams._fields))
+
+
+def celerite_params_to_numpy(p: CeleriteParams) -> NumpyCeleriteParams:
+    """This package's ``CeleriteParams`` -> the five numpy arrays."""
+    return NumpyCeleriteParams(*(getattr(p, k).detach().cpu().numpy()
+                                 for k in NumpyCeleriteParams._fields))

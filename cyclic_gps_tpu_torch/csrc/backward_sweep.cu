@@ -26,6 +26,9 @@
 // axis is innermost so every access coalesces.  The descending walk indexes
 // its rows backwards with plain strides -- no reversed copy.  Spreading a
 // chunk over a warp is later work.
+//
+// Instantiated for block sizes 1..8 and 16 (the celerite family's boundary
+// chain at nblocks = 8), as forward_sweep.cu.
 #include "blockmath.cuh"
 
 namespace {
@@ -228,7 +231,7 @@ int launch_solveinv(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
       <<<blocks_for(C), CGT_THREADS, 0, stream>>>(                         \
           R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl, \
           mh, ld, hc, hw0, hw, pinv, ld_rows)
-  CGT_RANK_SWITCH(d, CGT_LAUNCH)
+  CGT_RANK_SWITCH_16(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
   return int(cudaGetLastError());
 }
@@ -244,7 +247,7 @@ int launch_backsolve(const T* hc, const T* hw0, const T* hw, const T* pinv,
       <<<blocks_for(C), CGT_THREADS, 0, stream>>>(                          \
           hc, hw0, hw, pinv, hw1, xb, xbn, p00, p01, p10, p11, s, C, x,     \
           diag, off, u0f, u1f)
-  CGT_RANK_SWITCH(d, CGT_LAUNCH)
+  CGT_RANK_SWITCH_16(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
   return int(cudaGetLastError());
 }

@@ -91,52 +91,61 @@ __device__ __forceinline__ void load_dense(const T* p, T (&m)[R][R]) {
 
 // ---------------------------------------------------------------------------
 // Block products.  Each sums its k terms in ascending order, as the Pallas
-// _mm helper does.
+// _mm helper does.  Blocks above CGT_UNROLL_MAX (rank 16, the celerite
+// boundary chain) keep these O(R^3) loops rolled: such blocks live in local
+// memory however the loops are unrolled, and unrolling 16^3 multiply-adds
+// per product makes ptxas take minutes.
 // ---------------------------------------------------------------------------
+
+#define CGT_UNROLL_MAX 8
+
+// out = op(a) op(b), op transposing where TA / TB
+template <typename T, int R, bool TA, bool TB>
+__device__ __forceinline__ void mm_op(const T (&a)[R][R], const T (&b)[R][R],
+                                      T (&out)[R][R]) {
+  if constexpr (R <= CGT_UNROLL_MAX) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        T acc = (TA ? a[0][i] : a[i][0]) * (TB ? b[k][0] : b[0][k]);
+#pragma unroll
+        for (int p = 1; p < R; ++p)
+          acc += (TA ? a[p][i] : a[i][p]) * (TB ? b[k][p] : b[p][k]);
+        out[i][k] = acc;
+      }
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < R; ++i)
+#pragma unroll 1
+      for (int k = 0; k < R; ++k) {
+        T acc = (TA ? a[0][i] : a[i][0]) * (TB ? b[k][0] : b[0][k]);
+        for (int p = 1; p < R; ++p)
+          acc += (TA ? a[p][i] : a[i][p]) * (TB ? b[k][p] : b[p][k]);
+        out[i][k] = acc;
+      }
+  }
+}
 
 // out = a b
 template <typename T, int R>
 __device__ __forceinline__ void mm(const T (&a)[R][R], const T (&b)[R][R],
                                    T (&out)[R][R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      T acc = a[i][0] * b[0][k];
-#pragma unroll
-      for (int p = 1; p < R; ++p) acc += a[i][p] * b[p][k];
-      out[i][k] = acc;
-    }
+  mm_op<T, R, false, false>(a, b, out);
 }
 
 // out = a b^T
 template <typename T, int R>
 __device__ __forceinline__ void mm_tb(const T (&a)[R][R], const T (&b)[R][R],
                                       T (&out)[R][R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      T acc = a[i][0] * b[k][0];
-#pragma unroll
-      for (int p = 1; p < R; ++p) acc += a[i][p] * b[k][p];
-      out[i][k] = acc;
-    }
+  mm_op<T, R, false, true>(a, b, out);
 }
 
 // out = a^T b
 template <typename T, int R>
 __device__ __forceinline__ void mm_ta(const T (&a)[R][R], const T (&b)[R][R],
                                       T (&out)[R][R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      T acc = a[0][i] * b[0][k];
-#pragma unroll
-      for (int p = 1; p < R; ++p) acc += a[p][i] * b[p][k];
-      out[i][k] = acc;
-    }
+  mm_op<T, R, true, false>(a, b, out);
 }
 
 // out = a x
@@ -695,6 +704,22 @@ __device__ __forceinline__ void store_sweep_state(
     case 6: CALL(6); break;      \
     case 7: CALL(7); break;      \
     case 8: CALL(8); break;      \
+    default: return int(cudaErrorInvalidValue); \
+  }
+
+// The same for ranks 1..8 and 16 (the engine's forward sweep and its two
+// backward kernels, which also run the celerite boundary chain).
+#define CGT_RANK_SWITCH_16(r, CALL) \
+  switch (r) {                      \
+    case 1: CALL(1); break;         \
+    case 2: CALL(2); break;         \
+    case 3: CALL(3); break;         \
+    case 4: CALL(4); break;         \
+    case 5: CALL(5); break;         \
+    case 6: CALL(6); break;         \
+    case 7: CALL(7); break;         \
+    case 8: CALL(8); break;         \
+    case 16: CALL(16); break;       \
     default: return int(cudaErrorInvalidValue); \
   }
 

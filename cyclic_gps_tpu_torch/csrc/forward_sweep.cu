@@ -19,6 +19,10 @@
 // layout puts the lane axis innermost so every thread's loads coalesce
 // with its neighbours' without a transpose.  Spreading one chunk over
 // several threads, or more chunks per SM, is later work.
+//
+// Instantiated for block sizes 1..8 and 16 (the celerite family's boundary
+// chain at nblocks = 8); at 16 the carried state lives in local memory and
+// the block products run as rolled loops (blockmath.cuh, CGT_UNROLL_MAX).
 #include "blockmath.cuh"
 
 namespace {
@@ -58,7 +62,7 @@ int launch_forward_sweep(const T* R_cm, const T* O_cm, const T* y_cm,
   forward_sweep_kernel<T, RR><<<blocks, CGT_THREADS, 0, stream>>>(          \
       R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl, mh, \
       ld, ld_rows)
-  CGT_RANK_SWITCH(d, CGT_LAUNCH)
+  CGT_RANK_SWITCH_16(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
   return int(cudaGetLastError());
 }

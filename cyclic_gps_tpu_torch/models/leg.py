@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -94,6 +94,28 @@ class LEGParams(nn.Module):
         self.r_params = nn.Parameter(r_params)  # [rank*(rank-1)/2]
         self.lambda_params = nn.Parameter(lambda_params)  # [obs*(obs+1)/2]
         self.b = nn.Parameter(b)  # [obs_dim, rank]
+
+    @property
+    def rank(self) -> int:
+        return self.b.shape[1]
+
+    @property
+    def obs_dim(self) -> int:
+        return self.b.shape[0]
+
+
+class LEGView(NamedTuple):
+    """The four packed parameter tensors as they are, without
+    ``nn.Parameter`` wrapping: every LEG function takes one in place of a
+    `LEGParams`, reading only these fields.  A structured family builds
+    one from its own parameters (``celerite.expand``) so that gradients
+    flow back through the expansion; wrapping the expanded tensors in a
+    `LEGParams` would detach them."""
+
+    n_params: Tensor
+    r_params: Tensor
+    lambda_params: Tensor
+    b: Tensor
 
     @property
     def rank(self) -> int:
@@ -411,14 +433,18 @@ def _chunk_gap_geometry(ts: Tensor, s: int, n: int, c: int, dtype):
     return diffs.contiguous(), gap_valid, is_real
 
 
-def _k_gap_parts_plain(g, boost, ts, s, regular, rank, dtype, backend):
+def _k_gap_parts_plain(g, boost, ts, s, regular, rank, dtype, backend,
+                       gap_fn=None):
     """(k_cm [s, r, r, C], off_cm, lq_cm [s, C]): the gap-dependent part
-    of the chunk-major K system, assembled with tensor ops from the dense
-    gap emission.  lq_cm is the valid-masked per-gap log|Q1| (the prior
-    log-determinant is -sum(lq_cm)).  The irregular grid streams the
-    emission in slabs (`_gap_terms_dense_streamed`)."""
-    gap_fn = (_gap_terms_dense(g, backend) if regular
-              else _gap_terms_dense_streamed(g, backend))
+    of the chunk-major K system, assembled with tensor ops from the gap
+    emission ``gap_fn`` (diffs [M] -> (off1, d_left, d_right [r, r, M],
+    log|Q1| [M]), as `_gap_terms_dense`), by default the dense emission of
+    the generator ``g``.  lq_cm is the valid-masked per-gap log|Q1| (the
+    prior log-determinant is -sum(lq_cm)).  The dense irregular emission
+    streams in slabs (`_gap_terms_dense_streamed`)."""
+    if gap_fn is None:
+        gap_fn = (_gap_terms_dense(g, backend) if regular
+                  else _gap_terms_dense_streamed(g, backend))
     n = ts.shape[0]
     c = -(-n // s)
     diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c, dtype)
@@ -445,7 +471,7 @@ def _k_gap_parts_plain(g, boost, ts, s, regular, rank, dtype, backend):
     )
     d_left_shifted = torch.cat([wrap, d_left_cm[:-1]], dim=0)
 
-    eye = torch.eye(rank, dtype=dtype, device=g.device)[None, :, :, None]
+    eye = torch.eye(rank, dtype=dtype, device=boost.device)[None, :, :, None]
     k_cm = (
         eye
         + d_left_shifted
@@ -596,7 +622,7 @@ def _use_gap_fused(params, regular: bool, backend: str, n: int,
 
 
 def _k_system_chunked(params, ts: Tensor, xs: Tensor, s: int,
-                      regular: bool, backend: str = "auto"):
+                      regular: bool, backend: str = "auto", gap_fn=None):
     """Posterior-precision system K = Sigma^{-1} + I (x) B^T LLT^{-1} B
     emitted DIRECTLY in the partitioned engine's chunk-major layout
     ([s, r, r, C] / [s, r, C]), plus log|Sigma^{-1}|.
@@ -608,21 +634,26 @@ def _k_system_chunked(params, ts: Tensor, xs: Tensor, s: int,
     (The JAX package reads ``resolve_backend("auto")`` at this point, not
     the caller's backend, so its explicit "xla" still emits K with the
     TPU kernel; here the caller's backend is threaded through, so
-    "torch" is plain end to end.)
+    "torch" is plain end to end.)  ``gap_fn`` overrides the gap emission
+    (see `_k_gap_parts_plain`; the celerite closed forms): K is then
+    assembled with tensor ops on every backend, and ``params`` needs only
+    its ``b`` and ``lambda_params``.
     """
     rank = params.rank
     llt = lambda_lambda_t(params)
     n = ts.shape[0]
     dtype = llt.dtype
     boost = params.b.T @ torch.linalg.solve(llt, params.b)
-    g = g_matrix(params)
 
-    if (not regular and dtype == torch.float32
+    if (gap_fn is None and not regular and dtype == torch.float32
             and pt.resolve_backend(backend, llt) == "cuda"):
-        k_cm, off_cm, lq_cm = _KGapParts.apply(g, boost, ts, s)
+        k_cm, off_cm, lq_cm = _KGapParts.apply(g_matrix(params), boost, ts,
+                                               s)
     else:
+        g = g_matrix(params) if gap_fn is None else None
         k_cm, off_cm, lq_cm = _k_gap_parts_plain(g, boost, ts, s, regular,
-                                                 rank, dtype, backend)
+                                                 rank, dtype, backend,
+                                                 gap_fn)
     sig_logdet = -torch.sum(lq_cm)
     v_cm = _v_chunk_major(params, xs, llt, s, k_cm.shape[-1], dtype)
     return k_cm, off_cm, v_cm, sig_logdet

@@ -30,8 +30,10 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _SOURCES = ("forward_sweep.cu", "gap_emission.cu", "backward_sweep.cu",
-            "gap_adjoint.cu", "solve_sweep.cu", "inverse_sweep.cu")
-_HEADERS = ("blockmath.cuh",)
+            "gap_adjoint.cu", "solve_sweep.cu", "inverse_sweep.cu",
+            "celerite_sweep.cu", "celerite_filter.cu",
+            "celerite_adjoint.cu")
+_HEADERS = ("blockmath.cuh", "celerite.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -70,6 +72,12 @@ _SIGNATURES = {
     + [_P] * 8 + [_P],
     "cgt_takahashi_backward_f32": [_P] * 11 + [_I, _I, _I] + [_P] * 4 + [_P],
     "cgt_takahashi_backward_f64": [_P] * 11 + [_I, _I, _I] + [_P] * 4 + [_P],
+    "cgt_celerite_gap_mahal_sweep_f32": [_P] * 7 + [_I, _I, _I] + [_P] * 11
+    + [_P],
+    "cgt_celerite_filter_f32": [_P] * 7 + [_I, _I, _I, _I] + [_P] * 10
+    + [_P],
+    "cgt_celerite_filter_adjoint_f32": [_P] * 17 + [_I, _I, _I, _I]
+    + [_P] * 5 + [_P],
 }
 
 
@@ -172,16 +180,23 @@ def load() -> ctypes.CDLL:
 # Checks shared by the kernel wrappers (ops/sweep_cuda.py, ops/expm_cuda.py).
 # ---------------------------------------------------------------------------
 
-MAX_RANK = 8  # the kernels are instantiated for block sizes 1..8
+# Block sizes each kernel is instantiated for: every kernel takes 1..8;
+# the engine's forward sweep and its two backward kernels (Queue 2 items
+# 1, 6 and 7) also take 16, the boundary chain of the celerite family at
+# nblocks = 8.
+RANKS = tuple(range(1, 9))
+SWEEP_RANKS = RANKS + (16,)
 
 
-def check_rank(r: int, name: str) -> None:
-    """Refuse a block size the kernels were not instantiated for."""
-    if not 1 <= r <= MAX_RANK:
+def check_rank(r: int, name: str, sizes=RANKS) -> None:
+    """Refuse a block size the kernel was not instantiated for."""
+    if r not in sizes:
+        have = "1..8" + (", 16" if 16 in sizes else "")
         raise ValueError(
             f"{name}: block size {r} has no CUDA kernel (instantiated for "
-            f"1..{MAX_RANK}); sizes 9-16 wait for the wide-layout kernels "
-            "(ROADMAP.md, Queue 2, wide layout)")
+            f"{have}); sizes 9-15 wait for the wide-layout kernels and "
+            "rank 16 of the emission and posterior kernels for their own "
+            "instantiation (ROADMAP.md, Queue 2)")
 
 
 def check_no_grad(name: str, *tensors) -> None:

@@ -105,14 +105,14 @@ def forward_sweep_plain(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 
 
 def _check_sweep_inputs(name: str, R_cm: Tensor, O_cm: Tensor,
-                        y_cm: Tensor):
+                        y_cm: Tensor, sizes=_build.RANKS):
     _build.check_tensors(name, (torch.float32, torch.float64),
                          R_cm=R_cm, O_cm=O_cm, y_cm=y_cm)
     s, d, _, c = R_cm.shape
     _build.check_shape(name, "R_cm", R_cm, (s, d, d, c))
     _build.check_shape(name, "O_cm", O_cm, (s, d, d, c))
     _build.check_shape(name, "y_cm", y_cm, (s, d, c))
-    _build.check_rank(d, name)
+    _build.check_rank(d, name, sizes)
     if s < 2:
         raise ValueError(f"{name}: chunk length {s} < 2")
     return s, d, c
@@ -137,8 +137,8 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     partitioned._forward_sweep with collect=None).
 
     R_cm, O_cm [s, d, d, C], y_cm [s, d, C] (float32 or float64, s >= 2,
-    d <= 8).  Returns (acc00 [d,d,C], accy0 [d,C], w0_last [d,d,C],
-    w_last [d,C], d_last [d,d,C], invd_last [d,C], mh, ld, ld_rows
+    d in 1..8 or 16).  Returns (acc00 [d,d,C], accy0 [d,C], w0_last
+    [d,d,C], w_last [d,C], d_last [d,d,C], invd_last [d,C], mh, ld, ld_rows
     [s-1, C]): everything the reduced system and W1 assembly need, plus
     the per-row pivot log-dets of steps j = 1..s-1.  ``jitter`` is added
     to every pivot block's diagonal.  The per-lane partial sums of mh and
@@ -152,7 +152,8 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     _build.check_no_grad(name, R_cm, O_cm, y_cm)
     if not R_cm.is_cuda:
         return forward_sweep_plain(R_cm, O_cm, y_cm, jitter)
-    s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm)
+    s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm,
+                                  _build.SWEEP_RANKS)
     outs = [R_cm.new_empty(shape) for shape in
             [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
              (c,), (c,), (s - 1, c)]]
@@ -196,8 +197,8 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     kernels' Cholesky).
 
     R_cm, O_cm [s, d, d, C], y_cm [s, d, C] (float32 or float64, s >= 2,
-    d <= 8).  Returns the nine outputs of `forward_sweep_cuda` but with
-    the per-row log-dets last: (acc00, accy0, w0_last, w_last, d_last,
+    d in 1..8 or 16).  Returns the nine outputs of `forward_sweep_cuda` but
+    with the per-row log-dets last: (acc00, accy0, w0_last, w_last, d_last,
     invd_last, mh, ld, hat_cs [s-1, d, d, C], hat_w0s [s-1, d, d, C],
     hat_ws [s-1, d, C], pinvs [s-1, d, d, C], ld_rows [s-1, C]), with
     stack row j-1 holding step j: hat_C = D^{-T} C^T, hat_W0 = D^{-T} W0,
@@ -211,7 +212,8 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     _build.check_no_grad(name, R_cm, O_cm, y_cm)
     if not R_cm.is_cuda:
         return forward_sweep_solveinv_plain(R_cm, O_cm, y_cm, jitter)
-    s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm)
+    s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm,
+                                  _build.SWEEP_RANKS)
     outs = [R_cm.new_empty(shape) for shape in
             [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
              (c,), (c,), (s - 1, d, d, c), (s - 1, d, d, c), (s - 1, d, c),
@@ -287,7 +289,7 @@ def backward_solve_takahashi_cuda(hat_cs: Tensor, hat_w0s: Tensor,
     shift.  Returns (x rows [s-1, d, C] steps 1..s-1, diag rows
     [s-1, d, d, C] = Sigma_jj, off rows [s-1, d, d, C] = Sigma_{j+1,j}
     (the last is the right-edge block), u0_final, u1_final [d, d, C]).
-    float32 or float64.
+    float32 or float64, d in 1..8 or 16.
 
     CUDA tensors launch ``csrc/backward_sweep.cu``
     (``backward_solve_takahashi_cuda.launches``); CPU tensors run
@@ -304,7 +306,7 @@ def backward_solve_takahashi_cuda(hat_cs: Tensor, hat_w0s: Tensor,
     _build.check_tensors(name, (torch.float32, torch.float64),
                          **dict(zip(keys, args)))
     sm1, d, _, c = hat_cs.shape
-    _build.check_rank(d, name)
+    _build.check_rank(d, name, _build.SWEEP_RANKS)
     mat, vec, step, stepv = (d, d, c), (d, c), (sm1, d, d, c), (sm1, d, c)
     for key, t, shape in zip(keys, args, (step, step, stepv, step, mat, vec,
                                           vec, mat, mat, mat, mat)):

@@ -27,6 +27,7 @@ from cyclic_gps_tpu_torch.models import leg
 from cyclic_gps_tpu_torch.ops import expm_cuda, sweep_cuda
 from cyclic_gps_tpu_torch.ops import partitioned as pt
 from cyclic_gps_tpu_torch.ops.expm_em import expm_em
+from torch_reference_cache import shared
 
 torch.set_num_threads(1)
 
@@ -80,24 +81,28 @@ def _system(n, d, s, seed):
 _ENGINE_NS = (256, 250)  # 250: a padded last chunk
 
 
+def _engine_one(R, O, y):
+    def f(R_, O_, y_):
+        mh, ld = jpt.mahal_and_logdet_cm(R_, O_, y_, backend="xla")
+        return mh + 0.3 * ld, (mh, ld)
+
+    grads, (mh, ld) = jax.grad(f, argnums=(0, 1, 2), has_aux=True)(R, O, y)
+    return (mh, ld), grads, jpt.solve_and_inverse_cm(R, O, y, backend="xla")
+
+
+def _engine_reference(n):
+    """The system at n and its JAX mahal_and_logdet_cm values and gradients
+    (of mh + 0.3 ld) and solve_and_inverse_cm, backend="xla", computed
+    once per test run (`torch_reference_cache.shared`)."""
+    system = _system(n, 3, 8, seed=n + 2)
+    return system, shared(f"grad_engine_{n}",
+                          lambda: jax.jit(_engine_one)(*system))
+
+
 @pytest.fixture(scope="module")
 def jax_engine_reference():
-    """JAX mahal_and_logdet_cm values and gradients (of mh + 0.3 ld) and
-    solve_and_inverse_cm, backend="xla", for every n, in one program."""
-
-    def one(R, O, y):
-        def f(R_, O_, y_):
-            mh, ld = jpt.mahal_and_logdet_cm(R_, O_, y_, backend="xla")
-            return mh + 0.3 * ld, (mh, ld)
-
-        grads, (mh, ld) = jax.grad(f, argnums=(0, 1, 2), has_aux=True)(
-            R, O, y)
-        return (mh, ld), grads, jpt.solve_and_inverse_cm(R, O, y,
-                                                         backend="xla")
-
-    systems = [_system(n, 3, 8, seed=n + 2) for n in _ENGINE_NS]
-    out = jax.jit(lambda ss: [one(*sy) for sy in ss])(systems)
-    return dict(zip(_ENGINE_NS, zip(systems, out)))
+    """n -> (system, JAX references) of `_engine_reference`."""
+    return _engine_reference
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
@@ -108,7 +113,7 @@ def test_mahal_and_solve_inverse_match_jax(n, backend, monkeypatch,
     solve_and_inverse_cm, == JAX (backend="xla") at float64, d = 3,
     s = 8 (rtol 1e-10).  backend="cuda" runs the kernel glue on CPU
     tensors, i.e. through the plain twins of kernels 1, 6 and 7."""
-    (R, O, y), ((mh_j, ld_j), grads_j, sol_j) = jax_engine_reference[n]
+    (R, O, y), ((mh_j, ld_j), grads_j, sol_j) = jax_engine_reference(n)
     if backend == "cuda":
         monkeypatch.setattr(pt, "resolve_backend", lambda b, t: "cuda")
     before = sweep_cuda.backward_solve_takahashi_cuda.launches
@@ -253,22 +258,24 @@ def _ll_case(n, spacing):
     return packed, ts.double(), xs.double()
 
 
+def _ll_grad_reference(n, spacing):
+    """The case and jax.grad of JAX leg.log_likelihood(backend="xla") at
+    float64, computed once per test run (`torch_reference_cache.shared`)."""
+    case = packed, ts, xs = _ll_case(n, spacing)
+
+    def grad(p, t, x):
+        return jax.grad(lambda q: jleg.log_likelihood(
+            q, t, x, regular=spacing == "regular", backend="xla"))(p)
+
+    return case, shared(f"grad_ll_{n}_{spacing}", lambda: jax.jit(grad)(
+        jleg.LEGParams(*map(jnp.asarray, packed)), jnp.asarray(ts.numpy()),
+        jnp.asarray(xs.numpy())))
+
+
 @pytest.fixture(scope="module")
 def jax_ll_grads():
-    """jax.grad of JAX leg.log_likelihood(backend="xla") at float64 for
-    every case, in one compiled program."""
-    cases = [_ll_case(n, sp) for n, sp in _LL_CASES]
-    args = [(jleg.LEGParams(*map(jnp.asarray, packed)),
-             jnp.asarray(ts.numpy()), jnp.asarray(xs.numpy()))
-            for packed, ts, xs in cases]
-
-    def all_grads(args):
-        return [jax.grad(lambda p: jleg.log_likelihood(
-            p, t, x, regular=sp == "regular", backend="xla"))(p)
-            for (p, t, x), (_, sp) in zip(args, _LL_CASES)]
-
-    grads = jax.jit(all_grads)(args)
-    return {key: (case, g) for key, case, g in zip(_LL_CASES, cases, grads)}
+    """(n, spacing) -> (case, JAX gradient) of `_ll_grad_reference`."""
+    return lambda key: _ll_grad_reference(*key)
 
 
 def _port_grads(packed, ts, xs, dtype, **kw):
@@ -288,7 +295,7 @@ def test_log_likelihood_grad_matches_jax(n, spacing, jax_ll_grads):
     leaves (rtol 1e-8, atol 1e-10 of each leaf's scale).  n = 48 takes
     the small-N route (natural-order precision, cyclic reduction), n =
     300 the chunk-major partitioned route with the analytic adjoint."""
-    (packed, ts, xs), ref = jax_ll_grads[n, spacing]
+    (packed, ts, xs), ref = jax_ll_grads((n, spacing))
     got = _port_grads(packed, ts, xs, np.float64,
                       regular=spacing == "regular")
     for name, a, b in zip(("n", "r", "lambda", "b"), got, ref):
@@ -302,7 +309,7 @@ def test_streamed_emission_grad_matches_jax(monkeypatch, jax_ll_grads):
     jax.grad (rtol 1e-8) with slabs far smaller than the gap count, so
     the slab joins and the checkpoint recompute are exercised."""
     monkeypatch.setattr(leg, "_ADJ_SLAB", 64)
-    (packed, ts, xs), ref = jax_ll_grads[300, "irregular"]
+    (packed, ts, xs), ref = jax_ll_grads((300, "irregular"))
     got = _port_grads(packed, ts, xs, np.float64)
     for name, a, b in zip(("n", "r", "lambda", "b"), got, ref):
         b = np.asarray(b)
@@ -329,7 +336,7 @@ def test_kernel_route_grads_match_jax_float32(route, monkeypatch,
     runs the fused kernel forward and replays the two-kernel route
     backward; CPU tensors launch nothing."""
     (n, spacing), kw = _ROUTES[route]
-    (packed, ts, xs), ref = jax_ll_grads[n, spacing]
+    (packed, ts, xs), ref = jax_ll_grads((n, spacing))
     monkeypatch.setattr(pt, "resolve_backend", lambda backend, t: "cuda")
     calls = []
     fused = leg._GapMahalFused.apply

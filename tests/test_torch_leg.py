@@ -227,10 +227,12 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import cyclic_gps_tpu_torch, cyclic_gps_tpu_torch.entry, "
         "cyclic_gps_tpu_torch.convert\n"
-        "from cyclic_gps_tpu_torch.models import leg\n"
+        "from cyclic_gps_tpu_torch.models import celerite, gaussians, leg\n"
         "from cyclic_gps_tpu_torch.baselines import dense\n"
-        "from cyclic_gps_tpu_torch.ops import _build, cyclic_reduction, "
-        "expm_cuda, expm_em, partitioned, smallblock, sweep_cuda\n"
+        "from cyclic_gps_tpu_torch.train import loop\n"
+        "from cyclic_gps_tpu_torch.ops import _build, celerite_cuda, "
+        "chunked_filter, cyclic_reduction, expm_cuda, expm_em, partitioned, "
+        "smallblock, sweep_cuda\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'cyclic_gps_tpu.'))]\n"
         "assert not bad, bad\n"

@@ -23,6 +23,7 @@ from cyclic_gps_tpu_torch.models import leg
 from cyclic_gps_tpu_torch.ops import partitioned as pt
 from cyclic_gps_tpu_torch.ops import smallblock as sb
 from cyclic_gps_tpu_torch.ops import sweep_cuda
+from torch_reference_cache import shared
 
 torch.set_num_threads(1)
 
@@ -168,17 +169,17 @@ def _engine_case(n):
     return diag, off, y, ids, gv
 
 
-@pytest.fixture(scope="module")
-def jax_engine_reference():
-    """JAX (backend="xla", s = 32) references of the engine test in one
-    compiled program: the chunk-major entries at n >= 64, with the three
-    analytic gradients at n = 250 from the same traces (jax.vjp);
+def _engine_reference(n):
+    """JAX (backend="xla", s = 32) references of the engine test at one n,
+    compiled on first use: the chunk-major entries at n >= 64, with the
+    three analytic gradients at n = 250 from the same traces (jax.vjp);
     cyclic reduction's solve, log-det and selected inverse and the
     sequential per-row log-dets at n = 40 (the entries' small-n branch).
-    logdet_per_segment is JAX's segment sum of these per-row log-dets."""
+    logdet_per_segment is JAX's segment sum of these per-row log-dets.
+    Computed once per test run (`torch_reference_cache.shared`)."""
     from cyclic_gps_tpu.ops import cyclic_reduction as jcr
 
-    def one(n, diag, off, y, gv):
+    def one(diag, off, y, gv):
         if n < 64:
             dec = jcr.decompose(diag, off)
             return dict(solve=jcr.solve(dec, y), logdet=jcr.logdet(dec),
@@ -201,11 +202,15 @@ def jax_engine_reference():
                 out.setdefault("grads", []).append(vjp(ct))
         return out
 
-    cases = [tuple(jnp.asarray(a) for i, a in enumerate(_engine_case(n))
-                   if i != 3) for n in _ENGINE_NS]
-    outs = jax.jit(lambda cs: [one(n, *c) for n, c in
-                               zip(_ENGINE_NS, cs)])(cases)
-    return dict(zip(_ENGINE_NS, outs))
+    case = tuple(jnp.asarray(a) for i, a in enumerate(_engine_case(n))
+                 if i != 3)
+    return shared(f"posterior_engine_{n}", lambda: jax.jit(one)(*case))
+
+
+@pytest.fixture(scope="module")
+def jax_engine_reference():
+    """n -> the JAX references of `_engine_reference`."""
+    return _engine_reference
 
 
 def _losses(gv):
@@ -244,7 +249,7 @@ def test_engine_entries_match_jax(n, backend, monkeypatch,
     tensors."""
     _to_cuda_route(monkeypatch, backend)
     diag, off, y, ids, _ = map(_t, _engine_case(n))
-    ref = dict(jax_engine_reference[n])
+    ref = dict(jax_engine_reference(n))
     ref.pop("grads", None)
     if n >= 64:
         c = -(-n // _S)
@@ -302,7 +307,7 @@ def test_engine_gradients_match_jax(backend, monkeypatch,
     diag, off, y, _, gv = _engine_case(_GRAD_N)
     R, O, Y = _chunk_major(diag, off, y, s=_S)
     for loss, ref in zip(_losses(_t(gv)),
-                         jax_engine_reference[_GRAD_N]["grads"]):
+                         jax_engine_reference(_GRAD_N)["grads"]):
         ins = [_t(a).requires_grad_() for a in (R, O, Y)]
         grads = torch.autograd.grad(loss(*ins), ins, allow_unused=True)
         for name, a, b in zip("ROy", grads, ref):
