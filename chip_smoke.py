@@ -49,7 +49,19 @@ Phases, one line of output each (or more):
               nll_loss with launch counts reset just before and read just
               after; one profiled step; make_predictions(method=
               "precision") at nblocks 2.
-  9. a JSON line of the kernels, then the final JSON status line.
+  9. wide     block sizes 9-15 on the wide route (kernels 16, 21, 22):
+              the natural mahal_and_logdet at N = 1e6 on the well-
+              conditioned system of tests/test_wideblock.py, value and
+              gradient of 0.3 mh + 0.7 ld with backend="auto" against
+              "torch" at d = 12, the three wide kernels against their twins
+              at d = 9, 12 and 15 on the inputs one gradient hands them,
+              launch counts over one gradient; celerite nblocks 6 (rank
+              12) at N = 1e6 on the bench grid: the filter route's value
+              and gradient against "torch", three Adam steps on nll_loss
+              with the launch counts of kernels 13-16, 21 and 22, one
+              profiled step; nblocks 5 and 7 at N = 1e5, value and
+              gradient against "torch".
+ 10. a JSON line of the kernels, then the final JSON status line.
 
 Any failure exits non-zero before the final line.  There is no CPU path:
 without a CUDA device, or without the package beside this script, it
@@ -272,6 +284,19 @@ def bound(kernel, args, outs, g=None, dt=None):
                                                  + _sweep_row_flops(r))
     elif kernel == "k_system_adjoint":
         flops = _adjoint_flops(g, dt)
+    elif kernel.endswith("_wide"):
+        # wide pairs: args[0] is the a11 stack [s, 8, 8, C] of R (the
+        # sweeps) or of hat_C [s-1, ...] (the descending walk), args[1]
+        # the strips [., 3e, 8, C]; d = 8 + e
+        s0, c = args[0].shape[0], args[0].shape[-1]
+        d = 8 + args[1].shape[1] // 3
+        walk = kernel == "backward_solve_takahashi_wide"
+        per_row = {"forward_sweep_wide": _sweep_row_flops(d),
+                   "forward_sweep_solveinv_wide": _sweep_row_flops(d)
+                   + 7 * d ** 3 + 2 * d ** 2,
+                   "backward_solve_takahashi_wide": 26 * d ** 3
+                   + 4 * d ** 2}[kernel]
+        flops = c * (s0 if walk else s0 - 1) * per_row
     else:
         # rows walked: args[0] is R_cm [s, ...] for the sweeps, a stack
         # [s-1, ...] for the descending walks (Takahashi: its rows s-3..0)
@@ -369,6 +394,218 @@ def rel_inf(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+WIDE_DS = (9, 12, 15)  # the wide block sizes checked; 12 is recorded
+WIDE_D = 12
+CEL_NB_WIDE = 6  # celerite at rank 12: the wide route on its boundary chain
+N_WIDE_SMALL = 100_000  # celerite nblocks 5 and 7
+
+
+def nat_system(n, d, dev, seed):
+    """tests/test_wideblock.py's well-conditioned block-tridiagonal system
+    (q q^T / d + 4 I on the diagonal, off-diagonal blocks / d, standard
+    normal right-hand side), float32, drawn on the card from a seeded
+    generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(n, d, d, generator=g, device=dev)
+    diag = q @ q.transpose(1, 2) / d + 4 * torch.eye(d, device=dev)
+    off = torch.randn(n - 1, d, d, generator=g, device=dev) / d
+    y = torch.randn(n, d, generator=g, device=dev)
+    return diag, off, y
+
+
+def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
+                   grad_bar, celerite, loop, pt, ts_c, xs_c):
+    """Phase 9: the natural engine at d = 9-15 and the celerite filter route
+    at nblocks 5-7, through the wide kernels 16, 21 and 22."""
+    from cyclic_gps_tpu_torch.ops import wide_cuda
+
+    names = ("forward_sweep_wide", "forward_sweep_solveinv_wide",
+             "backward_solve_takahashi_wide")
+    wrappers = {k: getattr(wide_cuda, f"{k}_cuda") for k in names}
+    meta = {  # source, line of the TPU kernel, tolerance reason
+        "forward_sweep_wide": (
+            "wide_sweep.cu", 166,
+            "127 dependent elimination steps; mh and ld summed over 1e6 rows "
+            "in another order; atol 1e-4 of each output's scale"),
+        "forward_sweep_solveinv_wide": (
+            "wide_sweep.cu", 998,
+            "kernel 16's steps plus the triangular inverse behind pinv = "
+            "P^{-1}; atol 1e-4 of each output's scale"),
+        "backward_solve_takahashi_wide": (
+            "wide_backward.cu", 1199,
+            "127 dependent multiply-add steps of the back-substitution and "
+            "the Takahashi walk; atol 1e-4 of each output's scale"),
+    }
+
+    def loss_and_grads(system, backend):
+        leaves = [t.clone().requires_grad_() for t in system]
+        mh, ld = pt.mahal_and_logdet(*leaves, backend=backend)
+        g = torch.autograd.grad(0.3 * mh + 0.7 * ld, leaves)
+        return mh.detach(), ld.detach(), g
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    torch.cuda.empty_cache()
+    say(f"[wide] the natural mahal_and_logdet at N {N_BIG}, d {WIDE_DS}: "
+        "tests/test_wideblock.py's system (q q^T / d + 4 I, off / d), "
+        "float32, seeded on the card; loss 0.3 mh + 0.7 ld")
+    for d in WIDE_DS:
+        system = nat_system(N_BIG, d, dev, seed=d)
+        # the kernels' inputs as one gradient hands them (top level)
+        captured.clear()
+        origs = [(wide_cuda, f"{k}_cuda", capture(wide_cuda, f"{k}_cuda"))
+                 for k in names]
+        loss_and_grads(system, "auto")
+        torch.cuda.synchronize()
+        for module, attr, orig in origs:
+            setattr(module, attr, orig)
+        if len(captured) != 3:
+            fail(f"the wide route at d = {d} reached only {sorted(captured)}")
+        for key in names:
+            args_k, kw_k = captured[f"{key}_cuda"]
+            src, line, why = meta[key]
+            check_kernel(
+                key, f"cyclic_gps_tpu_torch/csrc/{src}",
+                f"cyclic_gps_tpu/ops/pallas_wide.py:{line}", wrappers[key],
+                getattr(wide_cuda, f"{key}_plain"), args_k, 1e-3, 1e-4,
+                f"d = {d}, C = {args_k[0].shape[-1]}: {why}", kw=kw_k,
+                atol_of_scale=True, record=d == WIDE_D, phase="wide",
+                reps=3 if d == WIDE_D else 1)
+        captured.clear()
+        if d == WIDE_D:
+            # the engine path: one gradient with backend="auto", counts
+            # reset just before and read just after, then "torch"
+            for w in wrappers.values():
+                w.launches = 0
+            ms_a, (mh_a, ld_a, g_a) = timed(
+                lambda: loss_and_grads(system, "auto"))
+            counts = {k: w.launches for k, w in wrappers.items()}
+            say(f"[wide] launches in one backend='auto' value + gradient at "
+                f"d {d}: {counts}")
+            for k, n in counts.items():
+                if n <= 0:
+                    fail(f"kernel {k} was not launched by the wide engine")
+            ms_t, (mh_t, ld_t, g_t) = timed(
+                lambda: loss_and_grads(system, "torch"))
+            rels = [abs(float(a) - float(b)) / abs(float(b))
+                    for a, b in ((mh_a, mh_t), (ld_a, ld_t))]
+            g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
+            ok = (max(rels) <= 1e-4 and max(g_rels) <= grad_bar
+                  and all(bool(torch.isfinite(t).all()) for t in g_a))
+            say(f"[wide] d {d}: mh {float(mh_a):.6f} / {float(mh_t):.6f}, "
+                f"ld {float(ld_a):.6f} / {float(ld_t):.6f} (auto / torch), "
+                f"rel diff {rels[0]:.3e}, {rels[1]:.3e} <= 1e-4; gradient "
+                f"per-leaf rel diff diag {g_rels[0]:.2e}, off "
+                f"{g_rels[1]:.2e}, y {g_rels[2]:.2e} <= {grad_bar:g}; "
+                f"value + gradient auto {ms_a:.1f} ms, torch {ms_t:.1f} ms "
+                f"(host clock) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"the wide route at d = {d} disagrees with 'torch'")
+            del g_a, g_t
+        del system
+        torch.cuda.empty_cache()
+
+    # celerite nblocks 6 (rank 12): the filter route's boundary chain
+    # (7,813 -> 245 -> 8 blocks) runs kernel 16 at C = 245 and 8
+    p6 = celerite.init_params(CEL_NB_WIDE, 1, generator=torch.Generator()
+                              .manual_seed(0), device=dev)
+    cel_leaves = ("n_diag", "n_sub", "r_sub", "lambda_params", "b")
+
+    def cel_check(label, p, t, x):
+        with torch.no_grad():
+            ms_a, v_a = host_ms(lambda: celerite.log_likelihood_filter(
+                p, t, x), reps=1)
+            ms_t, v_t = host_ms(lambda: celerite.log_likelihood_filter(
+                p, t, x, backend="torch"), reps=1)
+        rel = abs(float(v_a) - float(v_t)) / abs(float(v_t))
+
+        def grads(**kw):
+            return torch.autograd.grad(
+                celerite.log_likelihood_filter(p, t, x, **kw),
+                list(p.parameters()))
+
+        gms_a, g_a = host_ms(grads, reps=1)
+        gms_t, g_t = host_ms(lambda: grads(backend="torch"), reps=1)
+        g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
+        ok = (bool(torch.isfinite(v_a)) and rel <= 1e-4
+              and max(g_rels) <= grad_bar
+              and all(bool(torch.isfinite(a).all()) for a in g_a))
+        say(f"[wide] celerite {label}: log_likelihood_filter auto "
+            f"{float(v_a):.6f} ({ms_a:.2f} ms), torch {float(v_t):.6f} "
+            f"({ms_t:.2f} ms), rel diff {rel:.3e} <= 1e-4; gradient auto "
+            f"{gms_a:.1f} ms, torch {gms_t:.1f} ms, per-leaf rel diff "
+            + ", ".join(f"{k} {v:.2e}" for k, v in zip(cel_leaves, g_rels))
+            + f" <= {grad_bar:g} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"celerite {label}: backend='auto' disagrees with 'torch'")
+
+    cel_check(f"nblocks {CEL_NB_WIDE}, N {N_BIG}", p6, ts_c, xs_c)
+
+    # the path: three Adam steps on nll_loss, counts reset just before and
+    # read just after
+    path = ("celerite_filter", "celerite_filter_collect",
+            "celerite_filter_adjoint") + names
+    counters = {r["name"]: r["kernel"] for r in rows}
+    opt = loop.make_optimizer("adam", 1e-3, reduce_on_plateau=False)
+
+    def adam_step():
+        loss = celerite.nll_loss(p6, ts_c, xs_c)
+        for t in p6.parameters():
+            t.grad = None
+        loss.backward()
+        opt.step(p6, loss.item())
+        return loss.item()
+
+    for r in rows:
+        r["kernel"].launches = 0
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        ms, loss = timed(adam_step)
+        step_ms.append(ms)
+        losses.append(loss)
+    counts = {k: counters[k].launches for k in path}
+    say(f"[wide] launches in {TRAIN_STEPS} Adam steps on nll_loss at "
+        f"nblocks {CEL_NB_WIDE}: {counts}")
+    for k in path:
+        if counts[k] <= 0:
+            fail(f"kernel {k} was not launched by the celerite nblocks "
+                 f"{CEL_NB_WIDE} path")
+    for r in rows:
+        if r["name"] in names:
+            r["launches"] = counts[r["name"]]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite celerite loss at nblocks {CEL_NB_WIDE}: {losses}")
+    say(f"[wide] Adam losses {losses}; step ms "
+        f"{[round(t, 2) for t in step_ms]}, median "
+        f"{statistics.median(step_ms):.2f} ms (host clock, synchronised; "
+        "the first step includes warm-up)")
+    wall, by_kernel = profiled(adam_step)
+    if not by_kernel:
+        say("[wide] profiled step: the profiler saw no device events; "
+            "device ops and busy share not measured")
+    else:
+        dev_ms = sum(ms for ms, _ in by_kernel.values())
+        n_ops = sum(n for _, n in by_kernel.values())
+        say(f"[wide] profiled Adam step at nblocks {CEL_NB_WIDE}: wall "
+            f"{wall:.2f} ms (profiler on), {n_ops} device ops, device "
+            f"{dev_ms:.2f} ms, busy share {dev_ms / wall:.3f}")
+    for key, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
+            :10]:
+        say(f"[wide]   {key[:80]}: {ms:.3f} ms, {n} calls")
+
+    # nblocks 5 and 7 (rank 10 and 14), value and gradient
+    ts_s, xs_s = bench_grid(N_WIDE_SMALL, dev, seed=3)
+    for nb in (5, 7):
+        p = celerite.init_params(nb, 1, generator=torch.Generator()
+                                 .manual_seed(nb), device=dev)
+        cel_check(f"nblocks {nb}, N {N_WIDE_SMALL}", p, ts_s, xs_s)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a card")
@@ -433,6 +670,14 @@ def main():
                 continue
             say(f"[build] {base.group(1)}<{base.group(2)}>: registers "
                 f"{regs}, stack {stack} B, spill stores {spill} B")
+    # the wide kernels (one instance per dtype; d = 9..15 at run time)
+    for fn_name, (regs, stack, spill) in sorted(
+            _build.ptxas_report(0, tag="wide_").items()):
+        base = re.search(r"\d+(wide_[a-z_]+?)I(\w*?)EEv", fn_name)
+        if base is None or regs is None:
+            continue
+        say(f"[build] {base.group(1)}<{base.group(2)}>: registers {regs}, "
+            f"stack {stack} B, spill stores {spill} B")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -499,13 +744,15 @@ def main():
 
     def check_kernel(key, source, replaces, kernel, twin, args, rtol, atol,
                      why, kw=None, atol_of_scale=False, gaps_of=None,
-                     f64_outputs=(), record=True):
+                     f64_outputs=(), record=True, phase="celerite",
+                     reps=REPS):
         """Kernel vs twin.  For the outputs in ``f64_outputs`` the
         absolute tolerance is 4x the twin's own float32 error against the
         twin run in float64 on the same inputs (for values that cancel
         terms far larger than themselves).  ``record=False`` checks
         without adding a row to the kernels line (another block size of
-        a kernel that has its row)."""
+        a kernel that has its row), printed under ``phase``; ``reps`` timed
+        runs of kernel and twin."""
         kw = kw or {}
         def outputs(fn, *a):
             out = fn(*a, **kw)
@@ -527,10 +774,10 @@ def main():
                     say(f"  {key} out[{i}] vs the float64 twin: kernel "
                         f"{e_kern:.3e}, float32 twin {e_twin:.3e}")
             err = compare(key, got, ref, rtol, atol, atol_of_scale, atols)
-            ms = cuda_ms(lambda: kernel(*args, **kw))
-            plain_ms = cuda_ms(lambda: twin(*args, **kw))
+            ms = cuda_ms(lambda: kernel(*args, **kw), reps)
+            plain_ms = cuda_ms(lambda: twin(*args, **kw), reps)
         b_ms, b_by = bound(key, args, got, g, gaps_of)
-        tag = "kernels" if record else "celerite"
+        tag = "kernels" if record else phase
         say(f"[{tag}] {key}: max_abs_err={err:.3e} ({why}); "
             f"kernel {ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
@@ -1161,7 +1408,11 @@ def main():
         f"{ms_auto:.2f} ms, torch {ms_plain:.2f} ms (host clock); agree "
         f"(atol 1e-3 of each output's scale: {why32})")
 
-    # ---- 9. summary --------------------------------------------------------
+    # ---- 9. wide: block sizes 9-15 (kernels 16, 21, 22) --------------------
+    run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
+                   grad_bar, celerite, loop, pt, ts_c, xs_c)
+
+    # ---- 10. summary -------------------------------------------------------
     say(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

@@ -25,12 +25,20 @@ has two fast likelihood routes and never forms a matrix exponential:
   collect (14) + analytic adjoint (15) kernels backward; the per-block
   cotangents are chained through the closed forms by autograd.
 
-Both finish on the partitioned engine at block size r = 2 * nblocks (the
-engine's sweep kernels take 16, nblocks = 8).  Small N, and everything
-else the LEG family offers (predictions, posteriors), runs through
-`expand`, which maps the structured parameters to a `leg.LEGView` whose
-gradients flow back to them.  The dense LEG emission and posterior
-kernels stop at rank 8, so those calls run on the card at nblocks <= 4.
+Both finish on the partitioned engine at block size r = 2 * nblocks.
+The filter route's boundary chain calls the natural-layout
+`partitioned.mahal_and_logdet`, which on the card runs the plain sweep
+kernels at r <= 8 and r = 16 and the wide-layout kernels (16, 21, 22 of
+ROADMAP Queue 2) at r = 10, 12, 14: `log_likelihood_filter` and
+`nll_loss`'s default method train on the card at every nblocks 1..8.  The
+precision route's reduced ladder and its replayed backward run the plain
+sweep kernels on chunk-major blocks, which have no instance at r = 10-14:
+on the card `log_likelihood` takes nblocks 1..4 and 8 and raises at 5..7.
+Small N, and everything else the LEG family offers (predictions,
+posteriors), runs through `expand`, which maps the structured parameters
+to a `leg.LEGView` whose gradients flow back to them.  The dense LEG
+emission and posterior kernels stop at rank 8, so those calls run on the
+card at nblocks <= 4.
 """
 
 from __future__ import annotations

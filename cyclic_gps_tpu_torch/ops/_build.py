@@ -32,8 +32,8 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _SOURCES = ("forward_sweep.cu", "gap_emission.cu", "backward_sweep.cu",
             "gap_adjoint.cu", "solve_sweep.cu", "inverse_sweep.cu",
             "celerite_sweep.cu", "celerite_filter.cu",
-            "celerite_adjoint.cu")
-_HEADERS = ("blockmath.cuh", "celerite.cuh")
+            "celerite_adjoint.cu", "wide_sweep.cu", "wide_backward.cu")
+_HEADERS = ("blockmath.cuh", "celerite.cuh", "wideblock.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -79,6 +79,16 @@ _SIGNATURES = {
     "cgt_celerite_filter_adjoint_f32": [_P] * 17 + [_I, _I, _I, _I]
     + [_P] * 5 + [_P],
 }
+# the wide kernels, float32 and float64 (outputs, then the stream)
+_SIGNATURES.update({
+    name + suf: argtypes
+    for suf, real in (("_f32", ctypes.c_float), ("_f64", ctypes.c_double))
+    for name, argtypes in (
+        ("cgt_wide_sweep", [_P] * 5 + [real, _I, _I, _I] + [_P] * 11 + [_P]),
+        ("cgt_wide_sweep_solveinv",
+         [_P] * 5 + [real, _I, _I, _I] + [_P] * 18 + [_P]),
+        ("cgt_wide_backward", [_P] * 19 + [_I, _I, _I] + [_P] * 9 + [_P]))
+})
 
 
 def _nvcc() -> str:
@@ -142,14 +152,15 @@ def build() -> Tuple[Path, Optional[float]]:
     return so, time.perf_counter() - t0
 
 
-def ptxas_report(rank: int):
+def ptxas_report(rank: int, tag: Optional[str] = None):
     """{function (mangled name): [registers, stack bytes, spill store
     bytes]} for the kernels and non-inlined device functions instantiated
-    at block size ``rank``, from the compiler's report of the current
-    build (registers are None for a device function)."""
+    at block size ``rank`` (or whose mangled name holds ``tag``), from the
+    compiler's report of the current build (registers are None for a
+    device function)."""
     log = library_path().with_suffix(".log")
     report, props, entry = {}, None, None
-    tag = f"Li{rank}E"
+    tag = tag or f"Li{rank}E"
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
@@ -194,9 +205,11 @@ def check_rank(r: int, name: str, sizes=RANKS) -> None:
         have = "1..8" + (", 16" if 16 in sizes else "")
         raise ValueError(
             f"{name}: block size {r} has no CUDA kernel (instantiated for "
-            f"{have}); sizes 9-15 wait for the wide-layout kernels and "
-            "rank 16 of the emission and posterior kernels for their own "
-            "instantiation (ROADMAP.md, Queue 2)")
+            f"{have}); at sizes 9-15 only the natural-layout mahal_and_logdet "
+            "runs on the card (the wide-layout kernels, ops/wide_cuda.py), "
+            "and the other kernels at 9-15, and rank 16 of the emission and "
+            "posterior kernels, wait for their own instantiation "
+            "(ROADMAP.md, Queue 2)")
 
 
 def check_no_grad(name: str, *tensors) -> None:

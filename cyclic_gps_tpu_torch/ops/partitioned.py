@@ -35,7 +35,11 @@ Backends: ``"torch"`` runs the plain tensor sweeps below on any device;
 ``"auto"`` picks ``"cuda"`` for CUDA tensors, at float32 and float64
 alike.  Every sweep of the reduced-system ladder dispatches the same way
 (the JAX package runs its ladder levels on XLA); only the terminal
-cyclic reduction stays plain tensor code.
+cyclic reduction stays plain tensor code.  At 8 < d < 16 the
+natural-layout `mahal_and_logdet` on "cuda" takes the wide route
+(`_MahalWide`, the wide-layout kernels of ops/wide_cuda.py), and so do the
+(mahal, logdet) and solve + selected-inversion ladders at those sizes; the
+other entries have no kernel there and refuse on "cuda".
 
 Gradients: `mahal_and_logdet_cm`, `solve_cm`, `logdet_rows_cm` and
 `solve_and_ld_rows_cm` are ``torch.autograd.Function``s whose backwards
@@ -58,6 +62,7 @@ import torch
 
 from . import cyclic_reduction as cr
 from . import smallblock as sb
+from . import wideblock as wb
 
 Tensor = torch.Tensor
 
@@ -297,6 +302,9 @@ def _mahal_and_logdet_em(diag_em, off_em, y_em, jitter, backend="torch"):
             sb.vec_from_em(y_em), jitter=jitter,
         )
     R_cm, O_cm, y_cm, c = _chunk_layout_em(diag_em, off_em, y_em, s)
+    if _is_wide(d, backend):
+        return _mahal_wide_cm_primal(*_to_wide_stack(R_cm),
+                                     *_to_wide_stack(O_cm), y_cm, jitter)
     state, w1 = _forward_state(R_cm, O_cm, y_cm, jitter, backend)
     red_diag, red_off, red_rhs = _reduced_system(R_cm, y_cm, state, w1)
     red_mh, red_ld = _mahal_and_logdet_em(red_diag, red_off, red_rhs,
@@ -331,12 +339,17 @@ def mahal_and_logdet(
 
     diag [N, d, d], off [N-1, d, d] (off[i] = J[i+1, i]), y [N, d].
     Matches cr.mahal_and_logdet; a chain of streaming passes, each
-    shrinking N by the chunk length.
+    shrinking N by the chunk length.  At 8 < d < 16 on the kernels
+    (``backend`` resolving to "cuda") it takes the wide route
+    (`_MahalWide`: kernel 16 forward, 21 and 22 in the analytic
+    backward), as the JAX package does on the TPU.
     """
-    n = diag.shape[0]
+    n, d = diag.shape[0], diag.shape[1]
     s = s or default_chunk_len(n)
     if n < max(_TERMINAL, 2 * s):
         return cr.mahal_and_logdet(diag, off, y, jitter=jitter)
+    if _is_wide(d, resolve_backend(backend, diag)):
+        return _MahalWide.apply(diag, off, y, s, jitter)
     R_cm, O_cm, y_cm, _ = _chunk_layout(diag, off, y, s)
     return mahal_and_logdet_cm(R_cm, O_cm, y_cm, jitter, backend)
 
@@ -409,6 +422,162 @@ def logdet(diag: Tensor, off: Tensor, s: Optional[int] = None,
     n, d, _ = diag.shape
     zeros = diag.new_zeros((n, d))
     return mahal_and_logdet(diag, off, zeros, s=s, jitter=jitter)[1]
+
+
+# ---------------------------------------------------------------------------
+# The WIDE route (8 < d < 16) on the card: the wide-layout kernels of
+# ops/wide_cuda.py (kernel 16 in the forward, 21 and 22 in the analytic
+# backward), the counterpart of the JAX package's wide branches
+# (partitioned.py:465-621, 1731-1837).  The chunk interiors are eliminated
+# on wide stacks; the C-sized reduced boundary system is assembled in the
+# plain layout, and its ladder re-enters the wide route at every chunked
+# level (`_mahal_and_logdet_em`, `_solve_inverse_em`), since the plain
+# sweep kernels have no instance at these sizes.  Stacks stay at the true
+# chunk count (the TPU kernels pad them to their lane tile).
+# ---------------------------------------------------------------------------
+
+
+def _is_wide(d: int, backend: str) -> bool:
+    """Whether a level at block size ``d`` takes the wide kernels."""
+    return 8 < d < 16 and backend == "cuda"
+
+
+def _to_wide_stack(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """`wideblock.to_wide` over a leading stack axis: [m, d, d, C] ->
+    (a11 [m, 8, 8, C], st [m, 3e, 8, C])."""
+    e = x.shape[1] - 8
+    a22 = x[:, 8:, 8:]
+    a22 = torch.cat([a22, a22.new_zeros(a22.shape[:2] + (8 - e,)
+                                        + a22.shape[3:])], dim=2)
+    return (x[:, :8, :8].contiguous(),
+            torch.cat([x[:, 8:, :8], x[:, :8, 8:].transpose(1, 2), a22],
+                      dim=1))
+
+
+def _from_wide_stack(a11: Tensor, st: Tensor) -> Tensor:
+    """`wideblock.from_wide` over a leading stack axis: (a11 [m, 8, 8, C],
+    st [m, 3e, 8, C]) -> [m, d, d, C]."""
+    e = st.shape[1] // 3
+    top = torch.cat([a11, st[:, e:2 * e].transpose(1, 2)], dim=2)
+    bot = torch.cat([st[:, :e], st[:, 2 * e:, :e]], dim=2)
+    return torch.cat([top, bot], dim=1)
+
+
+def _chunk_layout_wide(diag: Tensor, off: Tensor, y: Tensor, s: int):
+    """Natural [N, d, d] -> WIDE chunk-major (R11 [s, 8, 8, C], Rst
+    [s, 3e, 8, C], O11, Ost, y_cm [s, d, C], C); padding blocks identity /
+    zero as in `_chunk_layout`."""
+    R_cm, O_cm, y_cm, c = _chunk_layout(diag, off, y, s)
+    return (*_to_wide_stack(R_cm), *_to_wide_stack(O_cm), y_cm, c)
+
+
+def mahal_and_logdet_wide(r11: Tensor, rst: Tensor, o11: Tensor,
+                          ost: Tensor, y_cm: Tensor,
+                          jitter: float = 0.0) -> Tuple[Tensor, Tensor]:
+    """Fused (mahal, logdet) on ALREADY wide-layout chunk-major inputs
+    (`_chunk_layout_wide`'s format), through kernel 16 for CUDA tensors
+    and its plain twin for CPU tensors.  Forward-only entry (the
+    differentiable route is the natural-layout `mahal_and_logdet`)."""
+    return _mahal_wide_cm_primal(r11, rst, o11, ost, y_cm, jitter)
+
+
+def _wide_state(acc11, accst, accy0, w011, w0st, wl, d11, dst, invd, mh,
+                ld) -> _SweepState:
+    """A wide sweep's final state, converted to the plain layout (C-sized)
+    for the reduced boundary system."""
+    return _SweepState(None, wb.from_wide(w011, w0st), wl,
+                       wb.from_wide(d11, dst), invd,
+                       wb.from_wide(acc11, accst), accy0, mh, ld)
+
+
+def _mahal_wide_cm_primal(r11, rst, o11, ost, y_cm, jitter):
+    from .wide_cuda import forward_sweep_wide_cuda
+
+    s = r11.shape[0]
+    state = _wide_state(*forward_sweep_wide_cuda(r11, rst, o11, ost, y_cm,
+                                                 jitter=jitter))
+    o_last = wb.from_wide(o11[s - 1], ost[s - 1])
+    w1 = sb.solve_lower(state.dj, state.invd, sb.transpose(o_last))
+    r0 = wb.from_wide(r11[0], rst[0])
+    red_diag, red_off, red_rhs = _reduced_system(r0[None], y_cm[:1], state,
+                                                 w1)
+    red_mh, red_ld = _mahal_and_logdet_em(red_diag, red_off, red_rhs,
+                                          jitter, "cuda")
+    return state.mh + red_mh, 2.0 * state.ld + red_ld
+
+
+class _MahalWide(torch.autograd.Function):
+    """(mahal, logdet) of natural-layout blocks on the wide route, with the
+    analytic adjoint of `_MahalCm` in natural layout (the JAX
+    ``_mahal_wide`` custom VJP, partitioned.py:555-621).  The residuals
+    are the WIDE chunk-major inputs, so the backward reuses the forward's
+    relayout; it runs the fused wide solve + selected inversion on them
+    (`_solve_inverse_wide_cm`: kernels 21 and 22)."""
+
+    @staticmethod
+    def forward(ctx, diag, off, y, s, jitter):
+        wide = _chunk_layout_wide(diag, off, y, s)[:5]
+        ctx.save_for_backward(*wide)
+        ctx.jitter, ctx.n = jitter, diag.shape[0]
+        return _mahal_wide_cm_primal(*wide, jitter)
+
+    @staticmethod
+    def backward(ctx, gm, gl):
+        n = ctx.n
+        x, sig_diag, sig_off = _solve_inverse_wide_cm(*ctx.saved_tensors,
+                                                      ctx.jitter)
+        x, sig_diag, sig_off = x[:n], sig_diag[:n], sig_off[: n - 1]
+        xo = x[:, :, None] * x[:, None, :]
+        xo_off = x[1:, :, None] * x[:-1, None, :]  # x_{i+1} x_i^T
+        g_diag = gl * sig_diag - gm * xo
+        g_off = 2.0 * (gl * sig_off - gm * xo_off)
+        g_y = 2.0 * gm * x
+        return g_diag, g_off, g_y, None, None
+
+
+def _solve_inverse_wide_cm(r11, rst, o11, ost, y_cm, jitter):
+    """Fused (x = J^{-1} y, selected inverse) on WIDE chunk-major inputs:
+    one wide collect sweep (kernel 21: hats + pinv) and one wide
+    descending pass for both upward walks (kernel 22).  Returns padded
+    natural-order (x [C*s, d], sig_diag [C*s, d, d], sig_off [C*s, d, d]
+    with row i = Sigma_{i+1, i}) -- the contract of
+    `_solve_inverse_from_cm`."""
+    from .wide_cuda import (backward_solve_takahashi_wide_cuda,
+                            forward_sweep_solveinv_wide_cuda)
+
+    s, c = r11.shape[0], r11.shape[-1]
+    d = 8 + rst.shape[1] // 3
+    outs = forward_sweep_solveinv_wide_cuda(r11, rst, o11, ost, y_cm,
+                                            jitter=jitter)
+    d11, dst, invd = outs[6:9]
+    # the right coupling W1 = D^{-1} O_{s-1}^T and its hat, in wide form;
+    # the inverse pivots split as the wide factor's two panels
+    dw = (d11, dst, invd[:8, None], invd[8:, None])
+    w1_w = wb.wsolve_lower(*dw, *wb.wtranspose(o11[s - 1], ost[s - 1]))
+    hw1_w = wb.wsolve_lower_t(*dw, *w1_w)
+    state = _wide_state(*outs[:11])
+    r0 = wb.from_wide(r11[0], rst[0])
+    red_diag, red_off, red_rhs = _reduced_system(
+        r0[None], y_cm[:1], state, wb.from_wide(*w1_w))
+    xb, p00, p10 = _solve_inverse_em(red_diag, red_off, red_rhs, jitter,
+                                     "cuda")
+    p11 = sb.shift_up(p00)
+    p01 = sb.transpose(p10)
+    xb_next = sb.shift_up(xb)
+    (x_rows, dg, of, u0f,
+     u1f) = backward_solve_takahashi_wide_cuda(
+        *outs[11:], *[t.contiguous() for t in (*hw1_w, xb, xb_next)],
+        *[wb.to_wide(p.contiguous()) for p in (p00, p01, p10, p11)])
+    diag_int = _from_wide_stack(*dg)
+    off_rows = _from_wide_stack(*of)
+    off_edge_left = -(sb.matmul(wb.from_wide(*u0f), p00)
+                      + sb.matmul(wb.from_wide(*u1f), p10))
+    diag_cm = torch.cat([p00[None], diag_int], dim=0)
+    off_cm = torch.cat([off_edge_left[None], off_rows], dim=0)
+    sig_diag = diag_cm.permute(3, 0, 1, 2).reshape(-1, d, d)
+    sig_off = off_cm.permute(3, 0, 1, 2).reshape(-1, d, d)
+    x_cm = torch.cat([xb[None], x_rows], dim=0)
+    return x_cm.permute(2, 0, 1).reshape(c * s, d), sig_diag, sig_off
 
 
 # ---------------------------------------------------------------------------
@@ -517,8 +686,12 @@ def _solve_inverse_em(diag_em, off_em, y_em, jitter, backend="torch"):
                           dim=-1)
         return sb.vec_to_em(x), sb.to_em(sd), so_em
     R_cm, O_cm, y_cm, c = _chunk_layout_em(diag_em, off_em, y_em, s)
-    x_nat, sd_nat, so_nat = _solve_inverse_from_cm(R_cm, O_cm, y_cm,
-                                                   jitter, backend)
+    if _is_wide(d, backend):
+        x_nat, sd_nat, so_nat = _solve_inverse_wide_cm(
+            *_to_wide_stack(R_cm), *_to_wide_stack(O_cm), y_cm, jitter)
+    else:
+        x_nat, sd_nat, so_nat = _solve_inverse_from_cm(R_cm, O_cm, y_cm,
+                                                       jitter, backend)
     return (sb.vec_to_em(x_nat[:n]), sb.to_em(sd_nat[:n]),
             sb.to_em(so_nat[:n]))
 
