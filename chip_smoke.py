@@ -56,11 +56,14 @@ Phases, one line of output each (or more):
               "torch" at d = 12, the three wide kernels against their twins
               at d = 9, 12 and 15 on the inputs one gradient hands them,
               launch counts over one gradient; celerite nblocks 6 (rank
-              12) at N = 1e6 on the bench grid: the filter route's value
-              and gradient against "torch", three Adam steps on nll_loss
+              12) at N = 1e6 on the bench grid: the three wide kernels
+              against their twins on the inputs its boundary chain hands
+              them (d = 12, C = 245), the filter route's value and
+              gradient against "torch", three Adam steps on nll_loss
               with the launch counts of kernels 13-16, 21 and 22, one
-              profiled step; nblocks 5 and 7 at N = 1e5, value and
-              gradient against "torch".
+              profiled step; nblocks 5 and 7 at N = 1e5: the wide kernels
+              on their chain's inputs (d = 10 and 14), value and gradient
+              against "torch".
  10. a JSON line of the kernels, then the final JSON status line.
 
 Any failure exits non-zero before the final line.  There is no CPU path:
@@ -169,9 +172,10 @@ def compare(label, got, ref, rtol, atol, atol_of_scale=False, atols=None):
 # ---------------------------------------------------------------------------
 # The card's least time for each kernel's work: max(bytes / memory rate,
 # float32 operations / peak rate).  Bytes: every input read once, every
-# output written once.  Operations: counted from each kernel's code, with
-# an R x R product as 2 R^3 and the data-dependent squaring rounds of the
-# gap emission counted per gap from this run's gaps.
+# output written once (of the wide kernels' inputs only the parts they
+# must read, _wide_read_bytes).  Operations: counted from each kernel's
+# code, with an R x R product as 2 R^3 and the data-dependent squaring
+# rounds of the gap emission counted per gap from this run's gaps.
 # ---------------------------------------------------------------------------
 
 
@@ -266,11 +270,36 @@ def _celerite_flops(kernel, args):
     return steps * (per + nb * _OSC_FLOPS)
 
 
+def _wide_read_bytes(kernel, args):
+    """Bytes a wide kernel must read: of each wide block its a11 and the
+    A21, A12^T and A22[:, :e] parts of its strips (64 + 16e + e^2 numbers;
+    the strips' padding columns are never read), of each stack only the
+    rows the function uses."""
+    e = args[1].shape[1] // 3
+    d, blk, c = 8 + e, 64 + 16 * e + e * e, args[0].shape[-1]
+    if kernel == "backward_solve_takahashi_wide":
+        sm1 = args[0].shape[0]
+        # hat_C rows 0..s-3 (the last row's is not used), hat_W0 and pinv
+        # all rows, hw1 and p00, p01, p10, p11 once; hat_w rows, xb, xb_next
+        n = (sm1 - 1 + 2 * sm1 + 5) * blk + (sm1 + 2) * d
+    else:
+        s = args[0].shape[0]
+        # R and y rows 1..s-1; O rows 0..s-1 for kernel 21 (its last hat_C
+        # uses O_{s-1}), 0..s-2 for kernel 16
+        o_rows = s if kernel == "forward_sweep_solveinv_wide" else s - 1
+        n = (s - 1 + o_rows) * blk + (s - 1) * d
+    return n * c * args[0].element_size()
+
+
 def bound(kernel, args, outs, g=None, dt=None):
     """(least ms, "bytes" or "operations") for one kernel call."""
     if kernel == "takahashi_backward":
         args = args[:11]  # the step s-1 a0 / a1 are not read
-    nbytes = _nbytes(args) + _nbytes(outs)
+    if kernel.endswith("_wide"):
+        # outputs at their full (padded) size: the kernels write it all
+        nbytes = _wide_read_bytes(kernel, args) + _nbytes(outs)
+    else:
+        nbytes = _nbytes(args) + _nbytes(outs)
     if kernel.startswith("celerite"):
         flops = _celerite_flops(kernel, args)
     elif kernel == "transition_and_noise":
@@ -422,20 +451,49 @@ def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
     names = ("forward_sweep_wide", "forward_sweep_solveinv_wide",
              "backward_solve_takahashi_wide")
     wrappers = {k: getattr(wide_cuda, f"{k}_cuda") for k in names}
-    meta = {  # source, line of the TPU kernel, tolerance reason
+    meta = {  # source, line of the TPU kernel, tolerance reason (of s, C)
         "forward_sweep_wide": (
             "wide_sweep.cu", 166,
-            "127 dependent elimination steps; mh and ld summed over 1e6 rows "
-            "in another order; atol 1e-4 of each output's scale"),
+            lambda s, c: f"{s - 1} dependent elimination steps; mh and ld "
+            f"summed over {s * c} rows in another order"),
         "forward_sweep_solveinv_wide": (
             "wide_sweep.cu", 998,
-            "kernel 16's steps plus the triangular inverse behind pinv = "
-            "P^{-1}; atol 1e-4 of each output's scale"),
+            lambda s, c: f"kernel 16's {s - 1} steps plus the triangular "
+            "inverse behind pinv = P^{-1}"),
         "backward_solve_takahashi_wide": (
             "wide_backward.cu", 1199,
-            "127 dependent multiply-add steps of the back-substitution and "
-            "the Takahashi walk; atol 1e-4 of each output's scale"),
+            lambda s, c: f"{s - 1} dependent multiply-add steps of the "
+            "back-substitution and the Takahashi walk"),
     }
+
+    def check_on_inputs(run, label, record, reps):
+        """Hold kernels 16, 21 and 22 against their twins on the inputs
+        ``run()`` hands them (each wrapper's largest call: the top level
+        of the wide route); ``record`` adds the rows of the kernels line."""
+        captured.clear()
+        origs = [(wide_cuda, f"{k}_cuda", capture(wide_cuda, f"{k}_cuda"))
+                 for k in names]
+        run()
+        torch.cuda.synchronize()
+        for module, attr, orig in origs:
+            setattr(module, attr, orig)
+        if len(captured) != 3:
+            fail(f"the wide route of {label} reached only "
+                 f"{sorted(captured)}")
+        for key in names:
+            args_k, kw_k = captured[f"{key}_cuda"]
+            src, line, why = meta[key]
+            s = args_k[0].shape[0] + (key == "backward_solve_takahashi_wide")
+            c = args_k[0].shape[-1]
+            check_kernel(
+                key, f"cyclic_gps_tpu_torch/csrc/{src}",
+                f"cyclic_gps_tpu/ops/pallas_wide.py:{line}", wrappers[key],
+                getattr(wide_cuda, f"{key}_plain"), args_k, 1e-3, 1e-4,
+                f"{label}: d = {8 + args_k[1].shape[1] // 3}, s = {s}, "
+                f"C = {c}; {why(s, c)}; atol 1e-4 of each output's scale",
+                kw=kw_k, atol_of_scale=True, record=record, phase="wide",
+                reps=reps)
+        captured.clear()
 
     def loss_and_grads(system, backend):
         leaves = [t.clone().requires_grad_() for t in system]
@@ -456,27 +514,10 @@ def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
         "float32, seeded on the card; loss 0.3 mh + 0.7 ld")
     for d in WIDE_DS:
         system = nat_system(N_BIG, d, dev, seed=d)
-        # the kernels' inputs as one gradient hands them (top level)
-        captured.clear()
-        origs = [(wide_cuda, f"{k}_cuda", capture(wide_cuda, f"{k}_cuda"))
-                 for k in names]
-        loss_and_grads(system, "auto")
-        torch.cuda.synchronize()
-        for module, attr, orig in origs:
-            setattr(module, attr, orig)
-        if len(captured) != 3:
-            fail(f"the wide route at d = {d} reached only {sorted(captured)}")
-        for key in names:
-            args_k, kw_k = captured[f"{key}_cuda"]
-            src, line, why = meta[key]
-            check_kernel(
-                key, f"cyclic_gps_tpu_torch/csrc/{src}",
-                f"cyclic_gps_tpu/ops/pallas_wide.py:{line}", wrappers[key],
-                getattr(wide_cuda, f"{key}_plain"), args_k, 1e-3, 1e-4,
-                f"d = {d}, C = {args_k[0].shape[-1]}: {why}", kw=kw_k,
-                atol_of_scale=True, record=d == WIDE_D, phase="wide",
-                reps=3 if d == WIDE_D else 1)
-        captured.clear()
+        # the kernels' inputs as one gradient hands them
+        check_on_inputs(lambda: loss_and_grads(system, "auto"),
+                        f"the engine at N {N_BIG}", record=d == WIDE_D,
+                        reps=3 if d == WIDE_D else 1)
         if d == WIDE_D:
             # the engine path: one gradient with backend="auto", counts
             # reset just before and read just after, then "torch"
@@ -516,7 +557,12 @@ def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
                               .manual_seed(0), device=dev)
     cel_leaves = ("n_diag", "n_sub", "r_sub", "lambda_params", "b")
 
-    def cel_check(label, p, t, x):
+    def cel_check(label, p, t, x, reps):
+        # kernels 16, 21 and 22 on the inputs the boundary chain of one
+        # gradient hands them (its top wide level)
+        check_on_inputs(lambda: torch.autograd.grad(
+            celerite.log_likelihood_filter(p, t, x), list(p.parameters())),
+            f"celerite {label}", record=False, reps=reps)
         with torch.no_grad():
             ms_a, v_a = host_ms(lambda: celerite.log_likelihood_filter(
                 p, t, x), reps=1)
@@ -544,7 +590,7 @@ def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
         if not ok:
             fail(f"celerite {label}: backend='auto' disagrees with 'torch'")
 
-    cel_check(f"nblocks {CEL_NB_WIDE}, N {N_BIG}", p6, ts_c, xs_c)
+    cel_check(f"nblocks {CEL_NB_WIDE}, N {N_BIG}", p6, ts_c, xs_c, REPS)
 
     # the path: three Adam steps on nll_loss, counts reset just before and
     # read just after
@@ -603,7 +649,7 @@ def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
     for nb in (5, 7):
         p = celerite.init_params(nb, 1, generator=torch.Generator()
                                  .manual_seed(nb), device=dev)
-        cel_check(f"nblocks {nb}, N {N_WIDE_SMALL}", p, ts_s, xs_s)
+        cel_check(f"nblocks {nb}, N {N_WIDE_SMALL}", p, ts_s, xs_s, 1)
 
 
 def main():

@@ -477,7 +477,9 @@ def mahal_and_logdet_wide(r11: Tensor, rst: Tensor, o11: Tensor,
     """Fused (mahal, logdet) on ALREADY wide-layout chunk-major inputs
     (`_chunk_layout_wide`'s format), through kernel 16 for CUDA tensors
     and its plain twin for CPU tensors.  Forward-only entry (the
-    differentiable route is the natural-layout `mahal_and_logdet`)."""
+    differentiable route is the natural-layout `mahal_and_logdet`), kept
+    as the JAX package's public counterpart; the port's routes call
+    `_mahal_wide_cm_primal` directly."""
     return _mahal_wide_cm_primal(r11, rst, o11, ost, y_cm, jitter)
 
 

@@ -22,6 +22,11 @@ roles ((A^T)21 = A12^T is how the top-right strip is already stored).
 
 Invariant: the A22 strip's columns >= e are zero.  Every producer below
 preserves it (padding columns multiply only zero inputs).
+
+The module keeps the JAX module's whole set of helpers for parity:
+`wsub`, `wscale` and `wsolve_lower_t_vec` have no caller in the port and
+are exercised only by tests/test_torch_wide.py against their JAX
+counterparts.
 """
 
 from __future__ import annotations
