@@ -64,7 +64,17 @@ Phases, one line of output each (or more):
               profiled step; nblocks 5 and 7 at N = 1e5: the wide kernels
               on their chain's inputs (d = 10 and 14), value and gradient
               against "torch".
- 10. a JSON line of the kernels, then the final JSON status line.
+ 10. solve-rt block sizes 9-15 of the natural solve and selected inversion
+              (kernels 17-20: the runtime-d instances behind the wrappers
+              of kernels 8-11; 21 and 22 in the solve's backward): the
+              four kernels against their twins at d = 12 (recorded), 9
+              and 15 on the inputs one solve_and_logdet value + gradient
+              and one inverse_blocks call hand them at N = 1e6, and at
+              float64, d = 12, N = 1e5; at N = 1e6, d = 12 the value,
+              the gradient of sum(x w) + 0.7 ld and inverse_blocks with
+              backend="auto" against "torch", with the launch counts of
+              one call each.
+ 11. a JSON line of the kernels, then the final JSON status line.
 
 Any failure exits non-zero before the final line.  There is no CPU path:
 without a CUDA device, or without the package beside this script, it
@@ -293,6 +303,8 @@ def _wide_read_bytes(kernel, args):
 
 def bound(kernel, args, outs, g=None, dt=None):
     """(least ms, "bytes" or "operations") for one kernel call."""
+    # a runtime-d instance does the work of its rank-templated counterpart
+    kernel = kernel.removesuffix("_rt")
     if kernel == "takahashi_backward":
         args = args[:11]  # the step s-1 a0 / a1 are not read
     if kernel.endswith("_wide"):
@@ -652,6 +664,179 @@ def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
         cel_check(f"nblocks {nb}, N {N_WIDE_SMALL}", p, ts_s, xs_s, 1)
 
 
+SOLVE_RT_DS = (9, 12, 15)  # the runtime-d block sizes checked; 12 recorded
+N_RT64 = 100_000  # the float64 check of the runtime-d kernels
+
+
+def run_solve_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
+                       pt):
+    """Phase 10: the natural solve and selected inversion at d = 9-15
+    through the runtime-d kernels 17-20 (the wrappers of kernels 8-11 at
+    those sizes) and, in the solve's backward, the wide kernels 21, 22."""
+    from cyclic_gps_tpu_torch.ops import sweep_cuda, wide_cuda
+
+    names = ("forward_sweep_collect", "backward_substitute",
+             "forward_sweep_inverse", "takahashi_backward")
+    wrappers = {k: getattr(sweep_cuda, f"{k}_cuda") for k in names}
+    backward = {k: getattr(wide_cuda, f"{k}_cuda") for k in (
+        "forward_sweep_solveinv_wide", "backward_solve_takahashi_wide")}
+    meta = {  # source, line of the TPU kernel, tolerance reason (of s)
+        "forward_sweep_collect": (
+            "rt_solve.cu", 366,
+            lambda s: f"{s - 1} dependent elimination steps plus three back "
+            "substitutions per row"),
+        "backward_substitute": (
+            "rt_solve.cu", 496,
+            lambda s: f"{s - 1} dependent multiply-add steps"),
+        "forward_sweep_inverse": (
+            "rt_inverse.cu", 641,
+            lambda s: f"{s - 1} dependent elimination steps"),
+        "takahashi_backward": (
+            "rt_inverse.cu", 812,
+            lambda s: f"{s - 2} dependent steps of ~15 products each"),
+    }
+    ld_weight = 0.7
+    t_phase = time.perf_counter()
+
+    def weights(x):
+        g = torch.Generator(device=x.device).manual_seed(7)
+        return torch.randn(x.shape, generator=g, device=x.device,
+                           dtype=x.dtype)
+
+    def solve_grads(system, backend):
+        leaves = [t.clone().requires_grad_() for t in system]
+        x, ld = pt.solve_and_logdet(*leaves, backend=backend)
+        g = torch.autograd.grad(torch.sum(x * weights(x)) + ld_weight * ld,
+                                leaves)
+        return x.detach(), ld.detach(), g
+
+    def inverse(system, backend):
+        with torch.no_grad():
+            return pt.inverse_blocks(system[0], system[1], backend=backend)
+
+    def check_on_inputs(system, label, record, reps, bars):
+        """Hold kernels 17-20 against their twins on the inputs one solve
+        value + gradient and one inverse_blocks call hand the wrappers
+        (each wrapper's largest call: the top level)."""
+        captured.clear()
+        origs = [(sweep_cuda, f"{k}_cuda", capture(sweep_cuda, f"{k}_cuda"))
+                 for k in names]
+        solve_grads(system, "auto")
+        inverse(system, "auto")
+        torch.cuda.synchronize()
+        for module, attr, orig in origs:
+            setattr(module, attr, orig)
+        if len(captured) != 4:
+            fail(f"the solve and selected inversion of {label} reached only "
+                 f"{sorted(captured)}")
+        rtol, atol = bars
+        for key in names:
+            args_k, kw_k = captured[f"{key}_cuda"]
+            src, line, why = meta[key]
+            # the descending walks take [s-1, ...] stacks
+            walk = key in ("backward_substitute", "takahashi_backward")
+            s = args_k[0].shape[0] + walk
+            check_kernel(
+                f"{key}_rt", f"cyclic_gps_tpu_torch/csrc/{src}",
+                f"cyclic_gps_tpu/ops/pallas_wide.py:{line}", wrappers[key],
+                getattr(sweep_cuda, f"{key}_plain"), args_k, rtol, atol,
+                f"{label}: d = {args_k[0].shape[1]}, s = {s}, C = "
+                f"{args_k[0].shape[-1]}, {args_k[0].dtype}; {why(s)}; atol "
+                f"{atol:g} of each output's scale",
+                kw=kw_k, atol_of_scale=True, record=record,
+                phase="solve-rt", reps=reps)
+        captured.clear()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    def counts():
+        return {**{f"{k}_rt": w.launches_rt for k, w in wrappers.items()},
+                **{k: w.launches for k, w in wrappers.items()},
+                **{k: w.launches for k, w in backward.items()}}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = w.launches_rt = 0
+        for w in backward.values():
+            w.launches = 0
+
+    torch.cuda.empty_cache()
+    say(f"[solve-rt] the natural solve_and_logdet (value and the gradient of "
+        f"sum(x w) + {ld_weight} ld, w seeded) and inverse_blocks at N "
+        f"{N_BIG}, d {SOLVE_RT_DS}: tests/test_wideblock.py's system, "
+        "float32, seeded on the card")
+    f32_bars = (1e-3, 1e-4)  # the [kernels] bars of kernels 8-11
+    for d in SOLVE_RT_DS:
+        system = nat_system(N_BIG, d, dev, seed=20 + d)
+        check_on_inputs(system, f"N {N_BIG}", record=d == WIDE_D,
+                        reps=3 if d == WIDE_D else 1, bars=f32_bars)
+        if d != WIDE_D:
+            del system
+            torch.cuda.empty_cache()
+            continue
+        # the path: counts reset just before each call and read just after
+        reset()
+        ms_a, (x_a, ld_a, g_a) = timed(lambda: solve_grads(system, "auto"))
+        solve_counts = counts()
+        reset()
+        ims_a, inv_a = timed(lambda: inverse(system, "auto"))
+        inv_counts = counts()
+        say(f"[solve-rt] launches in one backend='auto' solve_and_logdet "
+            f"value + gradient at d {d}: {solve_counts}; in one "
+            f"inverse_blocks call: {inv_counts}")
+        for k in ("forward_sweep_collect_rt", "backward_substitute_rt",
+                  "forward_sweep_solveinv_wide",
+                  "backward_solve_takahashi_wide"):
+            if solve_counts[k] <= 0:
+                fail(f"kernel {k} was not launched by the natural solve")
+        for k in ("forward_sweep_inverse_rt", "takahashi_backward_rt"):
+            if inv_counts[k] <= 0:
+                fail(f"kernel {k} was not launched by inverse_blocks")
+        for k in names:
+            if solve_counts[k] or inv_counts[k]:
+                fail(f"the rank-templated {k} ran at d = {d}")
+        for r in rows:
+            if r["name"] in [f"{k}_rt" for k in names]:
+                r["launches"] = (solve_counts[r["name"]]
+                                 + inv_counts[r["name"]])
+        ms_t, (x_t, ld_t, g_t) = timed(lambda: solve_grads(system, "torch"))
+        rel_x, rel_ld = rel_inf(x_a, x_t), abs(float(ld_a - ld_t)
+                                               / float(ld_t))
+        g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
+        ok = (rel_x <= 1e-4 and rel_ld <= 1e-4 and max(g_rels) <= grad_bar
+              and all(bool(torch.isfinite(t).all()) for t in g_a))
+        say(f"[solve-rt] d {d}: x rel diff {rel_x:.3e} <= 1e-4 (the "
+            f"bench.py solve_cm bar), ld {float(ld_a):.6f} / "
+            f"{float(ld_t):.6f} (auto / torch) rel diff {rel_ld:.3e} <= "
+            f"1e-4; gradient per-input rel diff diag {g_rels[0]:.2e}, off "
+            f"{g_rels[1]:.2e}, y {g_rels[2]:.2e} <= {grad_bar:g}; value + "
+            f"gradient auto {ms_a:.1f} ms, torch {ms_t:.1f} ms (host "
+            f"clock) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"the natural solve at d = {d} disagrees with 'torch'")
+        del x_a, x_t, g_a, g_t
+        ims_t, inv_t = timed(lambda: inverse(system, "torch"))
+        compare(f"inverse_blocks d {d}", inv_a, inv_t, 0.0, 1e-3,
+                atol_of_scale=True)
+        say(f"[solve-rt] inverse_blocks d {d}: auto {ims_a:.1f} ms, torch "
+            f"{ims_t:.1f} ms (host clock); agree (max |auto - torch| <= "
+            "1e-3 of each output's largest entry)")
+        del system, inv_a, inv_t
+        torch.cuda.empty_cache()
+    system = tuple(t.double() for t in nat_system(N_RT64, WIDE_D, dev,
+                                                  seed=40))
+    check_on_inputs(system, f"N {N_RT64}", record=False, reps=1,
+                    bars=(1e-9, 1e-10))
+    del system
+    torch.cuda.empty_cache()
+    say(f"[solve-rt] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a card")
@@ -716,14 +901,16 @@ def main():
                 continue
             say(f"[build] {base.group(1)}<{base.group(2)}>: registers "
                 f"{regs}, stack {stack} B, spill stores {spill} B")
-    # the wide kernels (one instance per dtype; d = 9..15 at run time)
-    for fn_name, (regs, stack, spill) in sorted(
-            _build.ptxas_report(0, tag="wide_").items()):
-        base = re.search(r"\d+(wide_[a-z_]+?)I(\w*?)EEv", fn_name)
-        if base is None or regs is None:
-            continue
-        say(f"[build] {base.group(1)}<{base.group(2)}>: registers {regs}, "
-            f"stack {stack} B, spill stores {spill} B")
+    # the wide kernels and the runtime-d solve and selected-inversion
+    # kernels (one instance per dtype; d = 9..15 at run time)
+    for tag in ("wide_", "rt_"):
+        for fn_name, (regs, stack, spill) in sorted(
+                _build.ptxas_report(0, tag=tag).items()):
+            base = re.search(rf"\d+({tag}[a-z_]+?)I(\w*?)EEv", fn_name)
+            if base is None or regs is None:
+                continue
+            say(f"[build] {base.group(1)}<{base.group(2)}>: registers "
+                f"{regs}, stack {stack} B, spill stores {spill} B")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -1458,7 +1645,11 @@ def main():
     run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
                    grad_bar, celerite, loop, pt, ts_c, xs_c)
 
-    # ---- 10. summary -------------------------------------------------------
+    # ---- 10. solve-rt: the solve and selected inversion at 9-15 ------------
+    run_solve_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
+                       pt)
+
+    # ---- 11. summary -------------------------------------------------------
     say(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

@@ -27,7 +27,7 @@
 // 2 d^2 + d, but each thread runs a dependent chain of ~26 d^3 operations
 // on blocks in local memory, with C = N/s lanes: latency- and
 // occupancy-bound, like wide_sweep.cu.  The design is that of the plain
-// kernel with d a runtime value (wideblock.cuh): one instance per dtype,
+// kernel with d a runtime value (rtblock.cuh): one instance per dtype,
 // the rows walked backwards with plain strides, every stack row read or
 // written once.  Spreading a chunk over a warp is later work.
 #include "wideblock.cuh"
@@ -35,38 +35,6 @@
 namespace {
 
 using namespace cgt::wide;
-
-template <typename T>
-__device__ __forceinline__ void copy_(const Mat<T>& a, Mat<T>& out, int d) {
-  for (int i = 0; i < d; ++i)
-    for (int k = 0; k < d; ++k) out[i][k] = a[i][k];
-}
-
-// out += a b
-template <typename T>
-__device__ __forceinline__ void mm_add(const Mat<T>& a, const Mat<T>& b,
-                                       Mat<T>& out, Mat<T>& t, int d) {
-  mm<T>(a, b, t, d);
-  for (int i = 0; i < d; ++i)
-    for (int k = 0; k < d; ++k) out[i][k] += t[i][k];
-}
-
-// a0 = p00 u0^T + p01 u1^T,  a1 = p10 u0^T + p11 u1^T  (Sigma_BB U^T)
-template <typename T>
-__device__ __forceinline__ void sig_ut(const Mat<T>& p00, const Mat<T>& p01,
-                                       const Mat<T>& p10, const Mat<T>& p11,
-                                       const Mat<T>& u0, const Mat<T>& u1,
-                                       Mat<T>& a0, Mat<T>& a1, Mat<T>& t,
-                                       int d) {
-  mm_tb<T>(p00, u0, a0, d);
-  mm_tb<T>(p01, u1, t, d);
-  for (int i = 0; i < d; ++i)
-    for (int k = 0; k < d; ++k) a0[i][k] += t[i][k];
-  mm_tb<T>(p10, u0, a1, d);
-  mm_tb<T>(p11, u1, t, d);
-  for (int i = 0; i < d; ++i)
-    for (int k = 0; k < d; ++k) a1[i][k] += t[i][k];
-}
 
 template <typename T>
 __global__ void __launch_bounds__(CGT_THREADS)

@@ -37,8 +37,8 @@ on the card `log_likelihood` takes nblocks 1..4 and 8 and raises at 5..7.
 Small N, and everything else the LEG family offers (predictions,
 posteriors), runs through `expand`, which maps the structured parameters
 to a `leg.LEGView` whose gradients flow back to them.  The dense LEG
-emission and posterior kernels stop at rank 8, so those calls run on the
-card at nblocks <= 4.
+emission kernels stop at rank 8 (the posterior's solve and selected
+inversion take 1..15), so those calls run on the card at nblocks <= 4.
 """
 
 from __future__ import annotations
@@ -581,8 +581,7 @@ def log_likelihood_filter(params: CeleriteParams, ts: Tensor, xs: Tensor,
 def make_predictions(params: CeleriteParams, ts: Tensor, xs: Tensor,
                      target_ts: Tensor, **kw):
     """``leg.make_predictions`` on the expanded parameters (on the card
-    at nblocks <= 4: the dense emission and posterior kernels stop at
-    rank 8)."""
+    at nblocks <= 4: the dense emission kernels stop at rank 8)."""
     return leg.make_predictions(expand(params), ts, xs, target_ts, **kw)
 
 

@@ -32,8 +32,9 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _SOURCES = ("forward_sweep.cu", "gap_emission.cu", "backward_sweep.cu",
             "gap_adjoint.cu", "solve_sweep.cu", "inverse_sweep.cu",
             "celerite_sweep.cu", "celerite_filter.cu",
-            "celerite_adjoint.cu", "wide_sweep.cu", "wide_backward.cu")
-_HEADERS = ("blockmath.cuh", "celerite.cuh", "wideblock.cuh")
+            "celerite_adjoint.cu", "wide_sweep.cu", "wide_backward.cu",
+            "rt_solve.cu", "rt_inverse.cu")
+_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtblock.cuh", "wideblock.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,6 +90,13 @@ _SIGNATURES.update({
          [_P] * 5 + [real, _I, _I, _I] + [_P] * 18 + [_P]),
         ("cgt_wide_backward", [_P] * 19 + [_I, _I, _I] + [_P] * 9 + [_P]))
 })
+# the runtime-d kernels of the solve and the selected inversion (d = 9..15)
+# take the arguments of their rank-templated counterparts
+for _base in ("forward_sweep_collect", "backward_substitute",
+              "forward_sweep_inverse", "takahashi_backward"):
+    for _suf in ("_f32", "_f64"):
+        _SIGNATURES[f"cgt_rt_{_base}{_suf}"] = _SIGNATURES[
+            f"cgt_{_base}{_suf}"]
 
 
 def _nvcc() -> str:
@@ -194,21 +202,27 @@ def load() -> ctypes.CDLL:
 # Block sizes each kernel is instantiated for: every kernel takes 1..8;
 # the engine's forward sweep and its two backward kernels (Queue 2 items
 # 1, 6 and 7) also take 16, the boundary chain of the celerite family at
-# nblocks = 8.
+# nblocks = 8; the solve and selected-inversion kernels (items 8-11) also
+# take 9..15, through one runtime-d instance per dtype (items 17-20).
 RANKS = tuple(range(1, 9))
 SWEEP_RANKS = RANKS + (16,)
+SOLVE_RANKS = RANKS + tuple(range(9, 16))
 
 
 def check_rank(r: int, name: str, sizes=RANKS) -> None:
     """Refuse a block size the kernel was not instantiated for."""
     if r not in sizes:
-        have = "1..8" + (", 16" if 16 in sizes else "")
+        have = ("1..15" if 9 in sizes
+                else "1..8" + (", 16" if 16 in sizes else ""))
         raise ValueError(
             f"{name}: block size {r} has no CUDA kernel (instantiated for "
-            f"{have}); at sizes 9-15 only the natural-layout mahal_and_logdet "
-            "runs on the card (the wide-layout kernels, ops/wide_cuda.py), "
-            "and the other kernels at 9-15, and rank 16 of the emission and "
-            "posterior kernels, wait for their own instantiation "
+            f"{have}); at sizes 9-15 the card runs the "
+            "natural-layout mahal_and_logdet (the wide-layout kernels, "
+            "ops/wide_cuda.py) and the solve and selected-inversion kernels "
+            "(runtime-d instances, csrc/rt_solve.cu and csrc/rt_inverse.cu); "
+            "the likelihood's sweep and backward kernels and the emission "
+            "kernels at 9-15, and rank 16 of the emission, solve and "
+            "selected-inversion kernels, wait for their own instantiation "
             "(ROADMAP.md, Queue 2)")
 
 

@@ -38,8 +38,12 @@ alike.  Every sweep of the reduced-system ladder dispatches the same way
 cyclic reduction stays plain tensor code.  At 8 < d < 16 the
 natural-layout `mahal_and_logdet` on "cuda" takes the wide route
 (`_MahalWide`, the wide-layout kernels of ops/wide_cuda.py), and so do the
-(mahal, logdet) and solve + selected-inversion ladders at those sizes; the
-other entries have no kernel there and refuse on "cuda".
+(mahal, logdet) ladder and the fused solve + selected inversion of every
+analytic backward (`_solve_inverse_from_cm`) at those sizes; the solve and
+the selected inversion run their own kernels' runtime-d instances there
+(ops/sweep_cuda.py); the entries whose forward runs the likelihood's sweep
+kernel (the chunk-major (mahal, logdet), the per-row log-dets) have no
+kernel at those sizes and refuse on "cuda".
 
 Gradients: `mahal_and_logdet_cm`, `solve_cm`, `logdet_rows_cm` and
 `solve_and_ld_rows_cm` are ``torch.autograd.Function``s whose backwards
@@ -431,9 +435,10 @@ def logdet(diag: Tensor, off: Tensor, s: Optional[int] = None,
 # (partitioned.py:465-621, 1731-1837).  The chunk interiors are eliminated
 # on wide stacks; the C-sized reduced boundary system is assembled in the
 # plain layout, and its ladder re-enters the wide route at every chunked
-# level (`_mahal_and_logdet_em`, `_solve_inverse_em`), since the plain
-# sweep kernels have no instance at these sizes.  Stacks stay at the true
-# chunk count (the TPU kernels pad them to their lane tile).
+# level (`_mahal_and_logdet_em`, `_solve_inverse_from_cm`), since the
+# likelihood's sweep kernel and its backward pair have no instance at these
+# sizes.  Stacks stay at the true chunk count (the TPU kernels pad them to
+# their lane tile).
 # ---------------------------------------------------------------------------
 
 
@@ -688,12 +693,8 @@ def _solve_inverse_em(diag_em, off_em, y_em, jitter, backend="torch"):
                           dim=-1)
         return sb.vec_to_em(x), sb.to_em(sd), so_em
     R_cm, O_cm, y_cm, c = _chunk_layout_em(diag_em, off_em, y_em, s)
-    if _is_wide(d, backend):
-        x_nat, sd_nat, so_nat = _solve_inverse_wide_cm(
-            *_to_wide_stack(R_cm), *_to_wide_stack(O_cm), y_cm, jitter)
-    else:
-        x_nat, sd_nat, so_nat = _solve_inverse_from_cm(R_cm, O_cm, y_cm,
-                                                       jitter, backend)
+    x_nat, sd_nat, so_nat = _solve_inverse_from_cm(R_cm, O_cm, y_cm, jitter,
+                                                   backend)
     return (sb.vec_to_em(x_nat[:n]), sb.to_em(sd_nat[:n]),
             sb.to_em(so_nat[:n]))
 
@@ -704,9 +705,14 @@ def _solve_inverse_from_cm(R_cm, O_cm, y_cm, jitter, backend="torch"):
     (x [C*s, d], sig_diag [C*s, d, d], sig_off [C*s, d, d] with row i =
     Sigma_{i+1, i}).  ``backend="cuda"`` runs the sweep as the
     solve+inverse collect kernel and both upward walks as one descending
-    kernel; "torch" runs the plain sweep and walks."""
+    kernel, on the wide layout at 8 < d < 16 (`_solve_inverse_wide_cm`:
+    kernels 21 and 22, as the JAX ``_solve_wide_bwd`` and
+    ``_mahal_wide_bwd`` do); "torch" runs the plain sweep and walks."""
     s, d = R_cm.shape[0], R_cm.shape[1]
     c = R_cm.shape[-1]
+    if _is_wide(d, backend):
+        return _solve_inverse_wide_cm(*_to_wide_stack(R_cm),
+                                      *_to_wide_stack(O_cm), y_cm, jitter)
     if backend == "cuda":
         from .sweep_cuda import (backward_solve_takahashi_cuda,
                                  forward_sweep_solveinv_cuda)
@@ -766,7 +772,8 @@ def solve_and_inverse_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 # The solve: J^{-1} y and log|J| from one forward sweep that streams the hat
 # factors (`_collect_solve`) and one descending back-substitution.  On the
 # card both passes are kernels (the collect sweep and the
-# back-substitution of ops/sweep_cuda.py), at every ladder level.
+# back-substitution of ops/sweep_cuda.py, runtime-d instances at
+# 8 < d < 16), at every ladder level.
 # ---------------------------------------------------------------------------
 
 
@@ -1141,7 +1148,8 @@ def solve_and_ld_rows_cm(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 # blocks come from the Takahashi recursion along each chain (a descending
 # walk), U by back-substitution of W.  One forward sweep and one descending
 # walk per ladder level; on the card both are kernels (the raw-factor sweep
-# and the Takahashi recursion of ops/sweep_cuda.py).
+# and the Takahashi recursion of ops/sweep_cuda.py, runtime-d instances at
+# 8 < d < 16).
 # ---------------------------------------------------------------------------
 
 

@@ -22,6 +22,14 @@ Counterparts of ``cyclic_gps_tpu/ops/pallas_sweep.py``:
   takahashi_backward_pallas, the descending raw-factor Takahashi
   recursion.
 
+The last four take block sizes 1..8 as rank-templated instances and 9..15
+as runtime-d instances (``csrc/rt_solve.cu``, ``csrc/rt_inverse.cu``),
+which replace ``cyclic_gps_tpu/ops/pallas_wide.py``'s :366
+forward_sweep_collect_wide_pallas, :496 backward_substitute_wide_pallas,
+:641 forward_sweep_inverse_wide_pallas and :812
+takahashi_backward_wide_pallas on the chunk-major layout; a wrapper counts
+the two apart (``launches`` and ``launches_rt``).
+
 Each wrapper launches its kernel for CUDA tensors; for CPU tensors it runs
 its plain twin (``*_plain``), which computes the same function with tensor
 ops.  The twins follow the TPU kernels' Cholesky (``_chol``: rsqrt pivots,
@@ -116,6 +124,22 @@ def _check_sweep_inputs(name: str, R_cm: Tensor, O_cm: Tensor,
     if s < 2:
         raise ValueError(f"{name}: chunk length {s} < 2")
     return s, d, c
+
+
+def _solve_symbol(kernel: str, d: int) -> str:
+    """The C entry of a solve or selected-inversion kernel at block size
+    ``d``: the rank-templated instance at 1..8, the runtime-d one at
+    9..15."""
+    return ("cgt_rt_" if d > 8 else "cgt_") + kernel
+
+
+def _count_solve(wrapper, d: int) -> None:
+    """Count one launch on ``wrapper``: ``launches`` for the rank-templated
+    instance, ``launches_rt`` for the runtime-d one."""
+    if d > 8:
+        wrapper.launches_rt += 1
+    else:
+        wrapper.launches += 1
 
 
 def _launch(name: str, symbol: str, dtype, *args) -> None:
@@ -349,30 +373,32 @@ def forward_sweep_collect_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     kernels' Cholesky).
 
     R_cm, O_cm [s, d, d, C], y_cm [s, d, C] (float32 or float64, s >= 2,
-    d <= 8).  Returns (acc00, accy0, w0_last, w_last, d_last, invd_last,
+    d in 1..15).  Returns (acc00, accy0, w0_last, w_last, d_last, invd_last,
     mh, ld, hat_cs [s-1, d, d, C], hat_w0s [s-1, d, d, C], hat_ws
     [s-1, d, C], ld_rows [s-1, C]), with stack row j-1 holding step j:
     hat_C = D^{-T} C^T, hat_W0 = D^{-T} W0, hat_w = D^{-T} w and the
     pivot log-det 2 log|D_j|.  The stacks come at the true chunk count C
     (the TPU kernel pads them to its lane tile).
 
-    CUDA tensors launch ``csrc/solve_sweep.cu``
-    (``forward_sweep_collect_cuda.launches``); CPU tensors run
+    CUDA tensors launch ``csrc/solve_sweep.cu`` at d <= 8
+    (``forward_sweep_collect_cuda.launches``) and ``csrc/rt_solve.cu`` at
+    d = 9..15 (``.launches_rt``); CPU tensors run
     `forward_sweep_collect_plain`.
     """
     name = "forward_sweep_collect_cuda"
     _build.check_no_grad(name, R_cm, O_cm, y_cm)
     if not R_cm.is_cuda:
         return forward_sweep_collect_plain(R_cm, O_cm, y_cm, jitter)
-    s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm)
+    s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm,
+                                  _build.SOLVE_RANKS)
     outs = [R_cm.new_empty(shape) for shape in
             [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
              (c,), (c,), (s - 1, d, d, c), (s - 1, d, d, c), (s - 1, d, c),
              (s - 1, c)]]
     with torch.cuda.device(R_cm.device):
-        _launch(name, "cgt_forward_sweep_collect", R_cm.dtype, R_cm, O_cm,
-                y_cm, float(jitter), s, d, c, *outs)
-    forward_sweep_collect_cuda.launches += 1
+        _launch(name, _solve_symbol("forward_sweep_collect", d),
+                R_cm.dtype, R_cm, O_cm, y_cm, float(jitter), s, d, c, *outs)
+    _count_solve(forward_sweep_collect_cuda, d)
     (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0, hw,
      ld_rows) = outs
     return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
@@ -380,6 +406,7 @@ def forward_sweep_collect_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 
 
 forward_sweep_collect_cuda.launches = 0
+forward_sweep_collect_cuda.launches_rt = 0
 
 
 def backward_substitute_plain(hat_cs, hat_w0s, hat_ws, hat_w1, xb,
@@ -411,10 +438,11 @@ def backward_substitute_cuda(hat_cs: Tensor, hat_w0s: Tensor,
     hat_cs / hat_w0s [s-1, d, d, C], hat_ws [s-1, d, C], hat_w1 =
     D_{s-1}^{-T} W1 [d, d, C], xb / xb_next [d, C] the reduced boundary
     solution and its next-chunk shift.  Returns x rows [s-1, d, C] for
-    steps 1..s-1.  float32 or float64.
+    steps 1..s-1.  float32 or float64, d in 1..15.
 
-    CUDA tensors launch ``csrc/solve_sweep.cu``
-    (``backward_substitute_cuda.launches``); CPU tensors run
+    CUDA tensors launch ``csrc/solve_sweep.cu`` at d <= 8
+    (``backward_substitute_cuda.launches``) and ``csrc/rt_solve.cu`` at
+    d = 9..15 (``.launches_rt``); CPU tensors run
     `backward_substitute_plain`.
     """
     name = "backward_substitute_cuda"
@@ -426,20 +454,21 @@ def backward_substitute_cuda(hat_cs: Tensor, hat_w0s: Tensor,
     _build.check_tensors(name, (torch.float32, torch.float64),
                          **dict(zip(keys, args)))
     sm1, d, _, c = hat_cs.shape
-    _build.check_rank(d, name)
+    _build.check_rank(d, name, _build.SOLVE_RANKS)
     shapes = ((sm1, d, d, c), (sm1, d, d, c), (sm1, d, c), (d, d, c),
               (d, c), (d, c))
     for key, t, shape in zip(keys, args, shapes):
         _build.check_shape(name, key, t, shape)
     x = hat_cs.new_empty((sm1, d, c))
     with torch.cuda.device(hat_cs.device):
-        _launch(name, "cgt_backward_substitute", hat_cs.dtype, *args,
-                sm1 + 1, d, c, x)
-    backward_substitute_cuda.launches += 1
+        _launch(name, _solve_symbol("backward_substitute", d),
+                hat_cs.dtype, *args, sm1 + 1, d, c, x)
+    _count_solve(backward_substitute_cuda, d)
     return x
 
 
 backward_substitute_cuda.launches = 0
+backward_substitute_cuda.launches_rt = 0
 
 
 def forward_sweep_inverse_plain(R_cm: Tensor, O_cm: Tensor,
@@ -468,14 +497,15 @@ def forward_sweep_inverse_cuda(R_cm: Tensor, O_cm: Tensor,
     partitioned._forward_sweep with collect="inverse" and no right-hand
     side, on the TPU kernels' Cholesky).
 
-    R_cm, O_cm [s, d, d, C] (float32 or float64, s >= 2, d <= 8).
+    R_cm, O_cm [s, d, d, C] (float32 or float64, s >= 2, d in 1..15).
     Returns (acc00, w0_last, d_last [d, d, C], invd_last [d, C], ds
     [s-1, d, d, C], invds [s-1, d, C], cs [s-1, d, d, C], w0s
     [s-1, d, d, C]), with stack row j-1 holding step j's D_j, 1/diag(D_j),
     C_j = O_j D_j^{-T} and W0_j, at the true chunk count C.
 
-    CUDA tensors launch ``csrc/inverse_sweep.cu``
-    (``forward_sweep_inverse_cuda.launches``); CPU tensors run
+    CUDA tensors launch ``csrc/inverse_sweep.cu`` at d <= 8
+    (``forward_sweep_inverse_cuda.launches``) and ``csrc/rt_inverse.cu``
+    at d = 9..15 (``.launches_rt``); CPU tensors run
     `forward_sweep_inverse_plain`.
     """
     name = "forward_sweep_inverse_cuda"
@@ -483,18 +513,20 @@ def forward_sweep_inverse_cuda(R_cm: Tensor, O_cm: Tensor,
     if not R_cm.is_cuda:
         return forward_sweep_inverse_plain(R_cm, O_cm, jitter)
     s, d, _, c = R_cm.shape
-    _check_sweep_inputs(name, R_cm, O_cm, R_cm.new_empty((s, d, c)))
+    _check_sweep_inputs(name, R_cm, O_cm, R_cm.new_empty((s, d, c)),
+                        _build.SOLVE_RANKS)
     outs = [R_cm.new_empty(shape) for shape in
             [(d, d, c), (d, d, c), (d, d, c), (d, c), (s - 1, d, d, c),
              (s - 1, d, c), (s - 1, d, d, c), (s - 1, d, d, c)]]
     with torch.cuda.device(R_cm.device):
-        _launch(name, "cgt_forward_sweep_inverse", R_cm.dtype, R_cm, O_cm,
-                float(jitter), s, d, c, *outs)
-    forward_sweep_inverse_cuda.launches += 1
+        _launch(name, _solve_symbol("forward_sweep_inverse", d),
+                R_cm.dtype, R_cm, O_cm, float(jitter), s, d, c, *outs)
+    _count_solve(forward_sweep_inverse_cuda, d)
     return tuple(outs)
 
 
 forward_sweep_inverse_cuda.launches = 0
+forward_sweep_inverse_cuda.launches_rt = 0
 
 
 def takahashi_backward_plain(ds, invds, cs, w0s, p00, p01, p10, p11, phi0,
@@ -543,10 +575,12 @@ def takahashi_backward_cuda(ds: Tensor, invds: Tensor, cs: Tensor,
     values of a0 / a1) keep the TPU kernel's argument list; no step reads
     them, so they are checked but not passed to the kernel.  Returns
     (diag rows [s-2, d, d, C] = Sigma_jj, off rows [s-2, d, d, C] =
-    Sigma_{j+1,j}, u0_final, u1_final [d, d, C]).  float32 or float64.
+    Sigma_{j+1,j}, u0_final, u1_final [d, d, C]).  float32 or float64, d
+    in 1..15.
 
-    CUDA tensors launch ``csrc/inverse_sweep.cu``
-    (``takahashi_backward_cuda.launches``); CPU tensors run
+    CUDA tensors launch ``csrc/inverse_sweep.cu`` at d <= 8
+    (``takahashi_backward_cuda.launches``) and ``csrc/rt_inverse.cu`` at
+    d = 9..15 (``.launches_rt``); CPU tensors run
     `takahashi_backward_plain`.
     """
     name = "takahashi_backward_cuda"
@@ -560,7 +594,7 @@ def takahashi_backward_cuda(ds: Tensor, invds: Tensor, cs: Tensor,
     _build.check_tensors(name, (torch.float32, torch.float64),
                          **dict(zip(keys, args)))
     sm1, d, _, c = ds.shape
-    _build.check_rank(d, name)
+    _build.check_rank(d, name, _build.SOLVE_RANKS)
     if sm1 < 2:
         raise ValueError(f"{name}: chunk length {sm1 + 1} < 3")
     step, mat = (sm1, d, d, c), (d, d, c)
@@ -570,10 +604,11 @@ def takahashi_backward_cuda(ds: Tensor, invds: Tensor, cs: Tensor,
     outs = [ds.new_empty(shape) for shape in ((sm1 - 1, d, d, c),
                                               (sm1 - 1, d, d, c), mat, mat)]
     with torch.cuda.device(ds.device):
-        _launch(name, "cgt_takahashi_backward", ds.dtype, *args[:11],
-                sm1 + 1, d, c, *outs)
-    takahashi_backward_cuda.launches += 1
+        _launch(name, _solve_symbol("takahashi_backward", d), ds.dtype,
+                *args[:11], sm1 + 1, d, c, *outs)
+    _count_solve(takahashi_backward_cuda, d)
     return tuple(outs)
 
 
 takahashi_backward_cuda.launches = 0
+takahashi_backward_cuda.launches_rt = 0
