@@ -17,9 +17,9 @@
 // The TPU kernels take the wide layout (an 8 x 8 block plus row-packed
 // strips), which exists for the TPU's 8-sublane tiles.  It is not carried
 // over: on the H100 it would only add relayout passes on the host and an
-// unpack / pack per block in the thread.  These kernels read and write the
-// chunk-major [s, d, d, C] stacks of kernels 10 and 11, so the engine's
-// glue (partitioned._inverse_from_cm) is the same at every d.
+// unpack / pack per block.  These kernels read and write the chunk-major
+// [s, d, d, C] stacks of kernels 10 and 11, so the engine's glue
+// (partitioned._inverse_from_cm) is the same at every d.
 //
 // The sweep writes, for every interior step j = 1..s-1 (stack row j-1),
 // D_j, 1/diag(D_j), C_j = O_j D_j^{-T} and W0_j, and the final acc00, W0,
@@ -32,17 +32,24 @@
 //   Sigma_{j+1,j} = phi_off + u0_{j+1} a0_j + u1_{j+1} a1_j
 // with (a0, a1) = Sigma_BB U^T.
 //
-// What bounds them on the H100: per row the sweep reads 2 d^2 values and
-// writes 3 d^2 + d, the recursion reads 3 d^2 + d and writes 2 d^2 (~2.9
-// GB and ~2.9 GB at d = 12, N = 1e6, float32: byte bounds of ~0.87 ms
-// each).  One thread per chunk lane walks the lane's rows in order, each a
-// dependent chain of ~8 d^3 (sweep) or ~33 d^3 (recursion) operations on
-// blocks in local memory (rtblock.cuh: one instance per dtype serves
-// d = 9..15), with C = N/s lanes: latency- and occupancy-bound, far from
-// both bounds.  The sweep is rtblock.cuh's elimination step on a zero
-// right-hand side (its vector terms are O(d^2) of the row's O(d^3)).  A
-// warp per chunk, or blocks in shared memory, is later work.
+// What bounds them on the H100 (SXM peaks at its 700 W limit: 3.35 TB/s,
+// 67 TFLOP/s float32): per row the sweep reads 2 d^2 values and writes
+// 3 d^2 + d, the recursion reads 3 d^2 + d and writes 2 d^2 (~2.9 GB each
+// at d = 12, N = 1e6, float32: byte bounds of ~0.87 ms), and a recursion
+// row is a dependent chain of ~33 d^3 operations (~0.85 ms of float32
+// peak at that size; the bound at d = 15).  So both are bound by
+// how fast one lane can walk its rows, not by bytes.
+//
+// The sweep keeps the first port's design: one thread per chunk lane,
+// blocks in local memory (rtblock.cuh, one instance per dtype).  The
+// recursion, the larger of the two, runs one warp per chunk lane on
+// rtcoop.cuh: the lane's 14 blocks in shared memory, every product spread
+// over the warp, the 8 lanes of a thread block loading and storing their
+// rows as whole 32-byte spans.  Its seven carried blocks (p00..p11, phi,
+// u0, u1) never leave the SM, and 16-24 warps per SM at float32 (8-12 at
+// float64), not ~2, hide the latency of the dependent chain.
 #include "rtblock.cuh"
+#include "rtcoop.cuh"
 
 namespace {
 
@@ -76,8 +83,15 @@ rt_inverse_sweep_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
   store_v<T>(invdl, 0, d, C, c, st.invd);
 }
 
+namespace co = cgt::coop;
+
+// the recursion's lane region: 14 blocks and 1/diag D
+enum { TK_P00, TK_P01, TK_P10, TK_P11, TK_PHI, TK_U0, TK_U1, TK_D, TK_CM,
+       TK_W0, TK_X1, TK_X2, TK_X3, TK_X4, TK_BLOCKS };
+constexpr int TK_VECS = 1;
+
 template <typename T>
-__global__ void __launch_bounds__(CGT_THREADS)
+__global__ void __launch_bounds__(co::Tile<T>::THREADS, co::Tile<T>::MIN_BLOCKS)
 rt_takahashi_kernel(const T* __restrict__ ds, const T* __restrict__ invds,
                     const T* __restrict__ cs, const T* __restrict__ w0s,
                     const T* __restrict__ p00_p, const T* __restrict__ p01_p,
@@ -85,57 +99,84 @@ rt_takahashi_kernel(const T* __restrict__ ds, const T* __restrict__ invds,
                     const T* __restrict__ phi_p, const T* __restrict__ u0_p,
                     const T* __restrict__ u1_p, int s, int d, int C,
                     T* diag_out, T* off_out, T* u0f, T* u1f) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  Mat<T> p00, p01, p10, p11, phi, u0, u1;
-  load_m<T>(p00_p, 0, d, C, c, p00);
-  load_m<T>(p01_p, 0, d, C, c, p01);
-  load_m<T>(p10_p, 0, d, C, c, p10);
-  load_m<T>(p11_p, 0, d, C, c, p11);
-  load_m<T>(phi_p, 0, d, C, c, phi);
-  load_m<T>(u0_p, 0, d, C, c, u0);
-  load_m<T>(u1_p, 0, d, C, c, u1);
-  // per step: the factors D and C, and five blocks of scratch whose roles
-  // change as the step goes (named where each is set)
-  Mat<T> D, cm, x1, x2, x3, x4, x5;
-  Vec<T> invd;
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  T* sm = reinterpret_cast<T*>(cgt_smem);
+  const int stride = co::region(d, TK_BLOCKS, TK_VECS);
+  const int bs = d * co::pad_ld(d);
+  const co::Tiles<T> tile(sm, stride, d, C);
+  const co::Warp w(d);
+  const int wl = int(threadIdx.x) >> 5;  // this warp's lane of the tile
+  const bool live = int(blockIdx.x) * co::Tile<T>::LANES + wl < C;
+  T* me = sm + wl * stride;
+  // fixed blocks, then the carried ones and their scratch partners, whose
+  // offsets swap at the end of every step
+  T* const p00 = me + TK_P00 * bs;
+  T* const p01 = me + TK_P01 * bs;
+  T* const p10 = me + TK_P10 * bs;
+  T* const p11 = me + TK_P11 * bs;
+  T* const D = me + TK_D * bs;
+  T* const cm = me + TK_CM * bs;
+  T* const x2 = me + TK_X2 * bs;
+  T* const x4 = me + TK_X4 * bs;
+  const T* const invd = me + TK_BLOCKS * bs;
+  int o_phi = TK_PHI * bs, o_x3 = TK_X3 * bs;  // phi_{j+1} | phi_j
+  int o_u0 = TK_U0 * bs, o_w0 = TK_W0 * bs;    // u0_{j+1} | W0_j -> u0_j
+  int o_u1 = TK_U1 * bs, o_x1 = TK_X1 * bs;    // u1_{j+1} | scratch -> u1_j
+  tile.load_m(p00_p, 0, TK_P00 * bs);
+  tile.load_m(p01_p, 0, TK_P01 * bs);
+  tile.load_m(p10_p, 0, TK_P10 * bs);
+  tile.load_m(p11_p, 0, TK_P11 * bs);
+  tile.load_m(phi_p, 0, o_phi);
+  tile.load_m(u0_p, 0, o_u0);
+  tile.load_m(u1_p, 0, o_u1);
   for (int r = s - 3; r >= 0; --r) {
-    load_m<T>(ds, r, d, C, c, D);
-    load_v<T>(invds, r, d, C, c, invd);
-    load_m<T>(cs, r, d, C, c, cm);
-    for (int i = 0; i < d; ++i)
-      for (int k = 0; k < d; ++k) x1[i][k] = (i == k) ? T(1) : T(0);
-    solve_lower<T>(D, invd, x1, x1, d);  // x1 = di = D^{-1}
-    mm<T>(cm, x1, x2, d);                // x2 = cd = C di
-    mm_ta<T>(x1, x1, x3, d);             // x3 = di^T di
-    mm_ta<T>(x2, phi, x1, d);            // x1 = cd^T phi
-    mm_add<T>(x1, x2, x3, x4, d);        // x3 = phi_j
-    mm<T>(phi, x2, x4, d);
-    for (int i = 0; i < d; ++i)
-      for (int k = 0; k < d; ++k) x4[i][k] = -x4[i][k];  // x4 = phi_off
-    load_m<T>(w0s, r, d, C, c, x1);
-    mm_ta<T>(cm, u0, x2, d);
-    for (int i = 0; i < d; ++i)
-      for (int k = 0; k < d; ++k) x1[i][k] -= x2[i][k];
-    solve_lower_t<T>(D, invd, x1, x1, d);  // x1 = u0_j
-    mm_ta<T>(cm, u1, x2, d);
-    solve_lower_t<T>(D, invd, x2, x2, d);
-    for (int i = 0; i < d; ++i)
-      for (int k = 0; k < d; ++k) x2[i][k] = -x2[i][k];  // x2 = u1_j
-    // a0 into D, a1 into cm (the factors are spent)
-    sig_ut<T>(p00, p01, p10, p11, x1, x2, D, cm, x5, d);
-    copy_<T>(x3, phi, d);  // phi_j carries to the next step
-    mm_add<T>(x1, D, x3, x5, d);
-    mm_add<T>(x2, cm, x3, x5, d);  // x3 = Sigma_jj
-    store_m<T>(diag_out, r, d, C, c, x3);
-    mm_add<T>(u0, D, x4, x5, d);
-    mm_add<T>(u1, cm, x4, x5, d);  // x4 = Sigma_{j+1,j}
-    store_m<T>(off_out, r, d, C, c, x4);
-    copy_<T>(x1, u0, d);
-    copy_<T>(x2, u1, d);
+    tile.load_m(ds, r, TK_D * bs);
+    tile.load_v(invds, r, TK_BLOCKS * bs);
+    tile.load_m(cs, r, TK_CM * bs);
+    tile.load_m(w0s, r, o_w0);
+    __syncthreads();
+    if (live) {
+      T* const phi = me + o_phi;
+      T* const u0 = me + o_u0;
+      T* const u1 = me + o_u1;
+      T* const w0 = me + o_w0;
+      T* const x1 = me + o_x1;
+      T* const x3 = me + o_x3;
+      co::solve_lower<T>(w, D, invd, x1);  // x1 = di = D^{-1}
+      __syncwarp();
+      co::mm<T>(w, cm, x1, x2);            // x2 = cd = C di
+      co::mm_ta<T>(w, x1, x1, x3);         // x3 = di^T di
+      __syncwarp();
+      co::mm_ta<T>(w, x2, phi, x1);        // x1 = cd^T phi
+      co::mm_op<T, false, false, co::NEG>(w, phi, x2, x4);  // x4 = phi_off
+      __syncwarp();
+      co::mm_add<T>(w, x1, x2, x3);        // x3 = phi_j
+      co::mm_op<T, true, false, co::SUB>(w, cm, u0, w0);  // W0 - C^T u0
+      __syncwarp();
+      co::mm_ta<T>(w, cm, u1, x1);         // x1 = C^T u1
+      __syncwarp();
+      co::solve_lower_t<T>(w, D, invd, w0, x1, true);  // w0 = u0_j, x1 = u1_j
+      __syncwarp();
+      // a0 into D, a1 into cm (the factors are spent)
+      co::sig_ut<T>(w, p00, p01, p10, p11, w0, x1, D, cm);
+      __syncwarp();
+      co::mm2_add<T>(w, x3, w0, D, x1, cm, x2);  // x2 = Sigma_jj
+      co::mm2_add<T>(w, x4, u0, D, u1, cm, x4);  // x4 = Sigma_{j+1,j}
+    }
+    // phi_j, u0_j, u1_j carry to the next step
+    const int t_phi = o_phi, t_u0 = o_u0, t_u1 = o_u1;
+    o_phi = o_x3;
+    o_x3 = t_phi;
+    o_u0 = o_w0;
+    o_w0 = t_u0;
+    o_u1 = o_x1;
+    o_x1 = t_u1;
+    __syncthreads();
+    tile.store_m(diag_out, r, TK_X2 * bs);
+    tile.store_m(off_out, r, TK_X4 * bs);
   }
-  store_m<T>(u0f, 0, d, C, c, u0);
-  store_m<T>(u1f, 0, d, C, c, u1);
+  tile.store_m(u0f, 0, o_u0);
+  tile.store_m(u1f, 0, o_u1);
 }
 
 inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
@@ -151,6 +192,12 @@ int launch_inverse_sweep(const T* R_cm, const T* O_cm, T jitter, int s, int d,
   return int(cudaGetLastError());
 }
 
+// dynamic shared bytes of one thread block of rt_takahashi_kernel
+template <typename T>
+size_t takahashi_smem(int d) {
+  return co::smem_bytes<T>(d, TK_BLOCKS, TK_VECS);
+}
+
 template <typename T>
 int launch_takahashi(const T* ds, const T* invds, const T* cs, const T* w0s,
                      const T* p00, const T* p01, const T* p10, const T* p11,
@@ -158,9 +205,13 @@ int launch_takahashi(const T* ds, const T* invds, const T* cs, const T* w0s,
                      int C, T* diag, T* off, T* u0f, T* u1f,
                      cudaStream_t stream) {
   if (!rt_size(d)) return int(cudaErrorInvalidValue);
-  rt_takahashi_kernel<T><<<blocks_for(C), CGT_THREADS, 0, stream>>>(
-      ds, invds, cs, w0s, p00, p01, p10, p11, phi, u0, u1, s, d, C, diag,
-      off, u0f, u1f);
+  const size_t smem = takahashi_smem<T>(d);
+  const cudaError_t err = co::prepare(rt_takahashi_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  rt_takahashi_kernel<T><<<co::grid_for<T>(C), co::Tile<T>::THREADS, smem,
+                           stream>>>(ds, invds, cs, w0s, p00, p01, p10, p11,
+                                     phi, u0, u1, s, d, C, diag, off, u0f,
+                                     u1f);
   return int(cudaGetLastError());
 }
 
@@ -190,5 +241,11 @@ extern "C" {
 CGT_RT_INVERSE(float, f32)
 CGT_RT_INVERSE(double, f64)
 #undef CGT_RT_INVERSE
+
+// dynamic shared bytes per thread block of the recursion at block size d
+int cgt_rt_takahashi_smem_bytes(int d, int f64) {
+  if (!cgt::rt::rt_size(d)) return -1;
+  return int(f64 ? takahashi_smem<double>(d) : takahashi_smem<float>(d));
+}
 
 }  // extern "C"

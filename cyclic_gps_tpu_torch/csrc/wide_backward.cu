@@ -1,11 +1,12 @@
 // The descending pass of the analytic backward on WIDE-layout stacks (block
 // size d = 8 + e, e in 1..7): back-substitution fused with the hat-form
-// Takahashi recursion, one chunk lane per thread.
+// Takahashi recursion.
 //
 // Replaces: cyclic_gps_tpu/ops/pallas_wide.py:1199
 // backward_solve_takahashi_wide_pallas (kernel body
 // _wide_backsolve_takahashi_kernel, :1093), the wide twin of
-// backward_sweep.cu's backward_solve_takahashi_kernel.
+// backward_sweep.cu's backward_solve_takahashi_kernel
+// (pallas_sweep.py:918).
 //
 // Inputs: the stacks of wide_sweep.cu's collect instance (hat_C, hat_W0,
 // pinv as wide pairs [s-1, 8, 8, C] / [s-1, 3e, 8, C], hat_w [s-1, d, C]),
@@ -23,21 +24,49 @@
 // with (a0, a1) = Sigma_BB U^T; row s-2 seeds phi = pinv, u0 = hat_W0,
 // u1 = hat_W1 and carries the W1 term of the solve.
 //
-// What bounds it on the H100: per row it reads 3 d^2 + d values and writes
-// 2 d^2 + d, but each thread runs a dependent chain of ~26 d^3 operations
-// on blocks in local memory, with C = N/s lanes: latency- and
-// occupancy-bound, like wide_sweep.cu.  The design is that of the plain
-// kernel with d a runtime value (rtblock.cuh): one instance per dtype,
-// the rows walked backwards with plain strides, every stack row read or
-// written once.  Spreading a chunk over a warp is later work.
-#include "wideblock.cuh"
+// What bounds it on the H100 (SXM peaks at its 700 W limit: 3.35 TB/s,
+// 67 TFLOP/s float32): per row it reads 3 d^2 + d values and writes
+// 2 d^2 + d (~0.93 ms of bytes at d = 12, N = 1e6, float32), and runs a
+// dependent chain of ~26 d^3 operations per row (~0.67 ms of float32 peak
+// there); on celerite's boundary chain (C = 245 lanes of 31 rows) the
+// bound is microseconds and the walk's latency is all there is.
+//
+// Design: one warp per chunk lane on rtcoop.cuh.  The lane's 14 blocks
+// (the seven carried ones p00..p11, phi, u0, u1, the row's hat_C, hat_W0,
+// pinv and four of scratch) and five vectors sit in shared memory; every
+// product is spread over the warp, and the thread block's 8 (float32) or
+// 4 (float64) lanes unpack their rows from the wide pairs as whole 32-byte
+// spans and pack them back the same way, zeroing the A22 strip's padding
+// columns.  Only the rows the recursion uses are read (hat_C from row
+// s-3 down).
+#include "rtcoop.cuh"
 
 namespace {
 
-using namespace cgt::wide;
+namespace co = cgt::coop;
+
+// the lane region: 14 blocks and 5 vectors
+enum { WB_P00, WB_P01, WB_P10, WB_P11, WB_PHI, WB_U0, WB_U1, WB_HC, WB_HW0,
+       WB_PINV, WB_U1N, WB_A0, WB_A1, WB_OF, WB_BLOCKS };
+enum { WB_XB, WB_XA, WB_XN, WB_HW, WB_XBN, WB_VECS };
+
+// xn = (hw - hw0 xb) - m x, one element per thread
+template <typename T>
+__device__ __forceinline__ void back_row(const co::Warp& w, const T* hw,
+                                         const T* hw0, const T* xb,
+                                         const T* m, const T* x, T* xn) {
+  const int i = w.lane, d = w.d, ld = w.ld;
+  if (i >= d) return;
+  T a = hw0[i * ld] * xb[0];
+  for (int p = 1; p < d; ++p) a += hw0[i * ld + p] * xb[p];
+  const T common = hw[i] - a;
+  T b = m[i * ld] * x[0];
+  for (int p = 1; p < d; ++p) b += m[i * ld + p] * x[p];
+  xn[i] = common - b;
+}
 
 template <typename T>
-__global__ void __launch_bounds__(CGT_THREADS)
+__global__ void __launch_bounds__(co::Tile<T>::THREADS, co::Tile<T>::MIN_BLOCKS)
 wide_backward_kernel(
     const T* __restrict__ hc11, const T* __restrict__ hcst,
     const T* __restrict__ hw011, const T* __restrict__ hw0st,
@@ -50,72 +79,101 @@ wide_backward_kernel(
     const T* __restrict__ p10_st, const T* __restrict__ p11_11,
     const T* __restrict__ p11_st, int s, int e, int C, T* x_out, T* dg11,
     T* dgst, T* of11, T* ofst, T* u0f11, T* u0fst, T* u1f11, T* u1fst) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  T* sm = reinterpret_cast<T*>(cgt_smem);
   const int d = 8 + e;
-  Mat<T> p00, p01, p10, p11, phi, u0, u1;
-  load_w<T>(p00_11, p00_st, 0, e, C, c, p00);
-  load_w<T>(p01_11, p01_st, 0, e, C, c, p01);
-  load_w<T>(p10_11, p10_st, 0, e, C, c, p10);
-  load_w<T>(p11_11, p11_st, 0, e, C, c, p11);
-  Vec<T> xb, x, common, tv;
-  load_v<T>(xb_p, 0, d, C, c, xb);
-  // per row: hc, hw0 (becomes u0_j), pinv (becomes phi_j), u1n = u1_j
-  Mat<T> hc, hw0, pinv, u1n, a0, a1, dg, of, t;
+  const int stride = co::region(d, WB_BLOCKS, WB_VECS);
+  const int bs = d * co::pad_ld(d);
+  const int vb = WB_BLOCKS * bs;  // the vectors follow the blocks
+  const co::Tiles<T> tile(sm, stride, d, C);
+  const co::Warp w(d);
+  const int wl = int(threadIdx.x) >> 5;  // this warp's lane of the tile
+  const bool live = int(blockIdx.x) * co::Tile<T>::LANES + wl < C;
+  T* me = sm + wl * stride;
+  T* const p00 = me + WB_P00 * bs;
+  T* const p01 = me + WB_P01 * bs;
+  T* const p10 = me + WB_P10 * bs;
+  T* const p11 = me + WB_P11 * bs;
+  T* const hc = me + WB_HC * bs;  // hat_C, then Sigma_jj
+  T* const a0 = me + WB_A0 * bs;
+  T* const a1 = me + WB_A1 * bs;
+  T* const of = me + WB_OF * bs;
+  const T* const xb = me + vb + WB_XB * d;
+  const T* const hwv = me + vb + WB_HW * d;
+  const T* const xbn = me + vb + WB_XBN * d;
+  // carried blocks and their partners, swapped at the end of every step
+  int o_phi = WB_PHI * bs, o_pinv = WB_PINV * bs;  // phi_{j+1} | pinv -> phi_j
+  int o_u0 = WB_U0 * bs, o_hw0 = WB_HW0 * bs;      // u0_{j+1} | hat_W0 -> u0_j
+  int o_u1 = WB_U1 * bs, o_u1n = WB_U1N * bs;      // u1_{j+1} | u1_j
+  int o_x = vb + WB_XA * d, o_xn = vb + WB_XN * d;  // x_{j+1} | x_j
+  tile.load_w(p00_11, p00_st, 0, WB_P00 * bs);
+  tile.load_w(p01_11, p01_st, 0, WB_P01 * bs);
+  tile.load_w(p10_11, p10_st, 0, WB_P10 * bs);
+  tile.load_w(p11_11, p11_st, 0, WB_P11 * bs);
+  tile.load_v(xb_p, 0, vb + WB_XB * d);
   for (int r = s - 2; r >= 0; --r) {
-    load_w<T>(hc11, hcst, r, e, C, c, hc);
-    load_w<T>(hw011, hw0st, r, e, C, c, hw0);
-    load_w<T>(pinv11, pinvst, r, e, C, c, pinv);
-    load_v<T>(hw, r, d, C, c, common);
-    mv_op<T, false>(hw0, xb, tv, d);
-    for (int i = 0; i < d; ++i) common[i] -= tv[i];
-    if (r == s - 2) {
-      Vec<T> xbn;
-      load_w<T>(hw1_11, hw1_st, 0, e, C, c, u1);
-      load_v<T>(xbn_p, 0, d, C, c, xbn);
-      mv_op<T, false>(u1, xbn, tv, d);
-      for (int i = 0; i < d; ++i) x[i] = common[i] - tv[i];
-      copy_<T>(pinv, phi, d);
-      copy_<T>(hw0, u0, d);
-      sig_ut<T>(p00, p01, p10, p11, u0, u1, a0, a1, t, d);
-      copy_<T>(phi, dg, d);
-      mm_add<T>(u0, a0, dg, t, d);
-      mm_add<T>(u1, a1, dg, t, d);
-      for (int i = 0; i < d; ++i)
-        for (int k = 0; k < d; ++k) of[i][k] = -a1[i][k];
-    } else {
-      mv_op<T, false>(hc, x, tv, d);
-      for (int i = 0; i < d; ++i) x[i] = common[i] - tv[i];
-      // phi_off (into of), phi_j (into pinv), u0_j (into hw0), u1_j
-      mm_tb<T>(phi, hc, of, d);
-      for (int i = 0; i < d; ++i)
-        for (int k = 0; k < d; ++k) of[i][k] = -of[i][k];
-      mm<T>(hc, phi, a0, d);
-      mm_tb<T>(a0, hc, t, d);
-      for (int i = 0; i < d; ++i)
-        for (int k = 0; k < d; ++k) pinv[i][k] += t[i][k];
-      mm<T>(hc, u0, t, d);
-      for (int i = 0; i < d; ++i)
-        for (int k = 0; k < d; ++k) hw0[i][k] -= t[i][k];
-      mm<T>(hc, u1, u1n, d);
-      for (int i = 0; i < d; ++i)
-        for (int k = 0; k < d; ++k) u1n[i][k] = -u1n[i][k];
-      sig_ut<T>(p00, p01, p10, p11, hw0, u1n, a0, a1, t, d);
-      copy_<T>(pinv, dg, d);
-      mm_add<T>(hw0, a0, dg, t, d);
-      mm_add<T>(u1n, a1, dg, t, d);
-      mm_add<T>(u0, a0, of, t, d);
-      mm_add<T>(u1, a1, of, t, d);
-      copy_<T>(pinv, phi, d);
-      copy_<T>(hw0, u0, d);
-      copy_<T>(u1n, u1, d);
+    const bool first = r == s - 2;
+    if (!first) tile.load_w(hc11, hcst, r, WB_HC * bs);
+    tile.load_w(hw011, hw0st, r, o_hw0);
+    tile.load_w(pinv11, pinvst, r, o_pinv);
+    tile.load_v(hw, r, vb + WB_HW * d);
+    if (first) {
+      tile.load_w(hw1_11, hw1_st, 0, o_u1n);  // u1_{s-1} = hat_W1
+      tile.load_v(xbn_p, 0, vb + WB_XBN * d);
     }
-    store_v<T>(x_out, r, d, C, c, x);
-    store_w<T>(dg11, dgst, r, e, C, c, dg);
-    store_w<T>(of11, ofst, r, e, C, c, of);
+    __syncthreads();
+    if (live) {
+      T* const phi = me + o_phi;
+      T* const pinv = me + o_pinv;
+      T* const u0 = me + o_u0;
+      T* const hw0 = me + o_hw0;
+      T* const u1 = me + o_u1;
+      T* const u1n = me + o_u1n;
+      if (first) {
+        back_row<T>(w, hwv, hw0, xb, u1n, xbn, me + o_xn);
+        co::sig_ut<T>(w, p00, p01, p10, p11, hw0, u1n, a0, a1);
+        __syncwarp();
+        co::mm2_add<T>(w, pinv, hw0, a0, u1n, a1, hc);  // Sigma_jj
+        co::neg<T>(w, a1, of);                           // Sigma_{j+1,j}
+      } else {
+        back_row<T>(w, hwv, hw0, xb, hc, me + o_x, me + o_xn);
+        co::mm_op<T, false, true, co::NEG>(w, phi, hc, of);  // phi_off
+        co::mm<T>(w, hc, phi, a0);                            // hat_C phi
+        co::mm_op<T, false, false, co::NEG>(w, hc, u1, u1n);  // u1_j
+        __syncwarp();
+        co::mm_op<T, false, true, co::ADD>(w, a0, hc, pinv);  // phi_j
+        co::mm_op<T, false, false, co::SUB>(w, hc, u0, hw0);  // u0_j
+        __syncwarp();
+        co::sig_ut<T>(w, p00, p01, p10, p11, hw0, u1n, a0, a1);
+        __syncwarp();
+        co::mm2_add<T>(w, pinv, hw0, a0, u1n, a1, hc);  // Sigma_jj
+        co::mm2_add<T>(w, of, u0, a0, u1, a1, of);      // Sigma_{j+1,j}
+      }
+    }
+    // phi_j, u0_j, u1_j and x_j carry to the next step
+    const int t_phi = o_phi, t_u0 = o_u0, t_u1 = o_u1, t_x = o_x;
+    o_phi = o_pinv;
+    o_pinv = t_phi;
+    o_u0 = o_hw0;
+    o_hw0 = t_u0;
+    o_u1 = o_u1n;
+    o_u1n = t_u1;
+    o_x = o_xn;
+    o_xn = t_x;
+    __syncthreads();
+    tile.store_v(x_out, r, o_x);
+    tile.store_w(dg11, dgst, r, WB_HC * bs);
+    tile.store_w(of11, ofst, r, WB_OF * bs);
+    __syncthreads();  // the next step's load overwrites hat_C's block
   }
-  store_w<T>(u0f11, u0fst, 0, e, C, c, u0);
-  store_w<T>(u1f11, u1fst, 0, e, C, c, u1);
+  tile.store_w(u0f11, u0fst, 0, o_u0);
+  tile.store_w(u1f11, u1fst, 0, o_u1);
+}
+
+// dynamic shared bytes of one thread block at block size 8 + e
+template <typename T>
+size_t wide_backward_smem(int e) {
+  return co::smem_bytes<T>(8 + e, WB_BLOCKS, WB_VECS);
 }
 
 template <typename T>
@@ -128,9 +186,12 @@ int launch_wide_backward(const T* hc11, const T* hcst, const T* hw011,
                          const T* p11_st, int s, int e, int C, T* x, T* dg11,
                          T* dgst, T* of11, T* ofst, T* u0f11, T* u0fst,
                          T* u1f11, T* u1fst, cudaStream_t stream) {
-  if (e < 1 || e > WMAX - 8) return int(cudaErrorInvalidValue);
-  const int blocks = (C + CGT_THREADS - 1) / CGT_THREADS;
-  wide_backward_kernel<T><<<blocks, CGT_THREADS, 0, stream>>>(
+  if (e < 1 || e > cgt::rt::WMAX - 8) return int(cudaErrorInvalidValue);
+  const size_t smem = wide_backward_smem<T>(e);
+  const cudaError_t err = co::prepare(wide_backward_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  wide_backward_kernel<T><<<co::grid_for<T>(C), co::Tile<T>::THREADS, smem,
+                            stream>>>(
       hc11, hcst, hw011, hw0st, hw, pinv11, pinvst, hw1_11, hw1_st, xb, xbn,
       p00_11, p00_st, p01_11, p01_st, p10_11, p10_st, p11_11, p11_st, s, e,
       C, x, dg11, dgst, of11, ofst, u0f11, u0fst, u1f11, u1fst);
@@ -160,5 +221,11 @@ extern "C" {
 CGT_WIDE_BACKWARD(float, f32)
 CGT_WIDE_BACKWARD(double, f64)
 #undef CGT_WIDE_BACKWARD
+
+// dynamic shared bytes per thread block at block size 8 + e
+int cgt_wide_backward_smem_bytes(int e, int f64) {
+  if (e < 1 || e > cgt::rt::WMAX - 8) return -1;
+  return int(f64 ? wide_backward_smem<double>(e) : wide_backward_smem<float>(e));
+}
 
 }  // extern "C"

@@ -34,11 +34,15 @@ _SOURCES = ("forward_sweep.cu", "gap_emission.cu", "backward_sweep.cu",
             "celerite_sweep.cu", "celerite_filter.cu",
             "celerite_adjoint.cu", "wide_sweep.cu", "wide_backward.cu",
             "rt_solve.cu", "rt_inverse.cu")
-_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtblock.cuh", "wideblock.cuh")
+_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtblock.cuh", "rtcoop.cuh",
+            "wideblock.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-THREADS = 128  # threads per block of every kernel (CGT_THREADS)
+# threads per block of the thread-per-lane kernels (CGT_THREADS); the two
+# warp-per-lane walks (csrc/rtcoop.cuh) take 32 per chunk lane, 8 lanes a
+# block at float32 and 4 at float64
+THREADS = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -90,6 +94,11 @@ _SIGNATURES.update({
          [_P] * 5 + [real, _I, _I, _I] + [_P] * 18 + [_P]),
         ("cgt_wide_backward", [_P] * 19 + [_I, _I, _I] + [_P] * 9 + [_P]))
 })
+# the dynamic shared bytes per thread block of the two warp-per-lane walks
+# (rt_inverse.cu's recursion at block size d, wide_backward.cu's at 8 + e;
+# the second argument 1 for float64)
+_SIGNATURES.update({name: [_I, _I] for name in (
+    "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes")})
 # the runtime-d kernels of the solve and the selected inversion (d = 9..15)
 # take the arguments of their rank-templated counterparts
 for _base in ("forward_sweep_collect", "backward_substitute",
