@@ -11,9 +11,10 @@ Phases, one line of output each (or more):
               compiler's registers / stack / spills at rank 5, of the
               celerite kernels at nblocks 2 and 8, of kernels 1, 6
               and 7 at rank 16, and of the wide and runtime-d kernels;
-              the dynamic shared bytes per block of the two warp-per-lane
-              walks (20', 22) at d = 9, 12 and 15, float32 and float64
-              (and a failure if either walk uses local memory).
+              the dynamic shared bytes per block of the four warp-per-lane
+              kernels (the walks 20' and 22, the sweeps 17' and 21) at
+              d = 9, 12 and 15, float32 and float64 (and a failure if any
+              of them uses local memory).
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -66,9 +67,10 @@ Phases, one line of output each (or more):
               with the launch counts of kernels 13-16, 21 and 22, one
               profiled step; nblocks 5 and 7 at N = 1e5: the wide kernels
               on their chain's inputs (d = 10 and 14), value and gradient
-              against "torch"; kernel 22 against its twin at its edge
-              shapes (s = 3; C = 1 and 9; d = 9 and 15; float32 and
-              float64) on the inputs one solve_and_inverse_cm hands it.
+              against "torch"; kernels 22 and 21 against their twins at
+              their edge shapes (s = 3; C = 1 and 9; d = 9 and 15; float32
+              and float64) on the inputs one solve_and_inverse_cm hands
+              them.
  10. solve-rt block sizes 9-15 of the natural solve and selected inversion
               (kernels 17-20: the runtime-d instances behind the wrappers
               of kernels 8-11; 21 and 22 in the solve's backward): the
@@ -78,9 +80,10 @@ Phases, one line of output each (or more):
               float64, d = 12, N = 1e5; at N = 1e6, d = 12 the value,
               the gradient of sum(x w) + 0.7 ld and inverse_blocks with
               backend="auto" against "torch", with the launch counts of
-              one call each; kernel 20' against its twin at its edge
-              shapes (s = 3; C = 1 and 9; d = 9 and 15; float32 and
-              float64) on the inputs one inverse_blocks_cm hands it.
+              one call each; kernels 20' and 17' against their twins at
+              their edge shapes (s = 3; C = 1 and 9; d = 9 and 15; float32
+              and float64) on the inputs one inverse_blocks_cm (20') or
+              solve_cm (17') call hands them.
  11. a JSON line of the kernels, then the final JSON status line.
 
 Any failure exits non-zero before the final line.  There is no CPU path:
@@ -442,67 +445,80 @@ def rel_inf(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-# the two Takahashi walks, one warp per chunk lane (csrc/rtcoop.cuh):
-# kernel 20' and kernel 22
-WALKS = ("rt_takahashi_kernel", "wide_backward_kernel")
-WALK_DS = (9, 12, 15)  # block sizes of their shared-memory report
-WALK_EDGES = ((9, 1), (9, 9), (15, 1), (15, 9))  # (d, C) at s = 3
+# the kernels that run one warp per chunk lane (csrc/rtcoop.cuh): the two
+# Takahashi walks, kernels 20' and 22, and the two collecting sweeps,
+# kernels 17' and 21
+WARP_KERNELS = ("rt_takahashi_kernel", "wide_backward_kernel",
+                "rt_collect_kernel", "wide_solveinv_kernel")
+WARP_DS = (9, 12, 15)  # block sizes of their shared-memory report
+EDGES = ((9, 1), (9, 9), (15, 1), (15, 9))  # (d, C) at s = 3
+# each kernel's edge check: (module, wrapper, source, line of the TPU
+# kernel in pallas_wide.py, the entry whose top level hands it its inputs,
+# what s = 3 gives it)
+EDGE_KERNELS = {
+    "takahashi_backward_rt": (
+        "sweep_cuda", "takahashi_backward_cuda", "rt_inverse.cu", 812,
+        "inverse_blocks_cm", "one recursion row"),
+    "backward_solve_takahashi_wide": (
+        "wide_cuda", "backward_solve_takahashi_wide_cuda", "wide_backward.cu",
+        1199, "solve_and_inverse_cm",
+        "two rows of the back-substitution and the walk"),
+    "forward_sweep_collect_rt": (
+        "sweep_cuda", "forward_sweep_collect_cuda", "rt_solve.cu", 366,
+        "solve_cm", "two elimination rows, the first and one that carries"),
+    "forward_sweep_solveinv_wide": (
+        "wide_cuda", "forward_sweep_solveinv_wide_cuda", "wide_sweep.cu", 998,
+        "solve_and_inverse_cm",
+        "two elimination rows, the first and one that carries"),
+}
 
 
-def run_walk_edges(dev, phase, captured, capture, check_kernel, pt, kernel):
-    """Kernel 20' ("takahashi_backward_rt", in [solve-rt]) or 22
-    ("backward_solve_takahashi_wide", in [wide]) against its twin at the
-    walks' edge shapes: s = 3, the shortest chunk they take (one recursion
-    row for 20', two rows for 22); C = 1, a lone lane, and C = 9, a ragged
-    second tile of 8 (float32) or 4 (float64) lanes; d = 9 and 15; float32
-    and float64; on the inputs one inverse_blocks_cm (20') or
-    solve_and_inverse_cm (22) call hands it."""
+def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels):
+    """Each of ``kernels`` (keys of EDGE_KERNELS: 20' and 17' in
+    [solve-rt], 22 and 21 in [wide]) against its twin at the edge shapes
+    of the warp-per-lane kernels: s = 3, shorter than any chunk the engine
+    hands them (32 or 128); C = 1, a lone lane, and C = 9, a ragged second
+    tile of 8 (float32) or 4 (float64) lanes; d = 9 and 15; float32 and
+    float64; on the inputs the top level of one call of the kernel's
+    entry (inverse_blocks_cm, solve_and_inverse_cm or solve_cm) hands it,
+    under no_grad."""
     from cyclic_gps_tpu_torch.ops import sweep_cuda, wide_cuda
 
-    if kernel == "takahashi_backward_rt":
-        module, attr, src, line = (sweep_cuda, "takahashi_backward_cuda",
-                                   "rt_inverse.cu", 812)
-        twin = sweep_cuda.takahashi_backward_plain
-        why = "one recursion row"
-
-        def run(R_cm, O_cm, y_cm):
-            return pt.inverse_blocks_cm(R_cm, O_cm)
-    else:
-        module, attr, src, line = (wide_cuda,
-                                   "backward_solve_takahashi_wide_cuda",
-                                   "wide_backward.cu", 1199)
-        twin = wide_cuda.backward_solve_takahashi_wide_plain
-        why = "two rows of the back-substitution and the walk"
-
-        def run(R_cm, O_cm, y_cm):
-            return pt.solve_and_inverse_cm(R_cm, O_cm, y_cm)
-
-    for d, c in WALK_EDGES:
-        n = 3 * c
-        system = nat_system(n + 1, d, dev, seed=60 + d + c)
-        for dtype, (rtol, atol) in ((torch.float32, (1e-3, 1e-4)),
-                                    (torch.float64, (1e-9, 1e-10))):
-            diag, off, y = (t.to(dtype) for t in system)
-            R_cm, O_cm, y_cm, _ = pt._chunk_layout(diag[:n], off[:n - 1],
-                                                   y[:n], 3)
-            captured.clear()
-            orig = capture(module, attr)
-            try:
-                with torch.no_grad():
-                    run(R_cm, O_cm, y_cm)
-                torch.cuda.synchronize()
-            finally:
-                setattr(module, attr, orig)
-            args_k, kw_k = captured[attr]
-            check_kernel(
-                kernel, f"cyclic_gps_tpu_torch/csrc/{src}",
-                f"cyclic_gps_tpu/ops/pallas_wide.py:{line}",
-                getattr(module, attr), twin, args_k, rtol, atol,
-                f"edge: d = {d}, s = 3, C = {c}, {dtype}; {why}; atol "
-                f"{atol:g} of each output's scale",
-                kw=kw_k, atol_of_scale=True, record=False, phase=phase,
-                reps=1)
-            captured.clear()
+    modules = {"sweep_cuda": sweep_cuda, "wide_cuda": wide_cuda}
+    for kernel in kernels:
+        mod_name, attr, src, line, entry, why = EDGE_KERNELS[kernel]
+        module = modules[mod_name]
+        twin = getattr(module, attr.replace("_cuda", "_plain"))
+        run = getattr(pt, entry)
+        for d, c in EDGES:
+            n = 3 * c
+            system = nat_system(n + 1, d, dev, seed=60 + d + c)
+            for dtype, (rtol, atol) in ((torch.float32, (1e-3, 1e-4)),
+                                        (torch.float64, (1e-9, 1e-10))):
+                diag, off, y = (t.to(dtype) for t in system)
+                R_cm, O_cm, y_cm, _ = pt._chunk_layout(
+                    diag[:n], off[:n - 1], y[:n], 3)
+                captured.clear()
+                orig = capture(module, attr)
+                try:
+                    with torch.no_grad():
+                        if entry == "inverse_blocks_cm":
+                            run(R_cm, O_cm)
+                        else:
+                            run(R_cm, O_cm, y_cm)
+                    torch.cuda.synchronize()
+                finally:
+                    setattr(module, attr, orig)
+                args_k, kw_k = captured[attr]
+                check_kernel(
+                    kernel, f"cyclic_gps_tpu_torch/csrc/{src}",
+                    f"cyclic_gps_tpu/ops/pallas_wide.py:{line}",
+                    getattr(module, attr), twin, args_k, rtol, atol,
+                    f"edge: d = {d}, s = 3, C = {c}, {dtype}; {why}; atol "
+                    f"{atol:g} of each output's scale",
+                    kw=kw_k, atol_of_scale=True, record=False, phase=phase,
+                    reps=1)
+                captured.clear()
 
 
 WIDE_DS = (9, 12, 15)  # the wide block sizes checked; 12 is recorded
@@ -733,9 +749,9 @@ def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
                                  .manual_seed(nb), device=dev)
         cel_check(f"nblocks {nb}, N {N_WIDE_SMALL}", p, ts_s, xs_s, 1)
 
-    # kernel 22 at its edge shapes
-    run_walk_edges(dev, "wide", captured, capture, check_kernel, pt,
-                   "backward_solve_takahashi_wide")
+    # kernels 22 and 21 at their edge shapes
+    run_edges(dev, "wide", captured, capture, check_kernel, pt,
+              ("backward_solve_takahashi_wide", "forward_sweep_solveinv_wide"))
 
 
 SOLVE_RT_DS = (9, 12, 15)  # the runtime-d block sizes checked; 12 recorded
@@ -908,9 +924,9 @@ def run_solve_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
                     bars=(1e-9, 1e-10))
     del system
     torch.cuda.empty_cache()
-    # kernel 20' at its edge shapes
-    run_walk_edges(dev, "solve-rt", captured, capture, check_kernel, pt,
-                   "takahashi_backward_rt")
+    # kernels 20' and 17' at their edge shapes
+    run_edges(dev, "solve-rt", captured, capture, check_kernel, pt,
+              ("takahashi_backward_rt", "forward_sweep_collect_rt"))
     say(f"[solve-rt] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -988,21 +1004,26 @@ def main():
                 continue
             say(f"[build] {base.group(1)}<{base.group(2)}>: registers "
                 f"{regs}, stack {stack} B, spill stores {spill} B")
-            if base.group(1) in WALKS and (stack >= 1024 or spill > 0):
+            if base.group(1) in WARP_KERNELS and (stack >= 1024
+                                                  or spill > 0):
                 fail(f"{base.group(1)}<{base.group(2)}> runs from local "
                      f"memory (stack {stack} B, spill stores {spill} B)")
-    # the two warp-per-lane walks: dynamic shared memory per thread block
+    # the warp-per-lane kernels: dynamic shared memory per thread block
     lib = _build.load()
     for kname, query, of_d in (
             ("rt_takahashi_kernel", lib.cgt_rt_takahashi_smem_bytes,
              lambda d: d),
             ("wide_backward_kernel", lib.cgt_wide_backward_smem_bytes,
+             lambda d: d - 8),
+            ("rt_collect_kernel", lib.cgt_rt_collect_smem_bytes,
+             lambda d: d),
+            ("wide_solveinv_kernel", lib.cgt_wide_solveinv_smem_bytes,
              lambda d: d - 8)):
         say(f"[build] {kname}: one warp per chunk lane, 8 lanes (256 "
             "threads) per block at float32, 4 (128) at float64; dynamic "
             "shared bytes per block (float32 / float64) "
             + ", ".join(f"d {d}: {query(of_d(d), 0)} / {query(of_d(d), 1)}"
-                        for d in WALK_DS))
+                        for d in WARP_DS))
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)

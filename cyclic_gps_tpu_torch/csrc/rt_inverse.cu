@@ -155,7 +155,10 @@ rt_takahashi_kernel(const T* __restrict__ ds, const T* __restrict__ invds,
       __syncwarp();
       co::mm_ta<T>(w, cm, u1, x1);         // x1 = C^T u1
       __syncwarp();
-      co::solve_lower_t<T>(w, D, invd, w0, x1, true);  // w0 = u0_j, x1 = u1_j
+      // w0 = u0_j = D^{-T} w0, x1 = u1_j = -D^{-T} x1
+      co::solve_pair<T, false>(w, D, invd,
+                               co::Rhs<T>{w0, w0, false, false, false},
+                               co::Rhs<T>{x1, x1, false, false, true});
       __syncwarp();
       // a0 into D, a1 into cm (the factors are spent)
       co::sig_ut<T>(w, p00, p01, p10, p11, w0, x1, D, cm);

@@ -27,57 +27,94 @@
 //   x_{s-1} = hat_w - hat_W0 x_b - hat_W1 x_{b,next}
 //   x_j     = hat_w - hat_W0 x_b - hat_C x_{j+1}
 //
-// What bounds them on the H100: per row the sweep reads 2 d^2 + d values
-// and writes 2 d^2 + d + 1, the back-substitution reads 2 d^2 + d and
-// writes d (~2.4 GB and ~1.2 GB at d = 12, N = 1e6, float32: byte bounds
-// of ~0.72 and ~0.37 ms).  One thread per chunk lane walks the lane's s-1
-// rows in order, each row of the sweep a dependent chain of ~10 d^3
-// operations on blocks in local memory (rtblock.cuh: d is a runtime value,
-// so one instance per dtype serves d = 9..15), with C = N/s lanes (7,813 at
-// N = 1e6, s = 128): latency- and occupancy-bound, far from both bounds.
-// A warp per chunk, or blocks in shared memory, is later work.
+// What bounds them on the H100 (SXM peaks at its 700 W limit: 3.35 TB/s,
+// 67 TFLOP/s float32): per row the sweep reads 2 d^2 + d values and writes
+// 2 d^2 + d + 1, the back-substitution reads 2 d^2 + d and writes d
+// (~2.4 GB and ~1.2 GB at d = 12, N = 1e6, float32: byte bounds of ~0.72
+// and ~0.37 ms).  A sweep row is a dependent chain of ~10 d^3 operations
+// that starts with a Cholesky of the pivot block, with C = N/s lanes
+// (7,813 at N = 1e6, s = 128): how fast one lane walks its rows bounds it.
+//
+// The sweep runs one warp per chunk lane on rtcoop.cuh (its Sweep step):
+// the lane's 7 blocks (the pivot and its factor, O_j and C_{j-1}, W0 and
+// its scratch partner, acc, hat_C) and 6 vectors in shared memory, the
+// Cholesky's trailing updates, the products and the triangular solves
+// spread over the warp (the elimination's two forward solves and w's in
+// one pass, the three hats in one back-substitution pass), and the 8
+// (float32) or 4 (float64) lanes of a thread block loading and storing
+// their rows as whole 32-byte spans.  The back-substitution, a chain of
+// two d x d matrix-vector products per row, keeps the first port's
+// design: one thread per chunk lane, its blocks in local memory
+// (rtblock.cuh; d is a runtime value, so one instance per dtype serves
+// d = 9..15).
 #include "rtblock.cuh"
+#include "rtcoop.cuh"
 
 namespace {
 
 using namespace cgt::rt;
+namespace co = cgt::coop;
+
+// the sweep's lane region: the elimination's blocks and vectors, then
+// hat_C and hat_w
+enum { CL_HC = co::SW_BLOCKS, CL_BLOCKS };
+enum { CL_HW = co::SW_VECS, CL_VECS };
 
 template <typename T>
-__global__ void __launch_bounds__(CGT_THREADS)
+__global__ void __launch_bounds__(co::Tile<T>::THREADS, co::Tile<T>::MIN_BLOCKS)
 rt_collect_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
                   const T* __restrict__ ym, T jitter, int s, int d, int C,
                   T* acc00, T* accy0, T* w0l, T* wl, T* dl, T* invdl, T* mh,
                   T* ld, T* hc, T* hw0, T* hw, T* ld_rows) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  Carry<T> st;
-  Mat<T> o_left, P, o_j, t;
-  Vec<T> y_j;
-  load_m<T>(Om, 0, d, C, c, o_left);
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  T* sm = reinterpret_cast<T*>(cgt_smem);
+  const int stride = co::region(d, CL_BLOCKS, CL_VECS);
+  const co::Tiles<T> tile(sm, stride, d, C);
+  const co::Warp w(d);
+  const co::Tri tri(w);
+  const int tl = int(threadIdx.x) >> 5;  // this warp's lane of the tile
+  const bool live = int(blockIdx.x) * co::Tile<T>::LANES + tl < C;
+  co::Sweep<T> sw(sm + tl * stride, d, CL_BLOCKS);
+  const int o_hc = sw.block(CL_HC), o_hw = sw.vec(CL_HW);
+  const int o_sc = sw.vec(co::SW_SC);
+  tile.load_m(Om, 0, sw.w0);  // o_left
   for (int j = 1; j < s; ++j) {
-    load_m<T>(Rm, j, d, C, c, P);
-    for (int i = 0; i < d; ++i) P[i][i] += jitter;
-    load_m<T>(Om, j, d, C, c, o_j);
-    load_v<T>(ym, j, d, C, c, y_j);
-    const T ldl = elim_step<T>(j == 1, P, o_j, y_j, o_left, st, t, d);
-    ld_rows[size_t(j - 1) * C + c] = T(2) * ldl;
-    // P and t are scratch from here on
-    transpose<T>(st.cprev, P, d);
-    solve_lower_t<T>(st.D, st.invd, P, t, d);
-    store_m<T>(hc, j - 1, d, C, c, t);
-    solve_lower_t<T>(st.D, st.invd, st.w0, t, d);
-    store_m<T>(hw0, j - 1, d, C, c, t);
-    solve_lower_t_vec<T>(st.D, st.invd, st.w, y_j, d);
-    store_v<T>(hw, j - 1, d, C, c, y_j);
+    tile.load_m(Rm, j, sw.p);
+    tile.load_m(Om, j, sw.o);
+    tile.load_v(ym, j, sw.y);
+    __syncthreads();
+    T ldl = T(0);
+    if (live) ldl = sw.step(w, tri, j == 1, jitter);
+    sw.advance(j == 1);
+    if (live) {
+      // hat_C = D^{-T} C^T, hat_W0 = D^{-T} W0 (into the free X) and
+      // hat_w = D^{-T} w in one back-substitution pass
+      co::solve_pair<T, false>(
+          w, sw.at(sw.p), sw.at(sw.vec(co::SW_INVD)),
+          co::Rhs<T>{sw.at(sw.cp), sw.at(o_hc), true, false, false},
+          co::Rhs<T>{sw.at(sw.w0), sw.at(sw.x), false, false, false},
+          sw.at(sw.wv), sw.at(o_hw));
+      if (w.lane == 0) sw.at(o_sc)[0] = T(2) * ldl;
+    }
+    __syncthreads();
+    tile.store_m(hc, j - 1, o_hc);
+    tile.store_m(hw0, j - 1, sw.x);
+    tile.store_v(hw, j - 1, o_hw);
+    tile.store_s(ld_rows, j - 1, o_sc);
   }
-  store_m<T>(acc00, 0, d, C, c, st.acc);
-  store_v<T>(accy0, 0, d, C, c, st.accy0);
-  store_m<T>(w0l, 0, d, C, c, st.w0);
-  store_v<T>(wl, 0, d, C, c, st.w);
-  store_m<T>(dl, 0, d, C, c, st.D);
-  store_v<T>(invdl, 0, d, C, c, st.invd);
-  mh[c] = st.mh;
-  ld[c] = st.ld;
+  if (live && w.lane == 0) {
+    sw.at(o_sc)[1] = sw.mh;
+    sw.at(o_sc)[2] = sw.ld;
+  }
+  __syncthreads();
+  tile.store_m(acc00, 0, sw.block(co::SW_ACC));
+  tile.store_v(accy0, 0, sw.vec(co::SW_ACCY0));
+  tile.store_m(w0l, 0, sw.w0);
+  tile.store_v(wl, 0, sw.wv);
+  tile.store_m(dl, 0, sw.p);
+  tile.store_v(invdl, 0, sw.vec(co::SW_INVD));
+  tile.store_s(mh, 0, o_sc + 1);
+  tile.store_s(ld, 0, o_sc + 2);
 }
 
 template <typename T>
@@ -110,15 +147,25 @@ rt_backsub_kernel(const T* __restrict__ hc, const T* __restrict__ hw0,
 
 inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
 
+// dynamic shared bytes of one thread block of rt_collect_kernel
+template <typename T>
+size_t collect_smem(int d) {
+  return co::smem_bytes<T>(d, CL_BLOCKS, CL_VECS);
+}
+
 template <typename T>
 int launch_collect(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
                    int s, int d, int C, T* acc00, T* accy0, T* w0l, T* wl,
                    T* dl, T* invdl, T* mh, T* ld, T* hc, T* hw0, T* hw,
                    T* ld_rows, cudaStream_t stream) {
   if (!rt_size(d)) return int(cudaErrorInvalidValue);
-  rt_collect_kernel<T><<<blocks_for(C), CGT_THREADS, 0, stream>>>(
-      R_cm, O_cm, y_cm, jitter, s, d, C, acc00, accy0, w0l, wl, dl, invdl,
-      mh, ld, hc, hw0, hw, ld_rows);
+  const size_t smem = collect_smem<T>(d);
+  const cudaError_t err = co::prepare(rt_collect_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  rt_collect_kernel<T><<<co::grid_for<T>(C), co::Tile<T>::THREADS, smem,
+                         stream>>>(R_cm, O_cm, y_cm, jitter, s, d, C, acc00,
+                                   accy0, w0l, wl, dl, invdl, mh, ld, hc,
+                                   hw0, hw, ld_rows);
   return int(cudaGetLastError());
 }
 
@@ -156,5 +203,11 @@ extern "C" {
 CGT_RT_SOLVE(float, f32)
 CGT_RT_SOLVE(double, f64)
 #undef CGT_RT_SOLVE
+
+// dynamic shared bytes per thread block of the sweep at block size d
+int cgt_rt_collect_smem_bytes(int d, int f64) {
+  if (!cgt::rt::rt_size(d)) return -1;
+  return int(f64 ? collect_smem<double>(d) : collect_smem<float>(d));
+}
 
 }  // extern "C"

@@ -195,33 +195,6 @@ __device__ __forceinline__ void solve_lower_vec(const Mat<T>& L,
   }
 }
 
-// L^T X = Y (back substitution), matrix right-hand side; x may alias y
-template <typename T>
-__device__ __forceinline__ void solve_lower_t(const Mat<T>& L,
-                                              const Vec<T>& invd,
-                                              const Mat<T>& y, Mat<T>& x,
-                                              int d) {
-  for (int e = 0; e < d; ++e)
-    for (int i = d - 1; i >= 0; --i) {
-      T acc = y[i][e];
-      for (int k = i + 1; k < d; ++k) acc -= L[k][i] * x[k][e];
-      x[i][e] = acc * invd[i];
-    }
-}
-
-// L^T x = y, vector right-hand side; x may alias y
-template <typename T>
-__device__ __forceinline__ void solve_lower_t_vec(const Mat<T>& L,
-                                                  const Vec<T>& invd,
-                                                  const Vec<T>& y, Vec<T>& x,
-                                                  int d) {
-  for (int i = d - 1; i >= 0; --i) {
-    T acc = y[i];
-    for (int k = i + 1; k < d; ++k) acc -= L[k][i] * x[k];
-    x[i] = acc * invd[i];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // One step of the chunk-interior elimination (pallas_sweep._sweep_kernel and
 // its wide twin pallas_wide._wide_sweep_kernel).

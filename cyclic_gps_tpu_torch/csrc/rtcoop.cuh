@@ -1,17 +1,21 @@
 // Cooperative runtime-d block algebra: ONE WARP PER CHUNK LANE, the lane's
 // d x d blocks in shared memory, d a runtime value in 9..15 (one instance
-// per dtype).  It carries the two Takahashi walks, rt_inverse.cu's
-// rt_takahashi_kernel and wide_backward.cu's wide_backward_kernel.
+// per dtype).  It carries the two Takahashi walks (rt_inverse.cu's
+// rt_takahashi_kernel, wide_backward.cu's wide_backward_kernel) and the two
+// forward sweeps that collect the backward's stacks (rt_solve.cu's
+// rt_collect_kernel, wide_sweep.cu's wide_solveinv_kernel), whose rows
+// start with a Cholesky of the pivot block (`chol`, `Sweep`).
 //
 // Why not rtblock.cuh's design (one thread per lane, every block in local
 // memory): a walk step is a dependent chain of ~30 d^3 operations over ~14
-// blocks.  Held per thread that is 8-25 KB of stack, more local memory
-// than the 50 MB L2 holds at C = 7,813 lanes, so operands stream through
-// HBM; and C threads make ~2 warps per SM, too few to hide any latency.
-// Here the lane's blocks sit in shared memory (~9 KB at float32, d = 12)
-// and its 32 threads share every product, so an SM holds 16-24 warps at
-// float32 (8-12 at float64) and no operand leaves the SM between a step's
-// tile load and its tile store.
+// blocks, a sweep row one of ~10-22 d^3.  Held per thread that is 8-25 KB
+// of stack, more local memory than the 50 MB L2 holds at C = 7,813 lanes,
+// so operands stream through HBM; and C threads make ~2 warps per SM, too
+// few to hide any latency.  Here the lane's blocks sit in shared memory
+// (~5-9 KB at float32, d = 12) and its 32 threads share every product, so
+// an SM holds 24 warps at float32 (12 at float64; three thread blocks, by
+// the register budget) and no operand leaves the SM between a step's tile
+// load and its tile store.
 //
 // Threads.  A thread block covers LANES consecutive chunk lanes with
 // LANES * sizeof(T) = 32 B (8 lanes at float32, 4 at float64), one warp
@@ -19,7 +23,8 @@
 // warp (elements lane, lane + 32, ... of the block in row-major order) and
 // summed in ascending k, as rtblock.cuh's mm_op, so results agree with the
 // thread-per-lane algebra to rounding.  Triangular solves against a d x d
-// right-hand side run one column per thread.  __syncwarp() separates
+// right-hand side run one column per thread; the Cholesky splits each
+// column's trailing update over the warp.  __syncwarp() separates
 // dependent operations; __syncthreads() only brackets the block-wide tile
 // loads and stores.
 //
@@ -28,8 +33,7 @@
 // walk down a column -- the transposed operand of a product, a column
 // solve -- touches distinct banks) and NV vectors of d.  A block is named by
 // its offset in the region, the same in every lane, so a kernel hands the
-// carried blocks to the next step by swapping offsets: the walks copy no
-// block.
+// carried blocks to the next step by swapping offsets: no block is copied.
 //
 // Tiles.  The global stacks keep the chunk-major layout, lanes innermost:
 // for one element the tile's LANES lanes are 32 consecutive bytes.  In a
@@ -218,24 +222,235 @@ __device__ __forceinline__ void solve_lower(const Warp& w, const T* L,
   }
 }
 
-// x0 = L^{-T} x0 and x1 = L^{-T} x1 in place (back substitution), one
-// column per thread: threads 0-15 take x0, 16-31 x1; with neg1, x1's
-// thread negates its column after
-template <typename T>
-__device__ __forceinline__ void solve_lower_t(const Warp& w, const T* L,
-                                              const T* invd, T* x0, T* x1,
-                                              bool neg1) {
-  const int e = w.lane & 15, d = w.d, ld = w.ld;
-  if (e >= d) return;
-  T* x = w.lane < 16 ? x0 : x1;
-  for (int i = d - 1; i >= 0; --i) {
-    T acc = x[i * ld + e];
-    for (int k = i + 1; k < d; ++k) acc -= L[k * ld + i] * x[k * ld + e];
-    x[i * ld + e] = acc * invd[i];
-  }
-  if (neg1 && w.lane >= 16)
-    for (int i = 0; i < d; ++i) x[i * ld + e] = -x[i * ld + e];
+// ---------------------------------------------------------------------------
+// The cooperative elimination step: rtblock.cuh's chol, triangular solves
+// and elim_step, each summing in the order rtblock.cuh sums.
+// ---------------------------------------------------------------------------
+
+// out[i] = / += / -= sum_p op(a)[i][p] x[p] (ascending p; op transposes
+// where TA), one element per thread; out must not alias a or x
+template <typename T, bool TA, Mode M>
+__device__ __forceinline__ void mv_op(const Warp& w, const T* a, const T* x,
+                                      T* out) {
+  const int i = w.lane, d = w.d;
+  if (i >= d) return;
+  const T* pa = a + (TA ? i : i * w.ld);
+  const int sa = TA ? w.ld : 1;
+  T acc = pa[0] * x[0];
+  for (int p = 1; p < d; ++p) acc += pa[p * sa] * x[p];
+  if (M == SET) out[i] = acc;
+  if (M == ADD) out[i] += acc;
+  if (M == SUB) out[i] -= acc;
+  if (M == NEG) out[i] = -acc;
 }
+
+// sum_i v[i]^2 in ascending i, in every thread
+template <typename T>
+__device__ __forceinline__ T sumsq(const Warp& w, const T* v) {
+  T acc = T(0);
+  for (int i = 0; i < w.d; ++i) acc += v[i] * v[i];
+  return acc;
+}
+
+// This thread's share of a d x d block's lower triangle: the elements
+// lane, lane + 32, ... in row-major order (t = a (a + 1) / 2 + b, b <= a),
+// at most four at d <= 15, as (a * ld, b); b = -1 past the triangle
+struct Tri {
+  int ra[4], b[4];
+  __device__ __forceinline__ explicit Tri(const Warp& w) {
+    const int n = w.d * (w.d + 1) / 2;
+    int a = 0, bb = w.lane;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      while (bb > a) bb -= ++a;
+      ra[m] = a * w.ld;
+      b[m] = w.lane + 32 * m < n ? bb : -1;
+      bb += 32;
+    }
+  }
+};
+
+// Lower Cholesky of the SPD block x (lower triangle read) in place, as
+// rtblock.cuh's chol: right-looking, rsqrt pivots, no floor.  Leaves L in
+// x (upper triangle zeroed) and 1/L_jj in invd, and returns the half
+// log-determinant sum_j 0.5 log(pivot_j) (ascending j) in every thread.
+// Per column: every thread reads the pivot, threads i > j scale L[i][j],
+// and the warp splits the trailing update of the lower triangle.
+template <typename T>
+__device__ __forceinline__ T chol(const Warp& w, const Tri& tri, T* x,
+                                  T* invd) {
+  const int d = w.d, ld = w.ld, i = w.lane;
+  T half = T(0);
+  for (int j = 0; j < d; ++j) {
+    __syncwarp();
+    const T piv = x[j * ld + j];
+    const T pinv = rsqrt_(piv);
+    half += T(0.5) * log_(piv);
+    if (i > j && i < d) {
+      x[i * ld + j] *= pinv;
+      x[j * ld + i] = T(0);
+    }
+    __syncwarp();
+    if (i == j) {  // nobody reads the pivot's place from here on
+      x[j * ld + j] = piv * pinv;
+      invd[j] = pinv;
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (tri.b[m] > j)
+        x[tri.ra[m] + tri.b[m]] -= x[tri.ra[m] + j] * x[tri.b[m] * ld + j];
+  }
+  __syncwarp();
+  return half;
+}
+
+// One column of a triangular solve against the factor L (1/diag in invd):
+// y at src[i * ss], x at dst[i * ds] (dst may be src); FWD L x = y as
+// rtblock.cuh's solve_lower, else L^T x = y by back substitution (rows
+// d-1 .. 0, each summing k = i+1 .. d-1 in ascending order); with neg the
+// column is negated after
+template <typename T, bool FWD>
+__device__ __forceinline__ void solve_col(const T* L, const T* invd, int d,
+                                          int ld, const T* src, int ss,
+                                          T* dst, int ds, bool neg) {
+  if (FWD) {
+    for (int i = 0; i < d; ++i) {
+      T acc = src[i * ss];
+      for (int k = 0; k < i; ++k) acc -= L[i * ld + k] * dst[k * ds];
+      dst[i * ds] = acc * invd[i];
+    }
+  } else {
+    for (int i = d - 1; i >= 0; --i) {
+      T acc = src[i * ss];
+      for (int k = i + 1; k < d; ++k) acc -= L[k * ld + i] * dst[k * ds];
+      dst[i * ds] = acc * invd[i];
+    }
+  }
+  if (neg)
+    for (int i = 0; i < d; ++i) dst[i * ds] = -dst[i * ds];
+}
+
+// A d x d right-hand side Y and where its solution X goes: Y (X) as stored
+// at y (x), or as the transpose of the block stored there where ty (tx);
+// x may be y
+template <typename T>
+struct Rhs {
+  const T* y;
+  T* x;
+  bool ty, tx, neg;
+};
+
+// Two triangular solves with d x d right-hand sides and one with a vector,
+// at once: threads 0-15 take r0's columns, 16-31 r1's, and thread 31 (no
+// column of either at d <= 15) the vector yv -> xv (xv may be yv; none
+// where xv is null).  FWD: L X = Y, else L^T X = Y.
+template <typename T, bool FWD>
+__device__ __forceinline__ void solve_pair(const Warp& w, const T* L,
+                                           const T* invd, const Rhs<T>& r0,
+                                           const Rhs<T>& r1,
+                                           const T* yv = nullptr,
+                                           T* xv = nullptr) {
+  const int e = w.lane & 15, ld = w.ld;
+  const bool vec = w.lane == 31 && xv != nullptr;
+  if (e >= w.d && !vec) return;
+  const Rhs<T> r = w.lane < 16 ? r0 : r1;
+  const T* src = vec ? yv : r.y + (r.ty ? e * ld : e);
+  T* dst = vec ? xv : r.x + (r.tx ? e * ld : e);
+  solve_col<T, FWD>(L, invd, w.d, ld, src, vec || r.ty ? 1 : ld, dst,
+                    vec || r.tx ? 1 : ld, !vec && r.neg);
+}
+
+// The lane's state in the forward sweep of the chunk interior (the
+// cooperative twin of rtblock.cuh's Carry and elim_step), as offsets in
+// the lane's region: the blocks P (R_j, then D_j), O (O_j, then C_j), CP
+// (C_{j-1}), W0, X (scratch, then W0's successor), ACC; the vectors Y
+// (y_j, then w_j), W (w_{j-1}), ACCY0, INVD, and SC, whose first numbers
+// hold per-lane scalars for Tiles::store_s.  A kernel's own blocks and
+// vectors follow (`block`, `vec`).  mh and ld are in registers.
+enum { SW_P, SW_O, SW_CP, SW_W0, SW_X, SW_ACC, SW_BLOCKS };
+enum { SW_Y, SW_W, SW_ACCY0, SW_INVD, SW_SC, SW_VECS };
+
+template <typename T>
+struct Sweep {
+  T* me;          // the lane's region
+  int d, bs, vb;  // block size d * ld, offset of the first vector
+  int p, o, cp, w0, x, y, wv;  // the offsets that move
+  T mh, ld;
+  __device__ __forceinline__ Sweep(T* me_, int d_, int nblocks)
+      : me(me_), d(d_), bs(d_ * pad_ld(d_)), vb(nblocks * bs),
+        p(SW_P * bs), o(SW_O * bs), cp(SW_CP * bs), w0(SW_W0 * bs),
+        x(SW_X * bs), y(vb + SW_Y * d_), wv(vb + SW_W * d_), mh(0), ld(0) {}
+  __device__ __forceinline__ int block(int k) const { return k * bs; }
+  __device__ __forceinline__ int vec(int k) const { return vb + k * d; }
+  __device__ __forceinline__ T* at(int off) const { return me + off; }
+
+  // Eliminate row j (P = R_j, O = O_j, Y = y_j loaded; at the first row
+  // W0 = o_left): P = (R_j + jitter I) - C C^T, its factor D, W0 =
+  // D^{-1} o_left (first) or -D^{-1} C W0, w = D^{-1} (y - C w),
+  // C_j = (D^{-1} O_j^T)^T, then the sums acc += W0^T W0, accy0 +=
+  // W0^T w, mh += ||w||^2, ld += log|D|.  Returns the row's half
+  // log-determinant.  The new state is read under the names `advance`
+  // gives; all but acc and accy0 are final when this returns.
+  __device__ __forceinline__ T step(const Warp& w, const Tri& tri,
+                                    bool first, T jitter) {
+    T* const P = me + p;
+    T* const O = me + o;
+    const T* const C = me + cp;
+    T* const W0 = me + w0;
+    T* const X = me + x;
+    T* const Y = me + y;
+    T* const invd = me + vec(SW_INVD);
+    for (Cursor c(w.w); c.q < w.dd; c.next(w.w)) {
+      const int q = c.i * w.ld + c.k;
+      if (c.k <= c.i) {
+        T v = P[q];
+        if (c.i == c.k) v += jitter;
+        if (!first) v -= dot<T, false, true>(C, C, c.i, c.k, w.d, w.ld);
+        P[q] = v;
+      }
+      if (!first) X[q] = dot<T, false, false>(C, W0, c.i, c.k, w.d, w.ld);
+    }
+    if (!first) mv_op<T, false, SUB>(w, C, me + wv, Y);
+    __syncwarp();
+    const T ldl = chol<T>(w, tri, P, invd);
+    // W0 (or -(C W0)) and O^T solved in place, O stored as its transpose
+    const Rhs<T> r0 = first ? Rhs<T>{W0, W0, false, false, false}
+                            : Rhs<T>{X, X, false, false, true};
+    solve_pair<T, true>(w, P, invd, r0, Rhs<T>{O, O, true, true, false}, Y,
+                        Y);
+    __syncwarp();
+    const T* const W0n = first ? W0 : X;
+    T* const acc = me + block(SW_ACC);
+    T* const accy0 = me + vec(SW_ACCY0);
+    if (first) {
+      mm_op<T, true, false, SET>(w, W0n, W0n, acc);
+      mv_op<T, true, SET>(w, W0n, Y, accy0);
+    } else {
+      mm_op<T, true, false, ADD>(w, W0n, W0n, acc);
+      mv_op<T, true, ADD>(w, W0n, Y, accy0);
+    }
+    const T ww = sumsq<T>(w, Y);
+    mh = first ? ww : mh + ww;
+    ld = first ? ldl : ld + ldl;
+    return ldl;
+  }
+
+  // rename after `step` (every thread, live or not: the tile loads use
+  // the offsets): C_j, W0_j, w_j take their names, and the next row loads
+  // into the freed blocks
+  __device__ __forceinline__ void advance(bool first) {
+    const int t_cp = cp, t_y = y;
+    cp = o;
+    o = t_cp;
+    y = wv;
+    wv = t_y;
+    if (!first) {
+      const int t_w0 = w0;
+      w0 = x;
+      x = t_w0;
+    }
+  }
+};
 
 // element q of a wide block (a11 elements 0..63, then the strip's rows of
 // 8: A21, A12^T, A22; wideblock.cuh) -> its offset in the dense d x ld
@@ -296,6 +511,13 @@ struct Tiles {
     T* p = dst + size_t(j) * d * C + c0 + l;
     for (int q = w.q0; q < d; q += 32) p[size_t(q) * C] =
         sm[l * stride + off + q];
+  }
+
+  // the lane's scalar at `off` into element j of a stack [*, C] (threads
+  // 0..LANES-1, thread t for lane t)
+  __device__ __forceinline__ void store_s(T* dst, int j, int off) const {
+    if (int(threadIdx.x) >= L || !live) return;
+    dst[size_t(j) * C + c0 + l] = sm[l * stride + off];
   }
 
   // step j of a wide pair (a11 [*, 8, 8, C], st [*, 3e, 8, C], e = d - 8)

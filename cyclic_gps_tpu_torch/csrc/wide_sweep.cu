@@ -2,10 +2,10 @@
 // d = 8 + e, e in 1..7), plain and collecting the shared backward stacks.
 //
 // Replaces (cyclic_gps_tpu/ops/pallas_wide.py):
-//   wide_sweep_kernel<T, false>  <- :166 forward_sweep_wide_pallas
-//                                   (kernel body _wide_sweep_kernel, :33)
-//   wide_sweep_kernel<T, true>   <- :998 forward_sweep_solveinv_wide_pallas
-//                                   (_wide_solveinv_kernel, :884)
+//   wide_sweep_kernel<T>     <- :166 forward_sweep_wide_pallas
+//                               (kernel body _wide_sweep_kernel, :33)
+//   wide_solveinv_kernel<T>  <- :998 forward_sweep_solveinv_wide_pallas
+//                               (_wide_solveinv_kernel, :884)
 //
 // Inputs R11 / O11 [s, 8, 8, C], Rst / Ost [s, 3e, 8, C], y [s, d, C]; the
 // matrix outputs are wide pairs too (wideblock.cuh), so the kernels, their
@@ -14,31 +14,38 @@
 // of the chunk axis to their lane tile (and its log-det correction) has no
 // counterpart here.
 //
-// What bounds them on the H100: one thread per chunk lane walks its s-1
-// interior rows in order, each a dependent chain of d x d Cholesky, solves
-// and products (~15 d^3 operations, ~22 d^3 with the collect), so with
-// C = N/s lanes (7,813 at N = 1e6, s = 128) they are latency- and
-// occupancy-bound, far from both the byte bound (each input row read once,
-// 2 d^2 + d values) and the operation bound.  The TPU kernels' 8-aligned
-// panel algebra exists for its 8-sublane tiles and is not carried over: a
-// thread unpacks each block to a dense d x d array (local memory; d is a
-// runtime value, so one instance per dtype serves e = 1..7 and the build
-// stays cheap) and runs the same elimination as forward_sweep.cu.  A warp
-// per chunk, or blocks in registers, is later work.
+// What bounds them on the H100: each walks its lane's s-1 interior rows in
+// order, each row a dependent chain of d x d Cholesky, solves and products
+// (~15 d^3 operations, ~22 d^3 with the collect), with C = N/s lanes
+// (7,813 at N = 1e6, s = 128), far from both the byte bound (each input
+// row read once, 2 d^2 + d values) and the operation bound.  The TPU
+// kernels' 8-aligned panel algebra exists for its 8-sublane tiles and is
+// not carried over: the blocks are unpacked to dense d x d on load (d is a
+// runtime value, so one instance per dtype serves e = 1..7) and run the
+// elimination of forward_sweep.cu.
+//
+// wide_sweep_kernel keeps the first port's design: one thread per chunk
+// lane, its blocks in local memory (rtblock.cuh).  wide_solveinv_kernel
+// runs one warp per chunk lane on rtcoop.cuh (its Sweep step): the lane's
+// 9 blocks (the elimination's six, di = D^{-1}, hat_C, pinv) and 6 vectors
+// in shared memory, the Cholesky's trailing updates, the products and the
+// solves spread over the warp, and the 8 (float32) or 4 (float64) lanes of
+// a thread block unpacking their rows from the wide pairs as whole 32-byte
+// spans and packing the emissions back the same way.
+#include "rtcoop.cuh"
 #include "wideblock.cuh"
 
 namespace {
 
 using namespace cgt::wide;
 
-template <typename T, bool COLLECT>
+template <typename T>
 __global__ void __launch_bounds__(CGT_THREADS)
 wide_sweep_kernel(const T* __restrict__ R11, const T* __restrict__ Rst,
                   const T* __restrict__ O11, const T* __restrict__ Ost,
                   const T* __restrict__ ym, T jitter, int s, int e, int C,
                   T* acc11, T* accst, T* accy0, T* w011, T* w0st, T* wl,
-                  T* d11, T* dst, T* invd, T* mh, T* ld, T* hc11, T* hcst,
-                  T* hw011, T* hw0st, T* hw, T* pinv11, T* pinvst) {
+                  T* d11, T* dst, T* invd, T* mh, T* ld) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   const int d = 8 + e;
@@ -52,24 +59,6 @@ wide_sweep_kernel(const T* __restrict__ R11, const T* __restrict__ Rst,
     load_w<T>(O11, Ost, j, e, C, c, o_j);
     load_v<T>(ym, j, d, C, c, y_j);
     elim_step<T>(j == 1, P, o_j, y_j, o_left, st, t, d);
-    if constexpr (COLLECT) {
-      // the hats and pinv from the triangular inverse di = D^{-1}, as the
-      // TPU kernel's emit: hat_C = di^T C^T, hat_W0 = di^T W0,
-      // hat_w = di^T w, pinv = di^T di
-      Mat<T>& di = o_j;  // scratch from here on
-      for (int i = 0; i < d; ++i)
-        for (int k = 0; k < d; ++k) P[i][k] = (i == k) ? T(1) : T(0);
-      solve_lower<T>(st.D, st.invd, P, di, d);
-      transpose<T>(st.cprev, P, d);
-      mm_ta<T>(di, P, t, d);
-      store_w<T>(hc11, hcst, j - 1, e, C, c, t);
-      mm_ta<T>(di, st.w0, t, d);
-      store_w<T>(hw011, hw0st, j - 1, e, C, c, t);
-      mv_op<T, true>(di, st.w, y_j, d);
-      store_v<T>(hw, j - 1, d, C, c, y_j);
-      mm_ta<T>(di, di, t, d);
-      store_w<T>(pinv11, pinvst, j - 1, e, C, c, t);
-    }
   }
   store_w<T>(acc11, accst, 0, e, C, c, st.acc);
   store_v<T>(accy0, 0, d, C, c, st.accy0);
@@ -81,16 +70,109 @@ wide_sweep_kernel(const T* __restrict__ R11, const T* __restrict__ Rst,
   ld[c] = st.ld;
 }
 
-template <typename T, bool COLLECT>
+namespace co = cgt::coop;
+
+// the collecting sweep's lane region: the elimination's blocks and
+// vectors, then di, hat_C, pinv and hat_w
+enum { SI_DI = co::SW_BLOCKS, SI_HC, SI_PINV, SI_BLOCKS };
+enum { SI_HW = co::SW_VECS, SI_VECS };
+
+template <typename T>
+__global__ void __launch_bounds__(co::Tile<T>::THREADS, co::Tile<T>::MIN_BLOCKS)
+wide_solveinv_kernel(const T* __restrict__ R11, const T* __restrict__ Rst,
+                     const T* __restrict__ O11, const T* __restrict__ Ost,
+                     const T* __restrict__ ym, T jitter, int s, int e, int C,
+                     T* acc11, T* accst, T* accy0, T* w011, T* w0st, T* wl,
+                     T* d11, T* dst, T* invd, T* mh, T* ld, T* hc11,
+                     T* hcst, T* hw011, T* hw0st, T* hw, T* pinv11,
+                     T* pinvst) {
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  T* sm = reinterpret_cast<T*>(cgt_smem);
+  const int d = 8 + e;
+  const int stride = co::region(d, SI_BLOCKS, SI_VECS);
+  const co::Tiles<T> tile(sm, stride, d, C);
+  const co::Warp w(d);
+  const co::Tri tri(w);
+  const int tl = int(threadIdx.x) >> 5;  // this warp's lane of the tile
+  const bool live = int(blockIdx.x) * co::Tile<T>::LANES + tl < C;
+  co::Sweep<T> sw(sm + tl * stride, d, SI_BLOCKS);
+  const int o_di = sw.block(SI_DI), o_hc = sw.block(SI_HC);
+  const int o_pinv = sw.block(SI_PINV), o_hw = sw.vec(SI_HW);
+  const int o_sc = sw.vec(co::SW_SC);
+  tile.load_w(O11, Ost, 0, sw.w0);  // o_left
+  for (int j = 1; j < s; ++j) {
+    tile.load_w(R11, Rst, j, sw.p);
+    tile.load_w(O11, Ost, j, sw.o);
+    tile.load_v(ym, j, sw.y);
+    __syncthreads();
+    if (live) sw.step(w, tri, j == 1, jitter);
+    sw.advance(j == 1);
+    if (live) {
+      // the hats and pinv from the triangular inverse di = D^{-1}, as the
+      // TPU kernel's emit: hat_C = di^T C^T, hat_W0 = di^T W0 (into the
+      // free X), hat_w = di^T w, pinv = di^T di
+      T* const di = sw.at(o_di);
+      co::solve_lower<T>(w, sw.at(sw.p), sw.at(sw.vec(co::SW_INVD)), di);
+      __syncwarp();
+      co::mm_op<T, true, true, co::SET>(w, di, sw.at(sw.cp), sw.at(o_hc));
+      co::mm_op<T, true, false, co::SET>(w, di, sw.at(sw.w0), sw.at(sw.x));
+      co::mm_op<T, true, false, co::SET>(w, di, di, sw.at(o_pinv));
+      co::mv_op<T, true, co::SET>(w, di, sw.at(sw.wv), sw.at(o_hw));
+    }
+    __syncthreads();
+    tile.store_w(hc11, hcst, j - 1, o_hc);
+    tile.store_w(hw011, hw0st, j - 1, sw.x);
+    tile.store_v(hw, j - 1, o_hw);
+    tile.store_w(pinv11, pinvst, j - 1, o_pinv);
+  }
+  if (live && w.lane == 0) {
+    sw.at(o_sc)[0] = sw.mh;
+    sw.at(o_sc)[1] = sw.ld;
+  }
+  __syncthreads();
+  tile.store_w(acc11, accst, 0, sw.block(co::SW_ACC));
+  tile.store_v(accy0, 0, sw.vec(co::SW_ACCY0));
+  tile.store_w(w011, w0st, 0, sw.w0);
+  tile.store_v(wl, 0, sw.wv);
+  tile.store_w(d11, dst, 0, sw.p);
+  tile.store_v(invd, 0, sw.vec(co::SW_INVD));
+  tile.store_s(mh, 0, o_sc);
+  tile.store_s(ld, 0, o_sc + 1);
+}
+
+template <typename T>
 int launch_wide_sweep(const T* R11, const T* Rst, const T* O11, const T* Ost,
                       const T* y, T jitter, int s, int e, int C, T* acc11,
                       T* accst, T* accy0, T* w011, T* w0st, T* wl, T* d11,
-                      T* dst, T* invd, T* mh, T* ld, T* hc11, T* hcst,
-                      T* hw011, T* hw0st, T* hw, T* pinv11, T* pinvst,
-                      cudaStream_t stream) {
+                      T* dst, T* invd, T* mh, T* ld, cudaStream_t stream) {
   if (e < 1 || e > WMAX - 8) return int(cudaErrorInvalidValue);
   const int blocks = (C + CGT_THREADS - 1) / CGT_THREADS;
-  wide_sweep_kernel<T, COLLECT><<<blocks, CGT_THREADS, 0, stream>>>(
+  wide_sweep_kernel<T><<<blocks, CGT_THREADS, 0, stream>>>(
+      R11, Rst, O11, Ost, y, jitter, s, e, C, acc11, accst, accy0, w011,
+      w0st, wl, d11, dst, invd, mh, ld);
+  return int(cudaGetLastError());
+}
+
+// dynamic shared bytes of one thread block of the collecting sweep at
+// block size 8 + e
+template <typename T>
+size_t solveinv_smem(int e) {
+  return co::smem_bytes<T>(8 + e, SI_BLOCKS, SI_VECS);
+}
+
+template <typename T>
+int launch_wide_solveinv(const T* R11, const T* Rst, const T* O11,
+                         const T* Ost, const T* y, T jitter, int s, int e,
+                         int C, T* acc11, T* accst, T* accy0, T* w011,
+                         T* w0st, T* wl, T* d11, T* dst, T* invd, T* mh,
+                         T* ld, T* hc11, T* hcst, T* hw011, T* hw0st, T* hw,
+                         T* pinv11, T* pinvst, cudaStream_t stream) {
+  if (e < 1 || e > WMAX - 8) return int(cudaErrorInvalidValue);
+  const size_t smem = solveinv_smem<T>(e);
+  const cudaError_t err = co::prepare(wide_solveinv_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  wide_solveinv_kernel<T><<<co::grid_for<T>(C), co::Tile<T>::THREADS, smem,
+                            stream>>>(
       R11, Rst, O11, Ost, y, jitter, s, e, C, acc11, accst, accy0, w011,
       w0st, wl, d11, dst, invd, mh, ld, hc11, hcst, hw011, hw0st, hw, pinv11,
       pinvst);
@@ -107,10 +189,9 @@ extern "C" {
                            int C, T* acc11, T* accst, T* accy0, T* w011,     \
                            T* w0st, T* wl, T* d11, T* dst, T* invd, T* mh,   \
                            T* ld, void* stream) {                            \
-    return launch_wide_sweep<T, false>(                                       \
-        R11, Rst, O11, Ost, y, jitter, s, e, C, acc11, accst, accy0, w011,  \
-        w0st, wl, d11, dst, invd, mh, ld, nullptr, nullptr, nullptr,        \
-        nullptr, nullptr, nullptr, nullptr, (cudaStream_t)stream);           \
+    return launch_wide_sweep<T>(R11, Rst, O11, Ost, y, jitter, s, e, C,      \
+                                acc11, accst, accy0, w011, w0st, wl, d11,    \
+                                dst, invd, mh, ld, (cudaStream_t)stream);    \
   }                                                                           \
   int cgt_wide_sweep_solveinv_##SUF(                                         \
       const T* R11, const T* Rst, const T* O11, const T* Ost, const T* y,    \
@@ -118,7 +199,7 @@ extern "C" {
       T* w0st, T* wl, T* d11, T* dst, T* invd, T* mh, T* ld, T* hc11,        \
       T* hcst, T* hw011, T* hw0st, T* hw, T* pinv11, T* pinvst,              \
       void* stream) {                                                         \
-    return launch_wide_sweep<T, true>(                                        \
+    return launch_wide_solveinv<T>(                                           \
         R11, Rst, O11, Ost, y, jitter, s, e, C, acc11, accst, accy0, w011,  \
         w0st, wl, d11, dst, invd, mh, ld, hc11, hcst, hw011, hw0st, hw,     \
         pinv11, pinvst, (cudaStream_t)stream);                               \
@@ -127,5 +208,12 @@ extern "C" {
 CGT_WIDE_SWEEP(float, f32)
 CGT_WIDE_SWEEP(double, f64)
 #undef CGT_WIDE_SWEEP
+
+// dynamic shared bytes per thread block of the collecting sweep at block
+// size 8 + e
+int cgt_wide_solveinv_smem_bytes(int e, int f64) {
+  if (e < 1 || e > cgt::rt::WMAX - 8) return -1;
+  return int(f64 ? solveinv_smem<double>(e) : solveinv_smem<float>(e));
+}
 
 }  // extern "C"

@@ -683,11 +683,18 @@ def log_likelihood(
     route on the irregular grid instead (K emitted by the K-system
     kernel, then eliminated by the forward-sweep kernel): the route the
     JAX package takes for an explicit non-kernel solver backend and the
-    one the likelihood gradient replays.
+    one the likelihood gradient replays.  A series needs at least two
+    observations: one point has no gap to build the precision from, so
+    N < 2 raises ``ValueError`` on both grids (the JAX package raises on
+    the irregular one and returns NaN on the regular one).
     """
+    num_obs = ts.shape[0]
+    if num_obs < 2:
+        raise ValueError(
+            f"log_likelihood needs at least two observations, got {num_obs}"
+            " (the precision is built from the gaps between them)")
     llt = lambda_lambda_t(params)
     g = g_matrix(params)
-    num_obs = ts.shape[0]
 
     x_llt_inv = torch.linalg.solve(llt, xs.T).T  # [N, obs]
     llt_mahal = torch.sum(x_llt_inv * xs)

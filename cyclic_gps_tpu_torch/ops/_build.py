@@ -39,9 +39,10 @@ _HEADERS = ("blockmath.cuh", "celerite.cuh", "rtblock.cuh", "rtcoop.cuh",
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# threads per block of the thread-per-lane kernels (CGT_THREADS); the two
-# warp-per-lane walks (csrc/rtcoop.cuh) take 32 per chunk lane, 8 lanes a
-# block at float32 and 4 at float64
+# threads per block of the thread-per-lane kernels (CGT_THREADS); the four
+# warp-per-lane kernels (csrc/rtcoop.cuh: the two Takahashi walks and the
+# two collecting sweeps) take 32 per chunk lane, 8 lanes a block at
+# float32 and 4 at float64
 THREADS = 128
 
 _P = ctypes.c_void_p
@@ -94,11 +95,13 @@ _SIGNATURES.update({
          [_P] * 5 + [real, _I, _I, _I] + [_P] * 18 + [_P]),
         ("cgt_wide_backward", [_P] * 19 + [_I, _I, _I] + [_P] * 9 + [_P]))
 })
-# the dynamic shared bytes per thread block of the two warp-per-lane walks
-# (rt_inverse.cu's recursion at block size d, wide_backward.cu's at 8 + e;
-# the second argument 1 for float64)
+# the dynamic shared bytes per thread block of the four warp-per-lane
+# kernels (rt_inverse.cu's recursion and rt_solve.cu's sweep at block size
+# d, wide_backward.cu's and wide_sweep.cu's collecting sweep at 8 + e; the
+# second argument 1 for float64)
 _SIGNATURES.update({name: [_I, _I] for name in (
-    "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes")})
+    "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes",
+    "cgt_rt_collect_smem_bytes", "cgt_wide_solveinv_smem_bytes")})
 # the runtime-d kernels of the solve and the selected inversion (d = 9..15)
 # take the arguments of their rank-templated counterparts
 for _base in ("forward_sweep_collect", "backward_substitute",

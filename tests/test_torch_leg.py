@@ -220,6 +220,23 @@ def test_backend_contract_on_cpu():
     _build.check_rank(8, "forward_sweep_cuda")
 
 
+def test_one_observation_raises_on_both_grids():
+    """A one-point series has no gap to build the precision from: the
+    port's log_likelihood raises ValueError on the irregular and the
+    regular grid.  The JAX package raises ValueError on the irregular grid
+    (and returns NaN on the regular one, which the port does not copy)."""
+    ts, xs = np.array([0.5]), np.ones((1, 2))
+    with pytest.raises(ValueError):
+        jleg.log_likelihood(_jax_params(3, 2, jnp.float64, seed=0),
+                            jnp.asarray(ts), jnp.asarray(xs))
+    p = leg.init_params(3, 2, generator=torch.Generator().manual_seed(0),
+                        dtype=torch.float64, device="cpu")
+    for regular in (False, True):
+        with pytest.raises(ValueError, match="at least two observations"):
+            leg.log_likelihood(p, torch.as_tensor(ts), torch.as_tensor(xs),
+                               regular=regular)
+
+
 def test_import_leaves_jax_out():
     """Importing every module of the port pulls in no JAX, and needs no
     nvcc or card."""
