@@ -9,12 +9,14 @@ Phases, one line of output each (or more):
   1. device   the card's name and power limit; TF32 off for the model math.
   2. build    nvcc builds the package's CUDA kernels from csrc/; the
               compiler's registers / stack / spills at rank 5, of the
-              celerite kernels at nblocks 2 and 8, of kernels 1, 6
-              and 7 at rank 16, and of the wide and runtime-d kernels;
-              the dynamic shared bytes per block of the four warp-per-lane
-              kernels (the walks 20' and 22, the sweeps 17' and 21) at
-              d = 9, 12 and 15, float32 and float64 (and a failure if any
-              of them uses local memory).
+              celerite kernels at nblocks 2 and 8 (and of every instance
+              of the filter adjoint, kernel 15), of kernels 1, 6 and 7 at
+              rank 16, and of the wide and runtime-d kernels; the dynamic
+              shared bytes per block of the six warp-per-lane kernels of
+              block sizes 9-15 (the walks 20' and 22, the sweeps 17', 21,
+              19' and kernel 1's runtime-d instance) at d = 9, 12 and 15,
+              float32 and float64 (and a failure if any of them uses local
+              memory), and of kernel 15 at nblocks 5-8.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -32,7 +34,11 @@ Phases, one line of output each (or more):
               case against autograd through the dense oracle.
   6. train    three Adam train steps on the fused N = 1e6 route, launch
               counts reset just before and read just after; then one
-              step under torch.profiler.
+              step under torch.profiler; then the float32 default on this
+              grid, the residual loss: log_likelihood_residual's value and
+              gradient with backend="auto" against "torch", and two steps
+              of fit(loss=None), which must pick "cr_residual", with the
+              launch counts of kernels 2, 3, 5-9.
   7. posterior the four posterior kernels against their twins on the inputs
               one insample_posterior(method="precision") call hands them
               at N = 1e6; the solve of bench.py's system (N = 1e6, d = 5)
@@ -52,7 +58,11 @@ Phases, one line of output each (or more):
               nblocks 2 and 8; one likelihood call and three Adam steps on
               nll_loss with launch counts reset just before and read just
               after; one profiled step; make_predictions(method=
-              "precision") at nblocks 2.
+              "precision") at nblocks 2; kernel 15's two instances (one
+              thread per lane at nblocks 1-4, one warp per lane at 5-8)
+              against their twin at nblocks 1, 2, 5 and 8, obs 1 and 2,
+              on C = 9 chunks (a ragged last chunk and tile) and on one
+              lane, and at nblocks 6, N = 1e6.
   9. wide     block sizes 9-15 on the wide route (kernels 16, 21, 22):
               the natural mahal_and_logdet at N = 1e6 on the well-
               conditioned system of tests/test_wideblock.py, value and
@@ -83,8 +93,18 @@ Phases, one line of output each (or more):
               one call each; kernels 20' and 17' against their twins at
               their edge shapes (s = 3; C = 1 and 9; d = 9 and 15; float32
               and float64) on the inputs one inverse_blocks_cm (20') or
-              solve_cm (17') call hands them.
- 11. a JSON line of the kernels, then the final JSON status line.
+              solve_cm (17') call hands them; kernel 19' at the same
+              edge shapes on the inputs of inverse_blocks_cm.
+ 11. sweep-rt kernel 1 at block sizes 9-15 (csrc/rt_solve.cu's runtime-d
+              sweep) against its twin at d = 9, 12 (recorded), 15,
+              N = 1e6 and at float64, d = 12, N = 1e5, on the inputs one
+              mahal_and_logdet_cm call hands it; at d = 12, N = 1e6
+              mahal_and_logdet_cm's value and gradient and logdet_rows_cm
+              with backend="auto" against "torch" and the launch counts
+              of one call each; celerite's precision route (value and
+              gradient) at nblocks 6, N = 1e6 against "torch"; the kernel
+              at the edge shapes of [solve-rt].
+ 12. a JSON line of the kernels, then the final JSON status line.
 
 Any failure exits non-zero before the final line.  There is no CPU path:
 without a CUDA device, or without the package beside this script, it
@@ -446,47 +466,55 @@ def rel_inf(a, b):
 
 
 # the kernels that run one warp per chunk lane (csrc/rtcoop.cuh): the two
-# Takahashi walks, kernels 20' and 22, and the two collecting sweeps,
-# kernels 17' and 21
+# Takahashi walks, kernels 20' and 22, the two collecting sweeps, kernels
+# 17' and 21, the likelihood's sweep at d = 9-15 (kernel 1's runtime-d
+# instance) and the selected inversion's sweep, kernel 19'
 WARP_KERNELS = ("rt_takahashi_kernel", "wide_backward_kernel",
-                "rt_collect_kernel", "wide_solveinv_kernel")
+                "rt_collect_kernel", "wide_solveinv_kernel",
+                "rt_sweep_kernel", "rt_inverse_sweep_kernel")
 WARP_DS = (9, 12, 15)  # block sizes of their shared-memory report
 EDGES = ((9, 1), (9, 9), (15, 1), (15, 9))  # (d, C) at s = 3
-# each kernel's edge check: (module, wrapper, source, line of the TPU
-# kernel in pallas_wide.py, the entry whose top level hands it its inputs,
-# what s = 3 gives it)
+# each kernel's edge check: (module, wrapper, source, the TPU kernel, the
+# entry whose top level hands it its inputs, what s = 3 gives it)
+_TWO_ROWS = "two elimination rows, the first and one that carries"
 EDGE_KERNELS = {
     "takahashi_backward_rt": (
-        "sweep_cuda", "takahashi_backward_cuda", "rt_inverse.cu", 812,
-        "inverse_blocks_cm", "one recursion row"),
+        "sweep_cuda", "takahashi_backward_cuda", "rt_inverse.cu",
+        "pallas_wide.py:812", "inverse_blocks_cm", "one recursion row"),
     "backward_solve_takahashi_wide": (
         "wide_cuda", "backward_solve_takahashi_wide_cuda", "wide_backward.cu",
-        1199, "solve_and_inverse_cm",
+        "pallas_wide.py:1199", "solve_and_inverse_cm",
         "two rows of the back-substitution and the walk"),
     "forward_sweep_collect_rt": (
-        "sweep_cuda", "forward_sweep_collect_cuda", "rt_solve.cu", 366,
-        "solve_cm", "two elimination rows, the first and one that carries"),
+        "sweep_cuda", "forward_sweep_collect_cuda", "rt_solve.cu",
+        "pallas_wide.py:366", "solve_cm", _TWO_ROWS),
     "forward_sweep_solveinv_wide": (
-        "wide_cuda", "forward_sweep_solveinv_wide_cuda", "wide_sweep.cu", 998,
-        "solve_and_inverse_cm",
-        "two elimination rows, the first and one that carries"),
+        "wide_cuda", "forward_sweep_solveinv_wide_cuda", "wide_sweep.cu",
+        "pallas_wide.py:998", "solve_and_inverse_cm", _TWO_ROWS),
+    "forward_sweep_inverse_rt": (
+        "sweep_cuda", "forward_sweep_inverse_cuda", "rt_inverse.cu",
+        "pallas_wide.py:641", "inverse_blocks_cm", _TWO_ROWS),
+    "forward_sweep_rt": (
+        "sweep_cuda", "forward_sweep_cuda", "rt_solve.cu",
+        "pallas_sweep.py:248", "mahal_and_logdet_cm", _TWO_ROWS),
 }
 
 
 def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels):
-    """Each of ``kernels`` (keys of EDGE_KERNELS: 20' and 17' in
-    [solve-rt], 22 and 21 in [wide]) against its twin at the edge shapes
-    of the warp-per-lane kernels: s = 3, shorter than any chunk the engine
-    hands them (32 or 128); C = 1, a lone lane, and C = 9, a ragged second
-    tile of 8 (float32) or 4 (float64) lanes; d = 9 and 15; float32 and
-    float64; on the inputs the top level of one call of the kernel's
-    entry (inverse_blocks_cm, solve_and_inverse_cm or solve_cm) hands it,
-    under no_grad."""
+    """Each of ``kernels`` (keys of EDGE_KERNELS: 20', 17' and 19' in
+    [solve-rt], 22 and 21 in [wide], kernel 1's runtime-d instance in
+    [sweep-rt]) against its twin at the edge shapes of the warp-per-lane
+    kernels: s = 3, shorter than any chunk the engine hands them (32 or
+    128); C = 1, a lone lane, and C = 9, a ragged second tile of 8
+    (float32) or 4 (float64) lanes; d = 9 and 15; float32 and float64; on
+    the inputs the top level of one call of the kernel's entry
+    (inverse_blocks_cm, solve_and_inverse_cm, solve_cm or
+    mahal_and_logdet_cm) hands it, under no_grad."""
     from cyclic_gps_tpu_torch.ops import sweep_cuda, wide_cuda
 
     modules = {"sweep_cuda": sweep_cuda, "wide_cuda": wide_cuda}
     for kernel in kernels:
-        mod_name, attr, src, line, entry, why = EDGE_KERNELS[kernel]
+        mod_name, attr, src, tpu, entry, why = EDGE_KERNELS[kernel]
         module = modules[mod_name]
         twin = getattr(module, attr.replace("_cuda", "_plain"))
         run = getattr(pt, entry)
@@ -512,7 +540,7 @@ def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels):
                 args_k, kw_k = captured[attr]
                 check_kernel(
                     kernel, f"cyclic_gps_tpu_torch/csrc/{src}",
-                    f"cyclic_gps_tpu/ops/pallas_wide.py:{line}",
+                    f"cyclic_gps_tpu/ops/{tpu}",
                     getattr(module, attr), twin, args_k, rtol, atol,
                     f"edge: d = {d}, s = 3, C = {c}, {dtype}; {why}; atol "
                     f"{atol:g} of each output's scale",
@@ -924,10 +952,321 @@ def run_solve_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
                     bars=(1e-9, 1e-10))
     del system
     torch.cuda.empty_cache()
-    # kernels 20' and 17' at their edge shapes
+    # kernels 20', 17' and 19' at their edge shapes
     run_edges(dev, "solve-rt", captured, capture, check_kernel, pt,
-              ("takahashi_backward_rt", "forward_sweep_collect_rt"))
+              ("takahashi_backward_rt", "forward_sweep_collect_rt",
+               "forward_sweep_inverse_rt"))
     say(f"[solve-rt] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+SWEEP_RT_DS = (9, 12, 15)  # kernel 1's runtime-d sizes checked; 12 recorded
+
+
+def run_sweep_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
+                       pt, celerite, ts_c, xs_c):
+    """Phase 11: kernel 1 at d = 9-15 (rt_solve.cu's runtime-d sweep) and
+    the paths it opens: the chunk-major (mahal, logdet) with its gradient,
+    the per-row log-dets, and celerite's precision route at nblocks 6."""
+    from cyclic_gps_tpu_torch.ops import sweep_cuda
+
+    t_phase = time.perf_counter()
+    wrapper = sweep_cuda.forward_sweep_cuda
+
+    def chunked(system):
+        return pt._chunk_layout(*system, pt.default_chunk_len(
+            system[0].shape[0]))[:3]
+
+    def check_on_inputs(cm, label, record, reps, bars):
+        """Kernel 1's runtime-d instance against its twin on the inputs one
+        mahal_and_logdet_cm call hands it (its top level)."""
+        captured.clear()
+        orig = capture(sweep_cuda, "forward_sweep_cuda")
+        try:
+            with torch.no_grad():
+                pt.mahal_and_logdet_cm(*cm)
+            torch.cuda.synchronize()
+        finally:
+            sweep_cuda.forward_sweep_cuda = orig
+        args_k, kw_k = captured["forward_sweep_cuda"]
+        s, d, _, c = args_k[0].shape
+        rtol, atol = bars
+        check_kernel(
+            "forward_sweep_rt", "cyclic_gps_tpu_torch/csrc/rt_solve.cu",
+            "cyclic_gps_tpu/ops/pallas_sweep.py:248", wrapper,
+            sweep_cuda.forward_sweep_plain, args_k, rtol, atol,
+            f"{label}: d = {d}, s = {s}, C = {c}, {args_k[0].dtype}; {s - 1} "
+            f"dependent elimination steps, mh and ld summed over {s * c} "
+            f"rows in another order; atol {atol:g} of each output's scale",
+            kw=kw_k, atol_of_scale=True, record=record, phase="sweep-rt",
+            reps=reps)
+        captured.clear()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    def mahal_grads(cm, backend):
+        leaves = [t.clone().requires_grad_() for t in cm]
+        mh, ld = pt.mahal_and_logdet_cm(*leaves, backend=backend)
+        g = torch.autograd.grad(0.3 * mh + 0.7 * ld, leaves)
+        return mh.detach(), ld.detach(), g
+
+    def ld_rows(cm, backend):
+        with torch.no_grad():
+            return pt.logdet_rows_cm(cm[0], cm[1], backend=backend)
+
+    def reset():
+        wrapper.launches = wrapper.launches_rt = 0
+
+    torch.cuda.empty_cache()
+    say(f"[sweep-rt] kernel 1 at block sizes {SWEEP_RT_DS} (csrc/rt_solve.cu"
+        f"'s runtime-d sweep) on the chunk-major system of "
+        f"tests/test_wideblock.py at N {N_BIG} (s 128), float32, seeded on "
+        "the card; mahal_and_logdet_cm (loss 0.3 mh + 0.7 ld) and "
+        "logdet_rows_cm with backend='auto' against 'torch'")
+    f32_bars = (1e-3, 1e-4)  # the [kernels] bars of kernel 1
+    for d in SWEEP_RT_DS:
+        cm = chunked(nat_system(N_BIG, d, dev, seed=50 + d))
+        check_on_inputs(cm, f"N {N_BIG}", record=d == WIDE_D,
+                        reps=REPS if d == WIDE_D else 1, bars=f32_bars)
+        if d != WIDE_D:
+            del cm
+            torch.cuda.empty_cache()
+            continue
+        # the paths: counts reset just before each call, read just after
+        reset()
+        ms_a, (mh_a, ld_a, g_a) = timed(lambda: mahal_grads(cm, "auto"))
+        n_mahal = (wrapper.launches, wrapper.launches_rt)
+        reset()
+        rms_a, rows_a = timed(lambda: ld_rows(cm, "auto"))
+        n_rows = (wrapper.launches, wrapper.launches_rt)
+        say(f"[sweep-rt] launches of forward_sweep_cuda (rank-templated, "
+            f"runtime-d) in one backend='auto' mahal_and_logdet_cm value + "
+            f"gradient at d {d}: {n_mahal}; in one logdet_rows_cm call: "
+            f"{n_rows}")
+        for label, (n_rank, n_rt) in (("mahal_and_logdet_cm", n_mahal),
+                                      ("logdet_rows_cm", n_rows)):
+            if n_rt <= 0 or n_rank:
+                fail(f"{label} at d = {d} did not take kernel 1's runtime-d "
+                     "instance alone")
+        for r in rows:
+            if r["name"] == "forward_sweep_rt":
+                r["launches"] = n_mahal[1] + n_rows[1]
+        ms_t, (mh_t, ld_t, g_t) = timed(lambda: mahal_grads(cm, "torch"))
+        rels = [abs(float(a) - float(b)) / abs(float(b))
+                for a, b in ((mh_a, mh_t), (ld_a, ld_t))]
+        g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
+        ok = (max(rels) <= 1e-4 and max(g_rels) <= grad_bar
+              and all(bool(torch.isfinite(t).all()) for t in g_a))
+        say(f"[sweep-rt] mahal_and_logdet_cm d {d}: mh {float(mh_a):.6f} / "
+            f"{float(mh_t):.6f}, ld {float(ld_a):.6f} / {float(ld_t):.6f} "
+            f"(auto / torch), rel diff {rels[0]:.3e}, {rels[1]:.3e} <= 1e-4 "
+            f"(the likelihood's bar at N = 1e6); gradient per-input rel "
+            f"diff R {g_rels[0]:.2e}, O {g_rels[1]:.2e}, y {g_rels[2]:.2e} "
+            f"<= {grad_bar:g}; value + gradient auto {ms_a:.1f} ms, torch "
+            f"{ms_t:.1f} ms (host clock) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"mahal_and_logdet_cm at d = {d} disagrees with 'torch'")
+        del g_a, g_t
+        rms_t, rows_t = timed(lambda: ld_rows(cm, "torch"))
+        compare(f"logdet_rows_cm d {d}", rows_a, rows_t, 0.0, 1e-4,
+                atol_of_scale=True)
+        say(f"[sweep-rt] logdet_rows_cm d {d} ([s, C] = "
+            f"{list(rows_a.shape)}): auto {rms_a:.1f} ms, torch {rms_t:.1f} "
+            "ms (host clock); agree (max |auto - torch| <= 1e-4 of the "
+            "largest row)")
+        del cm, rows_a, rows_t
+        torch.cuda.empty_cache()
+    system = tuple(t.double() for t in nat_system(N_RT64, WIDE_D, dev,
+                                                  seed=70))
+    check_on_inputs(chunked(system), f"N {N_RT64}", record=False, reps=1,
+                    bars=(1e-9, 1e-10))
+    del system
+    torch.cuda.empty_cache()
+
+    # celerite's precision route at nblocks 6: kernel 12, then the reduced
+    # system's top level through kernel 1 at rank 12 (C = 245)
+    p6 = celerite.init_params(CEL_NB_WIDE, 1, generator=torch.Generator()
+                              .manual_seed(6), device=dev)
+    cel_leaves = ("n_diag", "n_sub", "r_sub", "lambda_params", "b")
+
+    def cel_grads(**kw):
+        v = celerite.log_likelihood(p6, ts_c, xs_c, **kw)
+        return v.detach(), torch.autograd.grad(v, list(p6.parameters()))
+
+    reset()
+    ms_a, (v_a, g_a) = timed(cel_grads)
+    n_cel = (wrapper.launches, wrapper.launches_rt)
+    ms_t, (v_t, g_t) = timed(lambda: cel_grads(backend="torch"))
+    rel = abs(float(v_a) - float(v_t)) / abs(float(v_t))
+    g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
+    ok = (n_cel[1] > 0 and bool(torch.isfinite(v_a)) and rel <= 1e-4
+          and max(g_rels) <= grad_bar
+          and all(bool(torch.isfinite(a).all()) for a in g_a))
+    say(f"[sweep-rt] celerite log_likelihood (precision route) nblocks "
+        f"{CEL_NB_WIDE}, N {N_BIG}, bench grid: auto {float(v_a):.6f}, torch "
+        f"{float(v_t):.6f}, rel diff {rel:.3e} <= 1e-4; gradient per-leaf "
+        "rel diff "
+        + ", ".join(f"{k} {v:.2e}" for k, v in zip(cel_leaves, g_rels))
+        + f" <= {grad_bar:g}; value + gradient auto {ms_a:.1f} ms, torch "
+        f"{ms_t:.1f} ms (host clock); forward_sweep_cuda launches "
+        f"(rank-templated, runtime-d) {n_cel} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("celerite's precision route at nblocks 6 failed")
+
+    # kernel 1's runtime-d instance at the edge shapes
+    run_edges(dev, "sweep-rt", captured, capture, check_kernel, pt,
+              ("forward_sweep_rt",))
+    say(f"[sweep-rt] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+ADJ_EDGE_NBS = (1, 2, 5, 8)  # kernel 15's edge nblocks, obs 1 and 2
+
+
+def run_adjoint_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
+                      xs_c):
+    """Kernel 15's two designs (one thread per lane, routed at nblocks
+    1..4; one warp per lane, routed at 5..8 and forced by ``warp=True``)
+    against its twin at nblocks 1, 2, 5, 8 and obs 1, 2 on the inputs one
+    filter-route gradient hands it at N = 283 (s = 32, C = 9: a ragged
+    last chunk and a ragged second tile of 8 lanes) and on lane 0 of them
+    alone (C = 1); then both designs at nblocks 2 and the routed one at
+    nblocks 6, N = 1e6 on the bench grid (the inputs of the training
+    steps), timed."""
+    wrapper = celerite_cuda.celerite_filter_adjoint_cuda
+
+    def inputs(nb, q, t, x, seed):
+        p = celerite.init_params(nb, q, generator=torch.Generator()
+                                 .manual_seed(seed), device=dev)
+        got = {}
+        orig = celerite.celerite_filter_adjoint_cuda
+
+        def spy(*a):
+            got["args"] = a
+            return orig(*a)
+
+        celerite.celerite_filter_adjoint_cuda = spy
+        try:
+            torch.autograd.grad(celerite.log_likelihood_filter(p, t, x),
+                                list(p.parameters()))
+            torch.cuda.synchronize()
+        finally:
+            celerite.celerite_filter_adjoint_cuda = orig
+        return got["args"]
+
+    def lane0(args):
+        gb, b, lam, dt, gv, real, y, hists, cots = args
+        f = lambda t: t[..., :1].contiguous()  # noqa: E731
+        return (gb, b, lam, f(dt), f(gv), f(real), f(y),
+                tuple(map(f, hists)), tuple(map(f, cots)))
+
+    def check(args, label, reps, warp=False):
+        nb, c = args[0].shape[0], args[3].shape[-1]
+        before = wrapper.launches_warp
+        design = ("warp per lane" if warp or nb >= celerite_cuda.WARP_NBLOCKS
+                  else "thread per lane")
+        check_kernel(
+            "celerite_filter_adjoint",
+            "cyclic_gps_tpu_torch/csrc/celerite_adjoint.cu",
+            "cyclic_gps_tpu/ops/celerite_pallas.py:813",
+            functools.partial(wrapper, warp=warp),
+            celerite_cuda.celerite_filter_adjoint_plain, args, 1e-3, 1e-4,
+            f"{label}, {design}: nblocks {nb}, obs {args[6].shape[1]}, s "
+            f"{args[3].shape[0]}, C {c}; {args[3].shape[0]} dependent "
+            "adjoint steps, bbar and lambar summed over the lanes in "
+            "another order; atol 1e-4 of each output's scale",
+            atol_of_scale=True, record=False, phase="celerite", reps=reps)
+        if (wrapper.launches_warp > before) != (design == "warp per lane"):
+            fail(f"kernel 15 at nblocks {nb} took the wrong design")
+
+    rng = torch.Generator().manual_seed(9)
+    n = 32 * 9 - 5
+    t_e = torch.cumsum(torch.randint(1, 5, (n,), generator=rng) * 0.125,
+                       0).to(dev)
+    for nb in ADJ_EDGE_NBS:
+        for q in (1, 2):
+            x_e = torch.randn(n, q, generator=rng).to(dev)
+            args = inputs(nb, q, t_e, x_e, seed=10 * nb + q)
+            for warp in (False, True) if nb < celerite_cuda.WARP_NBLOCKS \
+                    else (False,):
+                check(args, "edge", 1, warp)
+                check(lane0(args), "edge, one lane", 1, warp)
+    # the two designs at nblocks 2 (the routing's evidence), then nblocks 6
+    args = inputs(CEL_NB_SMALL, 1, ts_c, xs_c, seed=1)
+    for warp in (False, True, True, False):
+        check(args, f"N {N_BIG}, the bench grid", 3, warp)
+    check(inputs(CEL_NB_WIDE, 1, ts_c, xs_c, seed=0),
+          f"N {N_BIG}, the bench grid", 3)
+
+
+def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
+                       grad_bar):
+    """The float32 training default on a large irregular grid: fit(loss=
+    None) picks "cr_residual" (leg.log_likelihood_residual); its value and
+    gradient with backend="auto" against "torch", then two steps of fit
+    with the launch counts of the kernels it runs."""
+    chosen = loop._default_loss(ts, xs)
+    if chosen != "cr_residual":
+        fail(f"fit(loss=None) at float32, N {N_BIG} irregular picks "
+             f"{chosen!r}, not 'cr_residual'")
+    p = leg.init_params(RANK, OBS, generator=torch.Generator().manual_seed(3),
+                        dtype=torch.float32, device=dev)
+    leaves = ("n_params", "r_params", "lambda_params", "b")
+
+    def value_and_grads(backend):
+        v = leg.log_likelihood_residual(p, ts, xs, backend=backend)
+        return v.detach(), torch.autograd.grad(v, list(p.parameters()))
+
+    ms_a, (v_a, g_a) = host_ms(lambda: value_and_grads("auto"), reps=1)
+    ms_t, (v_t, g_t) = host_ms(lambda: value_and_grads("torch"), reps=1)
+    rel = abs(float(v_a) - float(v_t)) / abs(float(v_t))
+    g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
+    ok = (bool(torch.isfinite(v_a)) and rel <= 1e-4
+          and max(g_rels) <= grad_bar
+          and all(bool(torch.isfinite(a).all()) for a in g_a))
+    say(f"[train] log_likelihood_residual N {N_BIG} irregular float32 (float64"
+        f" timestamps): auto {float(v_a):.6f} ({ms_a:.1f} ms value + "
+        f"gradient), torch {float(v_t):.6f} ({ms_t:.1f} ms), rel diff "
+        f"{rel:.3e} <= 1e-4; gradient per-leaf rel diff "
+        + ", ".join(f"{k} {v:.2e}" for k, v in zip(leaves, g_rels))
+        + f" <= {grad_bar:g} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("the residual likelihood: backend='auto' disagrees with 'torch'")
+    del g_a, g_t
+
+    wrappers = {
+        "transition_and_noise": expm_cuda.transition_and_noise_cuda,
+        "k_system": expm_cuda.k_system_cuda,
+        "k_system_adjoint": expm_cuda.k_system_adjoint_cuda,
+        "forward_sweep_collect": sweep_cuda.forward_sweep_collect_cuda,
+        "backward_substitute": sweep_cuda.backward_substitute_cuda,
+        "forward_sweep_solveinv": sweep_cuda.forward_sweep_solveinv_cuda,
+        "backward_solve_takahashi": sweep_cuda.backward_solve_takahashi_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    stamps = []
+
+    def stamp(step, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = loop.fit(p, ts, xs, num_steps=2, log_every=0, callback=stamp)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    step_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
+    say(f"[train] fit(loss=None, num_steps=2) at float32, N {N_BIG} "
+        f"irregular: loss 'cr_residual', losses {res.losses}, step ms "
+        f"{[round(t, 2) for t in step_ms]} (host clock, synchronised; the "
+        f"first step includes warm-up); launches {counts}")
+    if not all(math.isfinite(v) for v in res.losses):
+        fail(f"non-finite residual training loss: {res.losses}")
+    for k, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched by the residual train step")
 
 
 def main():
@@ -1018,12 +1357,30 @@ def main():
             ("rt_collect_kernel", lib.cgt_rt_collect_smem_bytes,
              lambda d: d),
             ("wide_solveinv_kernel", lib.cgt_wide_solveinv_smem_bytes,
-             lambda d: d - 8)):
+             lambda d: d - 8),
+            ("rt_sweep_kernel", lib.cgt_rt_sweep_smem_bytes, lambda d: d),
+            ("rt_inverse_sweep_kernel", lib.cgt_rt_inverse_sweep_smem_bytes,
+             lambda d: d)):
         say(f"[build] {kname}: one warp per chunk lane, 8 lanes (256 "
             "threads) per block at float32, 4 (128) at float64; dynamic "
             "shared bytes per block (float32 / float64) "
             + ", ".join(f"d {d}: {query(of_d(d), 0)} / {query(of_d(d), 1)}"
                         for d in WARP_DS))
+    # kernel 15: one warp per chunk lane at nblocks 5..8 (8 lanes per
+    # block), one thread per lane at 1..4
+    for fn_name, (regs, stack, spill) in sorted(_build.ptxas_report(
+            0, tag="celerite_filter_adjoint").items()):
+        base = re.search(r"\d+(celerite_filter_adjoint\w*?_kernel)I(\w*?)EEv",
+                         fn_name)
+        if base is None or regs is None:
+            continue
+        say(f"[build] {base.group(1)}<{base.group(2)}>: registers {regs}, "
+            f"stack {stack} B, spill stores {spill} B")
+    say("[build] celerite_filter_adjoint_kernel (warp per lane): dynamic "
+        "shared bytes per block (obs 1 / obs 2) "
+        + ", ".join(f"nblocks {nb}: {lib.cgt_celerite_adjoint_smem_bytes(nb, 1)}"
+                    f" / {lib.cgt_celerite_adjoint_smem_bytes(nb, 2)}"
+                    for nb in range(5, 9)))
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -1388,6 +1745,9 @@ def main():
     for key, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
             :10]:
         say(f"[train]   {key[:80]}: {ms:.3f} ms, {n} calls")
+    # the float32 default on this grid: the residual loss
+    run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
+                       grad_bar)
 
     # ---- 7. posterior: kernels 8-11, bench.py's solve, the path ----------
     post_kernels = ("forward_sweep_collect", "backward_substitute",
@@ -1697,6 +2057,7 @@ def main():
 
     for r in rows:
         r["kernel"].launches = 0
+    celerite_cuda.celerite_filter_adjoint_cuda.launches_warp = 0
     with torch.no_grad():
         ll_path = float(celerite.log_likelihood(p_train, ts_c, xs_c))
     torch.cuda.synchronize()
@@ -1709,11 +2070,16 @@ def main():
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
     cel_launches = {k: counters[k].launches for k in path_kernels}
+    adj_warp = celerite_cuda.celerite_filter_adjoint_cuda.launches_warp
     say(f"[celerite] launches in one log_likelihood call: {ll_launches}; "
-        f"then with {TRAIN_STEPS} Adam steps on nll_loss: {cel_launches}")
+        f"then with {TRAIN_STEPS} Adam steps on nll_loss: {cel_launches} "
+        f"(kernel 15's warp-per-lane instance: {adj_warp})")
     for k in path_kernels:
         if cel_launches[k] <= 0:
             fail(f"kernel {k} was not launched by the celerite path")
+    if adj_warp != cel_launches["celerite_filter_adjoint"]:
+        fail("kernel 15 did not take its warp-per-lane instance at nblocks "
+             f"{CEL_NB}")
     for r in rows:
         if r["name"] in cel_kernels:
             r["launches"] = cel_launches[r["name"]]
@@ -1754,6 +2120,10 @@ def main():
         f"{ms_auto:.2f} ms, torch {ms_plain:.2f} ms (host clock); agree "
         f"(atol 1e-3 of each output's scale: {why32})")
 
+    # kernel 15's two instances at its edge shapes, and at nblocks 6
+    run_adjoint_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
+                      xs_c)
+
     # ---- 9. wide: block sizes 9-15 (kernels 16, 21, 22) --------------------
     run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
                    grad_bar, celerite, loop, pt, ts_c, xs_c)
@@ -1762,7 +2132,11 @@ def main():
     run_solve_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
                        pt)
 
-    # ---- 11. summary -------------------------------------------------------
+    # ---- 11. sweep-rt: kernel 1 at 9-15 and the paths it opens --------------
+    run_sweep_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
+                       pt, celerite, ts_c, xs_c)
+
+    # ---- 12. summary -------------------------------------------------------
     say(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",

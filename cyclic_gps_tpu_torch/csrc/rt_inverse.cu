@@ -38,16 +38,20 @@
 // at d = 12, N = 1e6, float32: byte bounds of ~0.87 ms), and a recursion
 // row is a dependent chain of ~33 d^3 operations (~0.85 ms of float32
 // peak at that size; the bound at d = 15).  So both are bound by
-// how fast one lane can walk its rows, not by bytes.
+// how fast one lane can walk its rows, not by bytes.  Measured at d = 12,
+// N = 1e6 on an H100 SXM (700 W; chip_smoke.py, PERF.md): the sweep
+// 6.7 ms and the recursion 14.3 ms, 13.1 and 6.1 % of their byte bounds.
 //
-// The sweep keeps the first port's design: one thread per chunk lane,
-// blocks in local memory (rtblock.cuh, one instance per dtype).  The
-// recursion, the larger of the two, runs one warp per chunk lane on
-// rtcoop.cuh: the lane's 14 blocks in shared memory, every product spread
-// over the warp, the 8 lanes of a thread block loading and storing their
-// rows as whole 32-byte spans.  Its seven carried blocks (p00..p11, phi,
-// u0, u1) never leave the SM, and 16-24 warps per SM at float32 (8-12 at
-// float64), not ~2, hide the latency of the dependent chain.
+// Both run one warp per chunk lane on rtcoop.cuh, the lane's blocks in
+// shared memory, every product spread over the warp, and the 8 (float32)
+// or 4 (float64) lanes of a thread block loading and storing their rows as
+// whole 32-byte spans.  The sweep is rtcoop.cuh's Sweep step without its
+// right-hand side (6 blocks and 5 vectors per lane; the cooperative
+// Cholesky, the two forward solves of W0 and O_j^T in one pass) and
+// stores the four factors of every row.  The recursion holds 14 blocks per
+// lane; its seven carried blocks (p00..p11, phi, u0, u1) never leave the
+// SM, and 16-24 warps per SM at float32 (8-12 at float64), not ~2, hide
+// the latency of the dependent chain.
 #include "rtblock.cuh"
 #include "rtcoop.cuh"
 
@@ -55,35 +59,47 @@ namespace {
 
 using namespace cgt::rt;
 
+namespace co = cgt::coop;
+
+// The sweep: rtcoop.cuh's Sweep step without its right-hand side, storing
+// every row's raw factors.  Each thread stores and reloads the same
+// elements of its lane's pivot block (the tile mapping of load_m and
+// store_m), so D_j leaves the block before R_{j+1} lands in it without a
+// barrier between.
 template <typename T>
-__global__ void __launch_bounds__(CGT_THREADS)
+__global__ void __launch_bounds__(co::Tile<T>::THREADS, co::Tile<T>::MIN_BLOCKS)
 rt_inverse_sweep_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
                         T jitter, int s, int d, int C, T* acc00, T* w0l,
                         T* dl, T* invdl, T* ds, T* invds, T* cs, T* w0s) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  Carry<T> st;
-  Mat<T> o_left, P, o_j, t;
-  Vec<T> zero;
-  for (int i = 0; i < d; ++i) zero[i] = T(0);
-  load_m<T>(Om, 0, d, C, c, o_left);
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  T* sm = reinterpret_cast<T*>(cgt_smem);
+  const int stride = co::region(d, co::SW_BLOCKS, co::SW_VECS);
+  const co::Tiles<T> tile(sm, stride, d, C);
+  const co::Warp w(d);
+  const co::Tri tri(w);
+  const int tl = int(threadIdx.x) >> 5;  // this warp's lane of the tile
+  const bool live = int(blockIdx.x) * co::Tile<T>::LANES + tl < C;
+  co::Sweep<T> sw(sm + tl * stride, d, co::SW_BLOCKS);
+  const int o_invd = sw.vec(co::SW_INVD);
+  tile.load_m(Om, 0, sw.w0);  // o_left
   for (int j = 1; j < s; ++j) {
-    load_m<T>(Rm, j, d, C, c, P);
-    for (int i = 0; i < d; ++i) P[i][i] += jitter;
-    load_m<T>(Om, j, d, C, c, o_j);
-    elim_step<T>(j == 1, P, o_j, zero, o_left, st, t, d);
-    store_m<T>(ds, j - 1, d, C, c, st.D);
-    store_v<T>(invds, j - 1, d, C, c, st.invd);
-    store_m<T>(cs, j - 1, d, C, c, st.cprev);
-    store_m<T>(w0s, j - 1, d, C, c, st.w0);
+    tile.load_m(Rm, j, sw.p);
+    tile.load_m(Om, j, sw.o);
+    __syncthreads();
+    if (live) sw.template step<false>(w, tri, j == 1, jitter);
+    sw.advance(j == 1);
+    __syncthreads();
+    tile.store_m(ds, j - 1, sw.p);
+    tile.store_v(invds, j - 1, o_invd);
+    tile.store_m(cs, j - 1, sw.cp);
+    tile.store_m(w0s, j - 1, sw.w0);
   }
-  store_m<T>(acc00, 0, d, C, c, st.acc);
-  store_m<T>(w0l, 0, d, C, c, st.w0);
-  store_m<T>(dl, 0, d, C, c, st.D);
-  store_v<T>(invdl, 0, d, C, c, st.invd);
+  tile.store_m(acc00, 0, sw.block(co::SW_ACC));
+  tile.store_m(w0l, 0, sw.w0);
+  tile.store_m(dl, 0, sw.p);
+  tile.store_v(invdl, 0, o_invd);
 }
 
-namespace co = cgt::coop;
 
 // the recursion's lane region: 14 blocks and 1/diag D
 enum { TK_P00, TK_P01, TK_P10, TK_P11, TK_PHI, TK_U0, TK_U1, TK_D, TK_CM,
@@ -182,16 +198,24 @@ rt_takahashi_kernel(const T* __restrict__ ds, const T* __restrict__ invds,
   tile.store_m(u1f, 0, o_u1);
 }
 
-inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
+// dynamic shared bytes of one thread block of rt_inverse_sweep_kernel
+template <typename T>
+size_t inverse_sweep_smem(int d) {
+  return co::smem_bytes<T>(d, co::SW_BLOCKS, co::SW_VECS);
+}
 
 template <typename T>
 int launch_inverse_sweep(const T* R_cm, const T* O_cm, T jitter, int s, int d,
                          int C, T* acc00, T* w0l, T* dl, T* invdl, T* ds,
                          T* invds, T* cs, T* w0s, cudaStream_t stream) {
   if (!rt_size(d)) return int(cudaErrorInvalidValue);
-  rt_inverse_sweep_kernel<T><<<blocks_for(C), CGT_THREADS, 0, stream>>>(
-      R_cm, O_cm, jitter, s, d, C, acc00, w0l, dl, invdl, ds, invds, cs,
-      w0s);
+  const size_t smem = inverse_sweep_smem<T>(d);
+  const cudaError_t err = co::prepare(rt_inverse_sweep_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  rt_inverse_sweep_kernel<T><<<co::grid_for<T>(C), co::Tile<T>::THREADS,
+                               smem, stream>>>(R_cm, O_cm, jitter, s, d, C,
+                                               acc00, w0l, dl, invdl, ds,
+                                               invds, cs, w0s);
   return int(cudaGetLastError());
 }
 
@@ -244,6 +268,14 @@ extern "C" {
 CGT_RT_INVERSE(float, f32)
 CGT_RT_INVERSE(double, f64)
 #undef CGT_RT_INVERSE
+
+// dynamic shared bytes per thread block of the sweep at block size d (the
+// second argument 1 for float64)
+int cgt_rt_inverse_sweep_smem_bytes(int d, int f64) {
+  if (!cgt::rt::rt_size(d)) return -1;
+  return int(f64 ? inverse_sweep_smem<double>(d)
+                 : inverse_sweep_smem<float>(d));
+}
 
 // dynamic shared bytes per thread block of the recursion at block size d
 int cgt_rt_takahashi_smem_bytes(int d, int f64) {

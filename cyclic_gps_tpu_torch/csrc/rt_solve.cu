@@ -1,52 +1,65 @@
-// The two kernels of the block-tridiagonal solve x = J^{-1} y at block sizes
-// d = 9..15, with d a runtime argument, on the chunk-major layout.
+// The likelihood's fused sweep and the two kernels of the
+// block-tridiagonal solve x = J^{-1} y at block sizes d = 9..15, with d a
+// runtime argument, on the chunk-major layout.
 //
-// Replaces (cyclic_gps_tpu/ops/pallas_wide.py):
-//   rt_collect_kernel  <- :366 forward_sweep_collect_wide_pallas
+// Replaces:
+//   rt_sweep_kernel    <- cyclic_gps_tpu/ops/pallas_sweep.py:248
+//                         forward_sweep_pallas (kernel body _sweep_kernel,
+//                         :163) at d = 9..15, where forward_sweep.cu has no
+//                         instance (it takes 1..8 and 16)
+//   rt_collect_kernel  <- cyclic_gps_tpu/ops/pallas_wide.py:366
+//                         forward_sweep_collect_wide_pallas
 //                         (kernel body _wide_collect_kernel, :258)
-//   rt_backsub_kernel  <- :496 backward_substitute_wide_pallas
+//   rt_backsub_kernel  <- pallas_wide.py:496 backward_substitute_wide_pallas
 //                         (_wide_backsub_kernel, :462)
-// and stands for the plain Pallas kernels they are the wide twins of,
-// pallas_sweep.py:400 forward_sweep_collect_pallas and :1006
+// The last two stand for the plain Pallas kernels they are the wide twins
+// of, pallas_sweep.py:400 forward_sweep_collect_pallas and :1006
 // backward_substitute_pallas (kernels 8 and 9, solve_sweep.cu at d <= 8),
 // at d = 9..15: the same boundary, the same sweep, hats and pivot rule.
 //
-// The TPU kernels take the wide layout (an 8 x 8 block plus row-packed
-// strips), which exists for the TPU's 8-sublane tiles.  It is not carried
-// over: on the H100 it would only add relayout passes on the host and an
-// unpack / pack per block in the thread.  These kernels read and write the
-// chunk-major [s, d, d, C] / [s, d, C] stacks of kernels 8 and 9, so the
-// engine's glue (partitioned._hat_sweep, _back_substitute) is the same at
-// every d.
+// The TPU's wide kernels take the wide layout (an 8 x 8 block plus
+// row-packed strips), which exists for the TPU's 8-sublane tiles.  It is
+// not carried over: on the H100 it would only add relayout passes on the
+// host and an unpack / pack per block in the thread.  These kernels read
+// and write the chunk-major [s, d, d, C] / [s, d, C] stacks of kernels 1,
+// 8 and 9, so the engine's glue (partitioned._forward_state,
+// _ld_rows_cm_impl, _hat_sweep, _back_substitute) is the same at every d.
 //
-// Outputs as solve_sweep.cu: the sweep's final state (acc00, accy0, W0, w,
-// D, 1/diag D), the lanes' mh and ld partials, and for every interior step
-// j = 1..s-1 (stack row j-1) hat_C = D^{-T} C^T, hat_W0 = D^{-T} W0,
-// hat_w = D^{-T} w by back substitution against D^T, and the row's pivot
-// log-det 2 log|D_j|.  The back-substitution walks rows s-2 .. 0:
+// Outputs.  Both sweeps end with the state forward_sweep.cu writes
+// (acc00, accy0, W0, w, D, 1/diag D, the lanes' mh and ld partials) and
+// write every interior step's pivot log-det 2 log|D_j| (stack row j-1 for
+// step j = 1..s-1).  The collecting sweep also writes, per step, hat_C =
+// D^{-T} C^T, hat_W0 = D^{-T} W0 and hat_w = D^{-T} w by back
+// substitution against D^T.  The back-substitution walks rows s-2 .. 0:
 //   x_{s-1} = hat_w - hat_W0 x_b - hat_W1 x_{b,next}
 //   x_j     = hat_w - hat_W0 x_b - hat_C x_{j+1}
 //
 // What bounds them on the H100 (SXM peaks at its 700 W limit: 3.35 TB/s,
-// 67 TFLOP/s float32): per row the sweep reads 2 d^2 + d values and writes
+// 67 TFLOP/s float32): per row the likelihood's sweep reads 2 d^2 + d
+// values and writes one, the collecting sweep reads as much and writes
 // 2 d^2 + d + 1, the back-substitution reads 2 d^2 + d and writes d
-// (~2.4 GB and ~1.2 GB at d = 12, N = 1e6, float32: byte bounds of ~0.72
-// and ~0.37 ms).  A sweep row is a dependent chain of ~10 d^3 operations
-// that starts with a Cholesky of the pivot block, with C = N/s lanes
-// (7,813 at N = 1e6, s = 128): how fast one lane walks its rows bounds it.
+// (~1.2, ~2.4 and ~1.2 GB at d = 12, N = 1e6, float32: byte bounds of
+// ~0.36, ~0.72 and ~0.37 ms).  A sweep row is a dependent chain of ~8-10
+// d^3 operations that starts with a Cholesky of the pivot block, with
+// C = N/s lanes (7,813 at N = 1e6, s = 128): how fast one lane walks its
+// rows bounds them, not the bytes.  Measured at that size on an H100 SXM
+// (700 W; chip_smoke.py, PERF.md): the likelihood's sweep 6.6 ms and the
+// collecting sweep 8.6 ms (5.5 and 8.4 % of their byte bounds), the
+// back-substitution 9.3 ms (4.0 %).
 //
-// The sweep runs one warp per chunk lane on rtcoop.cuh (its Sweep step):
-// the lane's 7 blocks (the pivot and its factor, O_j and C_{j-1}, W0 and
-// its scratch partner, acc, hat_C) and 6 vectors in shared memory, the
-// Cholesky's trailing updates, the products and the triangular solves
-// spread over the warp (the elimination's two forward solves and w's in
-// one pass, the three hats in one back-substitution pass), and the 8
-// (float32) or 4 (float64) lanes of a thread block loading and storing
-// their rows as whole 32-byte spans.  The back-substitution, a chain of
-// two d x d matrix-vector products per row, keeps the first port's
-// design: one thread per chunk lane, its blocks in local memory
-// (rtblock.cuh; d is a runtime value, so one instance per dtype serves
-// d = 9..15).
+// The sweeps run one warp per chunk lane on rtcoop.cuh (its Sweep step):
+// the lane's blocks (the pivot and its factor, O_j and C_{j-1}, W0 and its
+// scratch partner, acc; the collecting sweep adds hat_C) and vectors in
+// shared memory, the Cholesky's trailing updates, the products and the
+// triangular solves spread over the warp (the elimination's two forward
+// solves and w's in one pass; the collecting sweep's three hats in one
+// back-substitution pass), and the 8 (float32) or 4 (float64) lanes of a
+// thread block loading and storing their rows as whole 32-byte spans.  The
+// likelihood's sweep is the collecting one without the hats: per row it
+// stores one number per lane.  The back-substitution, a chain of two
+// d x d matrix-vector products per row, keeps the first port's design:
+// one thread per chunk lane, its blocks in local memory (rtblock.cuh; d is
+// a runtime value, so one instance per dtype serves d = 9..15).
 #include "rtblock.cuh"
 #include "rtcoop.cuh"
 
@@ -117,6 +130,54 @@ rt_collect_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
   tile.store_s(ld, 0, o_sc + 2);
 }
 
+// The likelihood's sweep: rt_collect_kernel without the hats.  Per row
+// only the pivot log-det leaves the SM; the final state as
+// forward_sweep.cu's.
+template <typename T>
+__global__ void __launch_bounds__(co::Tile<T>::THREADS, co::Tile<T>::MIN_BLOCKS)
+rt_sweep_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
+                const T* __restrict__ ym, T jitter, int s, int d, int C,
+                T* acc00, T* accy0, T* w0l, T* wl, T* dl, T* invdl, T* mh,
+                T* ld, T* ld_rows) {
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  T* sm = reinterpret_cast<T*>(cgt_smem);
+  const int stride = co::region(d, co::SW_BLOCKS, co::SW_VECS);
+  const co::Tiles<T> tile(sm, stride, d, C);
+  const co::Warp w(d);
+  const co::Tri tri(w);
+  const int tl = int(threadIdx.x) >> 5;  // this warp's lane of the tile
+  const bool live = int(blockIdx.x) * co::Tile<T>::LANES + tl < C;
+  co::Sweep<T> sw(sm + tl * stride, d, co::SW_BLOCKS);
+  const int o_sc = sw.vec(co::SW_SC);
+  tile.load_m(Om, 0, sw.w0);  // o_left
+  for (int j = 1; j < s; ++j) {
+    tile.load_m(Rm, j, sw.p);
+    tile.load_m(Om, j, sw.o);
+    tile.load_v(ym, j, sw.y);
+    __syncthreads();
+    if (live) {
+      const T ldl = sw.step(w, tri, j == 1, jitter);
+      if (w.lane == 0) sw.at(o_sc)[0] = T(2) * ldl;
+    }
+    sw.advance(j == 1);
+    __syncthreads();
+    tile.store_s(ld_rows, j - 1, o_sc);
+  }
+  if (live && w.lane == 0) {
+    sw.at(o_sc)[1] = sw.mh;
+    sw.at(o_sc)[2] = sw.ld;
+  }
+  __syncthreads();
+  tile.store_m(acc00, 0, sw.block(co::SW_ACC));
+  tile.store_v(accy0, 0, sw.vec(co::SW_ACCY0));
+  tile.store_m(w0l, 0, sw.w0);
+  tile.store_v(wl, 0, sw.wv);
+  tile.store_m(dl, 0, sw.p);
+  tile.store_v(invdl, 0, sw.vec(co::SW_INVD));
+  tile.store_s(mh, 0, o_sc + 1);
+  tile.store_s(ld, 0, o_sc + 2);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(CGT_THREADS)
 rt_backsub_kernel(const T* __restrict__ hc, const T* __restrict__ hw0,
@@ -153,6 +214,27 @@ size_t collect_smem(int d) {
   return co::smem_bytes<T>(d, CL_BLOCKS, CL_VECS);
 }
 
+// dynamic shared bytes of one thread block of rt_sweep_kernel
+template <typename T>
+size_t sweep_smem(int d) {
+  return co::smem_bytes<T>(d, co::SW_BLOCKS, co::SW_VECS);
+}
+
+template <typename T>
+int launch_sweep(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
+                 int s, int d, int C, T* acc00, T* accy0, T* w0l, T* wl,
+                 T* dl, T* invdl, T* mh, T* ld, T* ld_rows,
+                 cudaStream_t stream) {
+  if (!rt_size(d)) return int(cudaErrorInvalidValue);
+  const size_t smem = sweep_smem<T>(d);
+  const cudaError_t err = co::prepare(rt_sweep_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  rt_sweep_kernel<T><<<co::grid_for<T>(C), co::Tile<T>::THREADS, smem,
+                       stream>>>(R_cm, O_cm, y_cm, jitter, s, d, C, acc00,
+                                 accy0, w0l, wl, dl, invdl, mh, ld, ld_rows);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int launch_collect(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
                    int s, int d, int C, T* acc00, T* accy0, T* w0l, T* wl,
@@ -184,6 +266,15 @@ int launch_backsub(const T* hc, const T* hw0, const T* hw, const T* hw1,
 extern "C" {
 
 #define CGT_RT_SOLVE(T, SUF)                                                  \
+  int cgt_rt_forward_sweep_##SUF(const T* R_cm, const T* O_cm,              \
+                                 const T* y_cm, T jitter, int s, int d,      \
+                                 int C, T* acc00, T* accy0, T* w0l, T* wl,   \
+                                 T* dl, T* invdl, T* mh, T* ld, T* ld_rows,  \
+                                 void* stream) {                             \
+    return launch_sweep<T>(R_cm, O_cm, y_cm, jitter, s, d, C, acc00, accy0, \
+                           w0l, wl, dl, invdl, mh, ld, ld_rows,              \
+                           (cudaStream_t)stream);                            \
+  }                                                                           \
   int cgt_rt_forward_sweep_collect_##SUF(                                    \
       const T* R_cm, const T* O_cm, const T* y_cm, T jitter, int s, int d,   \
       int C, T* acc00, T* accy0, T* w0l, T* wl, T* dl, T* invdl, T* mh,      \
@@ -204,7 +295,14 @@ CGT_RT_SOLVE(float, f32)
 CGT_RT_SOLVE(double, f64)
 #undef CGT_RT_SOLVE
 
-// dynamic shared bytes per thread block of the sweep at block size d
+// dynamic shared bytes per thread block of the likelihood's sweep at
+// block size d (the second argument 1 for float64)
+int cgt_rt_sweep_smem_bytes(int d, int f64) {
+  if (!cgt::rt::rt_size(d)) return -1;
+  return int(f64 ? sweep_smem<double>(d) : sweep_smem<float>(d));
+}
+
+// dynamic shared bytes per thread block of the collecting sweep
 int cgt_rt_collect_smem_bytes(int d, int f64) {
   if (!cgt::rt::rt_size(d)) return -1;
   return int(f64 ? collect_smem<double>(d) : collect_smem<float>(d));

@@ -1,7 +1,8 @@
 // Runtime-d block algebra: d x d blocks with d a RUNTIME value in 9..15,
-// shared by the wide-layout kernels (wide_sweep.cu, wide_backward.cu, through
-// wideblock.cuh) and the runtime-d kernels on the chunk-major layout
-// (rt_solve.cu, rt_inverse.cu).
+// of the kernels that keep one thread per chunk lane: the wide-layout sweep
+// (wide_sweep.cu's wide_sweep_kernel, through wideblock.cuh) and the
+// solve's back-substitution on the chunk-major layout (rt_solve.cu).  The
+// warp-per-lane kernels use rtcoop.cuh, which keeps these sums' order.
 //
 // One thread holds its lane's blocks as dense arrays sized for the largest
 // d, WMAX = 15, and every loop is rolled and bounded by d, so one instance

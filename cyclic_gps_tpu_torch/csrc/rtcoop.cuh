@@ -1,10 +1,13 @@
 // Cooperative runtime-d block algebra: ONE WARP PER CHUNK LANE, the lane's
 // d x d blocks in shared memory, d a runtime value in 9..15 (one instance
 // per dtype).  It carries the two Takahashi walks (rt_inverse.cu's
-// rt_takahashi_kernel, wide_backward.cu's wide_backward_kernel) and the two
-// forward sweeps that collect the backward's stacks (rt_solve.cu's
-// rt_collect_kernel, wide_sweep.cu's wide_solveinv_kernel), whose rows
-// start with a Cholesky of the pivot block (`chol`, `Sweep`).
+// rt_takahashi_kernel, wide_backward.cu's wide_backward_kernel) and four
+// forward sweeps on one elimination step (`Sweep`), whose rows start with
+// a Cholesky of the pivot block (`chol`): the likelihood's (rt_solve.cu's
+// rt_sweep_kernel), the two that collect the backward's stacks
+// (rt_solve.cu's rt_collect_kernel, wide_sweep.cu's wide_solveinv_kernel)
+// and the selected inversion's, which has no right-hand side
+// (rt_inverse.cu's rt_inverse_sweep_kernel).
 //
 // Why not rtblock.cuh's design (one thread per lane, every block in local
 // memory): a walk step is a dependent chain of ~30 d^3 operations over ~14
@@ -390,7 +393,10 @@ struct Sweep {
   // C_j = (D^{-1} O_j^T)^T, then the sums acc += W0^T W0, accy0 +=
   // W0^T w, mh += ||w||^2, ld += log|D|.  Returns the row's half
   // log-determinant.  The new state is read under the names `advance`
-  // gives; all but acc and accy0 are final when this returns.
+  // gives; all but acc and accy0 are final when this returns.  VEC =
+  // false drops the right-hand side (w, accy0, mh; Y is neither read nor
+  // written) for a sweep that has none, the selected inversion's.
+  template <bool VEC = true>
   __device__ __forceinline__ T step(const Warp& w, const Tri& tri,
                                     bool first, T jitter) {
     T* const P = me + p;
@@ -410,27 +416,29 @@ struct Sweep {
       }
       if (!first) X[q] = dot<T, false, false>(C, W0, c.i, c.k, w.d, w.ld);
     }
-    if (!first) mv_op<T, false, SUB>(w, C, me + wv, Y);
+    if (VEC && !first) mv_op<T, false, SUB>(w, C, me + wv, Y);
     __syncwarp();
     const T ldl = chol<T>(w, tri, P, invd);
     // W0 (or -(C W0)) and O^T solved in place, O stored as its transpose
     const Rhs<T> r0 = first ? Rhs<T>{W0, W0, false, false, false}
                             : Rhs<T>{X, X, false, false, true};
-    solve_pair<T, true>(w, P, invd, r0, Rhs<T>{O, O, true, true, false}, Y,
-                        Y);
+    solve_pair<T, true>(w, P, invd, r0, Rhs<T>{O, O, true, true, false},
+                        VEC ? Y : nullptr, VEC ? Y : nullptr);
     __syncwarp();
     const T* const W0n = first ? W0 : X;
     T* const acc = me + block(SW_ACC);
     T* const accy0 = me + vec(SW_ACCY0);
     if (first) {
       mm_op<T, true, false, SET>(w, W0n, W0n, acc);
-      mv_op<T, true, SET>(w, W0n, Y, accy0);
+      if (VEC) mv_op<T, true, SET>(w, W0n, Y, accy0);
     } else {
       mm_op<T, true, false, ADD>(w, W0n, W0n, acc);
-      mv_op<T, true, ADD>(w, W0n, Y, accy0);
+      if (VEC) mv_op<T, true, ADD>(w, W0n, Y, accy0);
     }
-    const T ww = sumsq<T>(w, Y);
-    mh = first ? ww : mh + ww;
+    if (VEC) {
+      const T ww = sumsq<T>(w, Y);
+      mh = first ? ww : mh + ww;
+    }
     ld = first ? ldl : ld + ldl;
     return ldl;
   }

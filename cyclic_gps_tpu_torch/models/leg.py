@@ -622,7 +622,8 @@ def _use_gap_fused(params, regular: bool, backend: str, n: int,
 
 
 def _k_system_chunked(params, ts: Tensor, xs: Tensor, s: int,
-                      regular: bool, backend: str = "auto", gap_fn=None):
+                      regular: bool, backend: str = "auto", gap_fn=None,
+                      return_sig_rows: bool = False):
     """Posterior-precision system K = Sigma^{-1} + I (x) B^T LLT^{-1} B
     emitted DIRECTLY in the partitioned engine's chunk-major layout
     ([s, r, r, C] / [s, r, C]), plus log|Sigma^{-1}|.
@@ -637,7 +638,9 @@ def _k_system_chunked(params, ts: Tensor, xs: Tensor, s: int,
     "torch" is plain end to end.)  ``gap_fn`` overrides the gap emission
     (see `_k_gap_parts_plain`; the celerite closed forms): K is then
     assembled with tensor ops on every backend, and ``params`` needs only
-    its ``b`` and ``lambda_params``.
+    its ``b`` and ``lambda_params``.  ``return_sig_rows=True`` appends the
+    valid-masked per-gap log|Q1| [s, C], whose sum is -log|Sigma^{-1}|
+    (the per-row pairing of `log_likelihood_residual`).
     """
     rank = params.rank
     llt = lambda_lambda_t(params)
@@ -656,6 +659,8 @@ def _k_system_chunked(params, ts: Tensor, xs: Tensor, s: int,
                                                  gap_fn)
     sig_logdet = -torch.sum(lq_cm)
     v_cm = _v_chunk_major(params, xs, llt, s, k_cm.shape[-1], dtype)
+    if return_sig_rows:
+        return k_cm, off_cm, v_cm, sig_logdet, lq_cm
     return k_cm, off_cm, v_cm, sig_logdet
 
 
@@ -736,6 +741,87 @@ def log_likelihood(
     mahal = llt_mahal - k_mahal
     logdet = llt_logdet + k_logdet - sig_inv_logdet
     return -0.5 * (mahal + logdet)
+
+
+@_highest_precision
+def log_likelihood_residual(
+    params: LEGParams, ts: Tensor, xs: Tensor, regular: bool = False,
+    backend: str = "auto",
+) -> Tensor:
+    """Float32-safe precision-form marginal log-likelihood (the JAX
+    package's ``log_likelihood_residual``).
+
+    Mathematically identical to `log_likelihood`; organised so that
+    single precision survives the smooth-fit regime, where K's blocks
+    scale like 1/(dt lambda_min) and the plain form's two large
+    (mahal, logdet) terms cancel:
+
+      * mahal: x^T LLT^{-1} x - v^T K^{-1} v is computed variationally
+        as r^T LLT^{-1} r + z^T Sigma^{-1} z, with z = K^{-1} v the
+        posterior mean and r = x - B z the residual: both terms are
+        nonnegative, and z minimises the quadratic, so the float32
+        solve's error in z enters only at second order.  z^T Sigma^{-1} z
+        uses the Markov factorisation |z_0|^2 + sum_i |L_i^{-1} (z_{i+1}
+        - e_i z_i)|^2 (`_residual_quad_streamed`).
+      * logdet: log|K| - log|Sigma^{-1}| is summed per row pair,
+        sum_j (ld_row_j + log|Q1_j|), each pair O(1).  The per-row pivot
+        log-dets come from the solve's own sweep
+        (``partitioned.solve_and_ld_rows_cm``: kernels 8 and 9 on the
+        card, with their analytic adjoint).
+
+    Below the chunked threshold it is `log_likelihood`, as in the JAX
+    package.  ``backend`` as for `log_likelihood`."""
+    num_obs = ts.shape[0]
+    s = pt.default_chunk_len(num_obs)
+    if num_obs < max(pt._TERMINAL, 2 * s):
+        return log_likelihood(params, ts, xs, regular=regular,
+                              backend=backend)
+    llt = lambda_lambda_t(params)
+    g = g_matrix(params)
+    llt_logdet = num_obs * torch.linalg.slogdet(2.0 * math.pi * llt)[1]
+
+    k_cm, o_cm, v_cm, _, lq_cm = _k_system_chunked(
+        params, ts, xs, s, regular, backend, return_sig_rows=True)
+    x_pad, ld_rows = pt.solve_and_ld_rows_cm(k_cm, o_cm, v_cm,
+                                             backend=backend)
+    z = x_pad[:num_obs]  # posterior mean [N, r]
+    logdet = llt_logdet + torch.sum(ld_rows + lq_cm)
+
+    r = xs - z @ params.b.T
+    r_mahal = torch.sum(r * torch.linalg.solve(llt, r.T).T)
+
+    diffs = (ts[1:] - ts[:-1]).to(llt.dtype)
+    z_em = sb.vec_to_em(z)  # [r, N]
+    z_sig_z = (torch.sum(z_em[:, 0] ** 2)
+               + _residual_quad_streamed(g, diffs, z_em, backend=backend))
+    return -0.5 * (r_mahal + z_sig_z + logdet)
+
+
+def _residual_quad_streamed(g: Tensor, diffs: Tensor, z_em: Tensor,
+                            slab: int = _ADJ_SLAB,
+                            backend: str = "auto") -> Tensor:
+    """sum_i |L_i^{-1} (z_{i+1} - e_i z_i)|^2 (the Markov-factorised
+    posterior-mean quadratic of `log_likelihood_residual`), evaluated in
+    gap slabs under ``torch.utils.checkpoint``, as
+    `_gap_terms_dense_streamed`: the backward of `transition_and_noise_em`
+    over all gaps at once would hold ~10 [r, r, M] temporaries, so each
+    slab's forward is recomputed in the backward instead of stored."""
+
+    def quad(dt_sl, z0_sl, z1_sl):
+        e, q1 = transition_and_noise_em(g, dt_sl, backend)
+        dz = z1_sl - sb.matvec(e, z0_sl)
+        lq1, invd1 = sb.cholesky(q1)
+        w = sb.solve_lower_vec(lq1, invd1, dz)
+        return torch.sum(w * w)
+
+    m = diffs.shape[0]
+    z0, z1 = z_em[:, :-1], z_em[:, 1:]  # each gap's two ends
+    if m <= slab:
+        return quad(diffs, z0, z1)
+    sums = [checkpoint(quad, diffs[i:i + slab], z0[:, i:i + slab],
+                       z1[:, i:i + slab], use_reentrant=False)
+            for i in range(0, m, slab)]
+    return torch.sum(torch.stack(sums))
 
 
 # ---------------------------------------------------------------------------

@@ -85,6 +85,10 @@ _SIGNATURES = {
     "cgt_celerite_filter_adjoint_f32": [_P] * 17 + [_I, _I, _I, _I]
     + [_P] * 5 + [_P],
 }
+# kernel 15's warp-per-lane design at every nblocks (the routed entry
+# takes it at 5..8 only)
+_SIGNATURES["cgt_celerite_filter_adjoint_warp_f32"] = _SIGNATURES[
+    "cgt_celerite_filter_adjoint_f32"]
 # the wide kernels, float32 and float64 (outputs, then the stream)
 _SIGNATURES.update({
     name + suf: argtypes
@@ -95,17 +99,22 @@ _SIGNATURES.update({
          [_P] * 5 + [real, _I, _I, _I] + [_P] * 18 + [_P]),
         ("cgt_wide_backward", [_P] * 19 + [_I, _I, _I] + [_P] * 9 + [_P]))
 })
-# the dynamic shared bytes per thread block of the four warp-per-lane
-# kernels (rt_inverse.cu's recursion and rt_solve.cu's sweep at block size
-# d, wide_backward.cu's and wide_sweep.cu's collecting sweep at 8 + e; the
-# second argument 1 for float64)
+# the dynamic shared bytes per thread block of the six warp-per-lane
+# kernels (rt_inverse.cu's sweep and recursion and rt_solve.cu's two
+# sweeps at block size d, wide_backward.cu's and wide_sweep.cu's
+# collecting sweep at 8 + e; the second argument 1 for float64) and of the
+# celerite filter adjoint at nblocks and obs_dim
 _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes",
-    "cgt_rt_collect_smem_bytes", "cgt_wide_solveinv_smem_bytes")})
-# the runtime-d kernels of the solve and the selected inversion (d = 9..15)
-# take the arguments of their rank-templated counterparts
-for _base in ("forward_sweep_collect", "backward_substitute",
-              "forward_sweep_inverse", "takahashi_backward"):
+    "cgt_rt_collect_smem_bytes", "cgt_wide_solveinv_smem_bytes",
+    "cgt_rt_sweep_smem_bytes", "cgt_rt_inverse_sweep_smem_bytes",
+    "cgt_celerite_adjoint_smem_bytes")})
+# the runtime-d kernels of the likelihood's sweep, the solve and the
+# selected inversion (d = 9..15) take the arguments of their
+# rank-templated counterparts
+for _base in ("forward_sweep", "forward_sweep_collect",
+              "backward_substitute", "forward_sweep_inverse",
+              "takahashi_backward"):
     for _suf in ("_f32", "_f64"):
         _SIGNATURES[f"cgt_rt_{_base}{_suf}"] = _SIGNATURES[
             f"cgt_{_base}{_suf}"]
@@ -214,28 +223,36 @@ def load() -> ctypes.CDLL:
 # Block sizes each kernel is instantiated for: every kernel takes 1..8;
 # the engine's forward sweep and its two backward kernels (Queue 2 items
 # 1, 6 and 7) also take 16, the boundary chain of the celerite family at
-# nblocks = 8; the solve and selected-inversion kernels (items 8-11) also
-# take 9..15, through one runtime-d instance per dtype (items 17-20).
+# nblocks = 8; the forward sweep (item 1) and the solve and
+# selected-inversion kernels (items 8-11) also take 9..15, through one
+# runtime-d instance per dtype (rt_solve.cu's likelihood sweep and items
+# 17-20).
 RANKS = tuple(range(1, 9))
 SWEEP_RANKS = RANKS + (16,)
 SOLVE_RANKS = RANKS + tuple(range(9, 16))
+FORWARD_RANKS = SWEEP_RANKS + tuple(range(9, 16))
+
+
+def runtime_d(r: int) -> bool:
+    """Whether block size ``r`` takes a runtime-d instance (9..15)."""
+    return 8 < r < 16
 
 
 def check_rank(r: int, name: str, sizes=RANKS) -> None:
     """Refuse a block size the kernel was not instantiated for."""
     if r not in sizes:
-        have = ("1..15" if 9 in sizes
-                else "1..8" + (", 16" if 16 in sizes else ""))
+        have = ("1..8" + (", 9..15" if 9 in sizes else "")
+                + (", 16" if 16 in sizes else ""))
         raise ValueError(
             f"{name}: block size {r} has no CUDA kernel (instantiated for "
-            f"{have}); at sizes 9-15 the card runs the "
-            "natural-layout mahal_and_logdet (the wide-layout kernels, "
-            "ops/wide_cuda.py) and the solve and selected-inversion kernels "
-            "(runtime-d instances, csrc/rt_solve.cu and csrc/rt_inverse.cu); "
-            "the likelihood's sweep and backward kernels and the emission "
-            "kernels at 9-15, and rank 16 of the emission, solve and "
-            "selected-inversion kernels, wait for their own instantiation "
-            "(ROADMAP.md, Queue 2)")
+            f"{have}); at sizes 9-15 the card runs the likelihood's "
+            "forward sweep, the solve and the selected inversion "
+            "(runtime-d instances, csrc/rt_solve.cu and csrc/rt_inverse.cu) "
+            "and the natural-layout mahal_and_logdet with its gradient (the "
+            "wide-layout kernels, ops/wide_cuda.py); the likelihood's "
+            "backward pair and the emission kernels at 9-15, and rank 16 of "
+            "the emission, solve and selected-inversion kernels, wait for "
+            "their own instantiation (ROADMAP.md, Queue 2)")
 
 
 def check_no_grad(name: str, *tensors) -> None:

@@ -42,6 +42,9 @@ Tensor = torch.Tensor
 
 NBLOCKS = tuple(range(1, 9))  # instantiated oscillator counts (rank 2..16)
 OBS_DIMS = (1, 2)  # instantiated observation sizes of the filter kernels
+# the filter adjoint runs one warp per chunk lane from this nblocks up
+# (csrc/celerite_adjoint.cu's WARP_NB), one thread per lane below
+WARP_NBLOCKS = 5
 
 
 def _cel():
@@ -316,7 +319,7 @@ celerite_filter_collect_cuda.launches = 0
 def celerite_filter_adjoint_cuda(gb: Tensor, b: Tensor, lam: Tensor,
                                  dt_cm: Tensor, gv_cm: Tensor,
                                  real_cm: Tensor, y_cm: Tensor, hists,
-                                 cots):
+                                 cots, warp: bool = False):
     """Analytic adjoint of the conditional-filter sweep.
 
     Inputs as `celerite_filter_cuda`, plus ``hists`` = (a_h, F_h, P_h)
@@ -328,8 +331,11 @@ def celerite_filter_adjoint_cuda(gb: Tensor, b: Tensor, lam: Tensor,
     summed here from per-lane partials in a fixed order (no atomics).
 
     CUDA tensors launch ``csrc/celerite_adjoint.cu``
-    (``celerite_filter_adjoint_cuda.launches``); CPU tensors run
-    `celerite_filter_adjoint_plain`.
+    (``celerite_filter_adjoint_cuda.launches``): one warp per chunk lane
+    at nblocks 5..8 (``.launches_warp`` counts those launches), one
+    thread per lane at 1..4, where it is the faster design; ``warp=True``
+    takes the warp-per-lane design at every nblocks (to time the two).
+    CPU tensors run `celerite_filter_adjoint_plain`.
     """
     name = "celerite_filter_adjoint_cuda"
     args = (gb, b, lam, dt_cm, gv_cm, real_cm, y_cm)
@@ -353,14 +359,19 @@ def celerite_filter_adjoint_cuda(gb: Tensor, b: Tensor, lam: Tensor,
              (qd * qd, c)]]
     lib = _build.load()
     with torch.cuda.device(y_cm.device):
-        err = lib.cgt_celerite_filter_adjoint_f32(
+        entry = (lib.cgt_celerite_filter_adjoint_warp_f32 if warp
+                 else lib.cgt_celerite_filter_adjoint_f32)
+        err = entry(
             *[a.data_ptr() for a in (*args, *hists, *cots)], nb, qd, s, c,
             *[o.data_ptr() for o in outs], _stream())
     _build.check_launch(err, name)
     celerite_filter_adjoint_cuda.launches += 1
+    if warp or nb >= WARP_NBLOCKS:
+        celerite_filter_adjoint_cuda.launches_warp += 1
     ebar, qbar, ybar, b_part, l_part = outs
     return (ebar, qbar, ybar, torch.sum(b_part, dim=1).reshape(qd, r),
             torch.sum(l_part, dim=1).reshape(qd, qd))
 
 
 celerite_filter_adjoint_cuda.launches = 0
+celerite_filter_adjoint_cuda.launches_warp = 0

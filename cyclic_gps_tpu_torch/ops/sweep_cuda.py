@@ -22,9 +22,11 @@ Counterparts of ``cyclic_gps_tpu/ops/pallas_sweep.py``:
   takahashi_backward_pallas, the descending raw-factor Takahashi
   recursion.
 
-The last four take block sizes 1..8 as rank-templated instances and 9..15
-as runtime-d instances (``csrc/rt_solve.cu``, ``csrc/rt_inverse.cu``),
-which replace ``cyclic_gps_tpu/ops/pallas_wide.py``'s :366
+`forward_sweep_cuda` takes block sizes 9..15 through a runtime-d
+instance (``csrc/rt_solve.cu``'s likelihood sweep).  The last four take
+block sizes 1..8 as rank-templated instances and 9..15 as runtime-d
+instances (``csrc/rt_solve.cu``, ``csrc/rt_inverse.cu``), which replace
+``cyclic_gps_tpu/ops/pallas_wide.py``'s :366
 forward_sweep_collect_wide_pallas, :496 backward_substitute_wide_pallas,
 :641 forward_sweep_inverse_wide_pallas and :812
 takahashi_backward_wide_pallas on the chunk-major layout; a wrapper counts
@@ -127,16 +129,15 @@ def _check_sweep_inputs(name: str, R_cm: Tensor, O_cm: Tensor,
 
 
 def _solve_symbol(kernel: str, d: int) -> str:
-    """The C entry of a solve or selected-inversion kernel at block size
-    ``d``: the rank-templated instance at 1..8, the runtime-d one at
-    9..15."""
-    return ("cgt_rt_" if d > 8 else "cgt_") + kernel
+    """The C entry of a kernel at block size ``d``: the rank-templated
+    instance at 1..8 (and 16), the runtime-d one at 9..15."""
+    return ("cgt_rt_" if _build.runtime_d(d) else "cgt_") + kernel
 
 
 def _count_solve(wrapper, d: int) -> None:
     """Count one launch on ``wrapper``: ``launches`` for the rank-templated
     instance, ``launches_rt`` for the runtime-d one."""
-    if d > 8:
+    if _build.runtime_d(d):
         wrapper.launches_rt += 1
     else:
         wrapper.launches += 1
@@ -161,15 +162,17 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     partitioned._forward_sweep with collect=None).
 
     R_cm, O_cm [s, d, d, C], y_cm [s, d, C] (float32 or float64, s >= 2,
-    d in 1..8 or 16).  Returns (acc00 [d,d,C], accy0 [d,C], w0_last
+    d in 1..16).  Returns (acc00 [d,d,C], accy0 [d,C], w0_last
     [d,d,C], w_last [d,C], d_last [d,d,C], invd_last [d,C], mh, ld, ld_rows
     [s-1, C]): everything the reduced system and W1 assembly need, plus
     the per-row pivot log-dets of steps j = 1..s-1.  ``jitter`` is added
     to every pivot block's diagonal.  The per-lane partial sums of mh and
     ld are summed outside the kernel.
 
-    CUDA tensors launch ``csrc/forward_sweep.cu`` on the current stream
-    (``forward_sweep_cuda.launches`` counts the launches); CPU tensors run
+    CUDA tensors launch ``csrc/forward_sweep.cu`` at d in 1..8 and 16
+    (``forward_sweep_cuda.launches`` counts the launches) and
+    ``csrc/rt_solve.cu``'s runtime-d sweep at d = 9..15
+    (``.launches_rt``), on the current stream; CPU tensors run
     `forward_sweep_plain`.
     """
     name = "forward_sweep_cuda"
@@ -177,20 +180,21 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     if not R_cm.is_cuda:
         return forward_sweep_plain(R_cm, O_cm, y_cm, jitter)
     s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm,
-                                  _build.SWEEP_RANKS)
+                                  _build.FORWARD_RANKS)
     outs = [R_cm.new_empty(shape) for shape in
             [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
              (c,), (c,), (s - 1, c)]]
     with torch.cuda.device(R_cm.device):
-        _launch(name, "cgt_forward_sweep", R_cm.dtype, R_cm, O_cm, y_cm,
-                float(jitter), s, d, c, *outs)
-    forward_sweep_cuda.launches += 1
+        _launch(name, _solve_symbol("forward_sweep", d), R_cm.dtype, R_cm,
+                O_cm, y_cm, float(jitter), s, d, c, *outs)
+    _count_solve(forward_sweep_cuda, d)
     acc00, accy0, w0l, wl, dl, invdl, mh, ld, ld_rows = outs
     return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
             ld_rows)
 
 
 forward_sweep_cuda.launches = 0
+forward_sweep_cuda.launches_rt = 0
 
 
 def forward_sweep_solveinv_plain(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,

@@ -36,11 +36,19 @@ def nll_loss(params: leg.LEGParams, ts: Tensor, xs: Tensor) -> Tensor:
     return -leg.log_likelihood(params, ts, xs) / xs.numel()
 
 
-LOSSES = {"cr": nll_loss}
+def nll_loss_residual(params: leg.LEGParams, ts: Tensor,
+                      xs: Tensor) -> Tensor:
+    """Float32-safe precision-form NLL (`leg.log_likelihood_residual`):
+    the variational residual mahalanobis and per-row-paired log-dets.
+    Mathematically `nll_loss`; robust where it breaks at single precision
+    (large irregular grids trained at float32)."""
+    return -leg.log_likelihood_residual(params, ts, xs) / xs.numel()
+
+
+LOSSES = {"cr": nll_loss, "cr_residual": nll_loss_residual}
 
 # losses of the JAX package still to port, and where they stand in line
 _UNPORTED_LOSSES = {
-    "cr_residual": "ROADMAP.md, Queue 1: leg.log_likelihood_residual",
     "kalman": "ROADMAP.md, Queue 1: baselines/kalman.py",
     "kalman_regular": "ROADMAP.md, Queue 1: baselines/kalman.py",
     "kalman_ss": "ROADMAP.md, Queue 1: baselines/kalman.py",
@@ -174,7 +182,9 @@ def train_step(params: leg.LEGParams, opt: Optimizer, ts: Tensor,
 def _default_loss(ts: Tensor, xs: Tensor) -> str:
     """The loss the JAX package's ``fit(loss=None)`` picks, but for the
     steady-state check that can turn "kalman_regular" into "kalman_ss"
-    (both are unported)."""
+    (both are unported): "cr" at float64; at float32 "kalman_regular" on
+    a uniform grid, "cr_residual" on an irregular grid of more than
+    2^17 points and "kalman" below."""
     if xs.dtype == torch.float64:
         return "cr"
     d = np.diff(ts.detach().cpu().numpy())
@@ -201,9 +211,13 @@ def fit(
     callback: Optional[Callable[[int, float], None]] = None,
     loss: Optional[str] = None,
 ) -> FitResult:
-    """Full-batch training loop on the params' device.  ``loss=None``
-    picks what the JAX package picks: "cr" at float64; at float32 the
-    Kalman or residual losses, which are not ported yet and raise."""
+    """Full-batch training loop on the params' device.  ``loss``: "cr"
+    (the partitioned likelihood, `nll_loss`) or "cr_residual" (its
+    float32-safe precision form, `nll_loss_residual`).  ``loss=None``
+    picks what the JAX package picks (`_default_loss`): "cr" at float64;
+    at float32 "cr_residual" on an irregular grid of more than 2^17
+    points, else the Kalman losses, which are not ported yet and raise
+    ``NotImplementedError``."""
     device = params.b.device
     ts, xs = ts.to(device), xs.to(device)
     loss = loss or _default_loss(ts, xs)
