@@ -16,7 +16,11 @@ Phases, one line of output each (or more):
               block sizes 9-15 (the walks 20' and 22, the sweeps 17', 21,
               19' and kernel 1's runtime-d instance) at d = 9, 12 and 15,
               float32 and float64 (and a failure if any of them uses local
-              memory), and of kernel 15 at nblocks 5-8.
+              memory), and of kernel 15 at nblocks 5-8; the seven warp-
+              per-lane kernels of 9-15 now include kernel 16 (the wide
+              likelihood sweep); kernel 12's warp-per-lane instance
+              (nblocks 5-8) with its shared bytes, failing on local
+              memory as well.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -62,7 +66,13 @@ Phases, one line of output each (or more):
               thread per lane at nblocks 1-4, one warp per lane at 5-8)
               against their twin at nblocks 1, 2, 5 and 8, obs 1 and 2,
               on C = 9 chunks (a ragged last chunk and tile) and on one
-              lane, and at nblocks 6, N = 1e6.
+              lane, and at nblocks 6, N = 1e6; kernel 12's two instances
+              (one thread per lane at nblocks 1-4, one warp per lane at
+              5-8, which the likelihood call must take at nblocks 8)
+              against their twin at nblocks 1, 2, 4, 5 and 8 on C = 9
+              chunks (masked gaps and unobserved rows in the ragged last
+              chunk) and on that last lane, both timed at nblocks 2 and
+              4, N = 1e6, and the routed one at nblocks 6, N = 1e6.
   9. wide     block sizes 9-15 on the wide route (kernels 16, 21, 22):
               the natural mahal_and_logdet at N = 1e6 on the well-
               conditioned system of tests/test_wideblock.py, value and
@@ -80,7 +90,8 @@ Phases, one line of output each (or more):
               against "torch"; kernels 22 and 21 against their twins at
               their edge shapes (s = 3; C = 1 and 9; d = 9 and 15; float32
               and float64) on the inputs one solve_and_inverse_cm hands
-              them.
+              them, and kernel 16 at the same shapes on the inputs of
+              mahal_and_logdet_wide.
  10. solve-rt block sizes 9-15 of the natural solve and selected inversion
               (kernels 17-20: the runtime-d instances behind the wrappers
               of kernels 8-11; 21 and 22 in the solve's backward): the
@@ -127,7 +138,7 @@ N_BIG = 1_000_000
 N_SMALL = 48
 RANK, OBS = 5, 2
 CEL_NB, CEL_NB_SMALL = 8, 2  # celerite: rank 16 (the full width) and 4
-REPS = 7  # timed runs per kernel / twin (median reported)
+REPS = 7  # timed runs per kernel (median reported; a twin takes 3 at most)
 TRAIN_STEPS = 3
 # published peaks of one H100 SXM (the bound's denominators)
 PEAK_FLOPS_F32 = 67e12
@@ -465,13 +476,15 @@ def rel_inf(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-# the kernels that run one warp per chunk lane (csrc/rtcoop.cuh): the two
-# Takahashi walks, kernels 20' and 22, the two collecting sweeps, kernels
-# 17' and 21, the likelihood's sweep at d = 9-15 (kernel 1's runtime-d
-# instance) and the selected inversion's sweep, kernel 19'
+# the kernels of block sizes 9-15 that run one warp per chunk lane
+# (csrc/rtcoop.cuh): the two Takahashi walks, kernels 20' and 22, the two
+# collecting sweeps, kernels 17' and 21, the likelihood's sweep at d = 9-15
+# (kernel 1's runtime-d instance), the selected inversion's sweep, kernel
+# 19', and the wide likelihood sweep, kernel 16
 WARP_KERNELS = ("rt_takahashi_kernel", "wide_backward_kernel",
                 "rt_collect_kernel", "wide_solveinv_kernel",
-                "rt_sweep_kernel", "rt_inverse_sweep_kernel")
+                "rt_sweep_kernel", "rt_inverse_sweep_kernel",
+                "wide_sweep_kernel")
 WARP_DS = (9, 12, 15)  # block sizes of their shared-memory report
 EDGES = ((9, 1), (9, 9), (15, 1), (15, 9))  # (d, C) at s = 3
 # each kernel's edge check: (module, wrapper, source, the TPU kernel, the
@@ -497,6 +510,9 @@ EDGE_KERNELS = {
     "forward_sweep_rt": (
         "sweep_cuda", "forward_sweep_cuda", "rt_solve.cu",
         "pallas_sweep.py:248", "mahal_and_logdet_cm", _TWO_ROWS),
+    "forward_sweep_wide": (
+        "wide_cuda", "forward_sweep_wide_cuda", "wide_sweep.cu",
+        "pallas_wide.py:166", "mahal_and_logdet_wide", _TWO_ROWS),
 }
 
 
@@ -508,8 +524,9 @@ def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels):
     128); C = 1, a lone lane, and C = 9, a ragged second tile of 8
     (float32) or 4 (float64) lanes; d = 9 and 15; float32 and float64; on
     the inputs the top level of one call of the kernel's entry
-    (inverse_blocks_cm, solve_and_inverse_cm, solve_cm or
-    mahal_and_logdet_cm) hands it, under no_grad."""
+    (inverse_blocks_cm, solve_and_inverse_cm, solve_cm,
+    mahal_and_logdet_cm, or mahal_and_logdet_wide on the same blocks in
+    the wide layout) hands it, under no_grad."""
     from cyclic_gps_tpu_torch.ops import sweep_cuda, wide_cuda
 
     modules = {"sweep_cuda": sweep_cuda, "wide_cuda": wide_cuda}
@@ -532,6 +549,9 @@ def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels):
                     with torch.no_grad():
                         if entry == "inverse_blocks_cm":
                             run(R_cm, O_cm)
+                        elif entry == "mahal_and_logdet_wide":
+                            run(*pt._to_wide_stack(R_cm),
+                                *pt._to_wide_stack(O_cm), y_cm)
                         else:
                             run(R_cm, O_cm, y_cm)
                     torch.cuda.synchronize()
@@ -674,6 +694,18 @@ def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
             if not ok:
                 fail(f"the wide route at d = {d} disagrees with 'torch'")
             del g_a, g_t
+            wall, by_kernel = profiled(lambda: loss_and_grads(system,
+                                                              "auto"))
+            if by_kernel:
+                dev_ms = sum(ms for ms, _ in by_kernel.values())
+                say(f"[wide] profiled value + gradient at d {d}: wall "
+                    f"{wall:.2f} ms (profiler on), "
+                    f"{sum(n for _, n in by_kernel.values())} device ops, "
+                    f"device {dev_ms:.2f} ms, busy share "
+                    f"{dev_ms / wall:.3f}")
+            for key, (ms, n) in sorted(by_kernel.items(),
+                                       key=lambda kv: -kv[1][0])[:6]:
+                say(f"[wide]   {key[:80]}: {ms:.3f} ms, {n} calls")
         del system
         torch.cuda.empty_cache()
 
@@ -777,9 +809,10 @@ def run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
                                  .manual_seed(nb), device=dev)
         cel_check(f"nblocks {nb}, N {N_WIDE_SMALL}", p, ts_s, xs_s, 1)
 
-    # kernels 22 and 21 at their edge shapes
+    # kernels 22, 21 and 16 at their edge shapes
     run_edges(dev, "wide", captured, capture, check_kernel, pt,
-              ("backward_solve_takahashi_wide", "forward_sweep_solveinv_wide"))
+              ("backward_solve_takahashi_wide", "forward_sweep_solveinv_wide",
+               "forward_sweep_wide"))
 
 
 SOLVE_RT_DS = (9, 12, 15)  # the runtime-d block sizes checked; 12 recorded
@@ -1097,6 +1130,12 @@ def run_sweep_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
         v = celerite.log_likelihood(p6, ts_c, xs_c, **kw)
         return v.detach(), torch.autograd.grad(v, list(p6.parameters()))
 
+    with torch.no_grad():  # the value alone, twice (kernel 12 first)
+        ms_v = [timed(lambda: celerite.log_likelihood(p6, ts_c, xs_c))[0]
+                for _ in range(2)]
+    say(f"[sweep-rt] celerite log_likelihood (precision route) nblocks "
+        f"{CEL_NB_WIDE}, N {N_BIG}: one call with backend='auto' "
+        f"{ms_v[0]:.1f}, {ms_v[1]:.1f} ms (host clock)")
     reset()
     ms_a, (v_a, g_a) = timed(cel_grads)
     n_cel = (wrapper.launches, wrapper.launches_rt)
@@ -1200,6 +1239,89 @@ def run_adjoint_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
         check(args, f"N {N_BIG}, the bench grid", 3, warp)
     check(inputs(CEL_NB_WIDE, 1, ts_c, xs_c, seed=0),
           f"N {N_BIG}, the bench grid", 3)
+
+
+SWEEP_EDGE_NBS = (1, 2, 4, 5, 8)  # kernel 12's edge nblocks
+
+
+def run_sweep_edges(dev, check_kernel, celerite, celerite_cuda, ts_c, xs_c):
+    """Kernel 12's two designs (one thread per lane, routed at nblocks
+    1..4; one warp per lane, routed at 5..8 and forced by ``warp=True``)
+    against its twin at nblocks 1, 2, 4, 5, 8 on the inputs one
+    precision-route likelihood hands it at N = 283 (s = 32, C = 9: a
+    ragged second tile of 8 lanes, and a ragged last chunk whose padding
+    rows are masked gaps, gv = 0, and unobserved rows, real = 0) and on
+    that last lane alone (C = 1); then both designs at nblocks 2 and 4 and
+    the routed one at nblocks 6, N = 1e6 on the bench grid, timed."""
+    wrapper = celerite_cuda.celerite_gap_mahal_sweep_cuda
+
+    def inputs(nb, t, x, seed):
+        p = celerite.init_params(nb, 1, generator=torch.Generator()
+                                 .manual_seed(seed), device=dev)
+        got = {}
+        orig = celerite.celerite_gap_mahal_sweep_cuda
+
+        def spy(*a):
+            got["args"] = a
+            return orig(*a)
+
+        celerite.celerite_gap_mahal_sweep_cuda = spy
+        try:
+            with torch.no_grad():
+                celerite.log_likelihood(p, t, x)
+            torch.cuda.synchronize()
+        finally:
+            celerite.celerite_gap_mahal_sweep_cuda = orig
+        return got["args"]
+
+    def last_lane(args):  # the ragged last chunk: its padding is masked
+        f = lambda t: t[..., -1:].contiguous()  # noqa: E731
+        return args[:2] + tuple(map(f, args[2:]))
+
+    def check(args, label, reps, warp=False):
+        nb, (s, c) = args[0].shape[0], args[2].shape
+        before = wrapper.launches_warp
+        design = ("warp per lane"
+                  if warp or nb >= celerite_cuda.SWEEP_WARP_NBLOCKS
+                  else "thread per lane")
+        masked = int((args[3] == 0).sum())
+        unobserved = int((args[4] == 0).sum())
+        check_kernel(
+            "celerite_gap_mahal_sweep",
+            "cyclic_gps_tpu_torch/csrc/celerite_sweep.cu",
+            "cyclic_gps_tpu/ops/celerite_pallas.py:285",
+            functools.partial(wrapper, warp=warp),
+            celerite_cuda.celerite_gap_mahal_sweep_plain, args, 1e-3, 1e-4,
+            f"{label}, {design}: nblocks {nb}, s {s}, C {c}, {masked} "
+            f"masked gaps, {unobserved} unobserved rows; {s - 1} dependent "
+            "elimination steps on closed-form rows, mh, ld and the log|Q1| "
+            "sum in another order; atol 1e-4 of each output's scale",
+            atol_of_scale=True, record=False, phase="celerite", reps=reps)
+        if (wrapper.launches_warp > before) != (design == "warp per lane"):
+            fail(f"kernel 12 at nblocks {nb} took the wrong design")
+
+    rng = torch.Generator().manual_seed(11)
+    n = 32 * 9 - 5
+    t_e = torch.cumsum(torch.randint(1, 5, (n,), generator=rng) * 0.125,
+                       0).to(dev)
+    x_e = torch.randn(n, 1, generator=rng).to(dev)
+    for nb in SWEEP_EDGE_NBS:
+        args = inputs(nb, t_e, x_e, seed=20 + nb)
+        if int((args[3] == 0).sum()) == 0 or int((args[4] == 0).sum()) == 0:
+            fail("kernel 12's edge inputs hold no masked gap or no "
+                 "unobserved row")
+        for warp in (False, True) if nb < celerite_cuda.SWEEP_WARP_NBLOCKS \
+                else (False,):
+            check(args, "edge", 1, warp)
+            check(last_lane(args), "edge, one lane", 1, warp)
+    # the two designs at nblocks 2 and 4 (the routing's evidence, in turns),
+    # then nblocks 6
+    for nb in (CEL_NB_SMALL, 4):
+        args = inputs(nb, ts_c, xs_c, seed=nb)
+        for warp in (False, True, True, False):
+            check(args, f"N {N_BIG}, the bench grid", 3, warp)
+    check(inputs(CEL_NB_WIDE, ts_c, xs_c, seed=0),
+          f"N {N_BIG}, the bench grid", REPS)
 
 
 def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
@@ -1358,6 +1480,8 @@ def main():
              lambda d: d),
             ("wide_solveinv_kernel", lib.cgt_wide_solveinv_smem_bytes,
              lambda d: d - 8),
+            ("wide_sweep_kernel", lib.cgt_wide_sweep_smem_bytes,
+             lambda d: d - 8),
             ("rt_sweep_kernel", lib.cgt_rt_sweep_smem_bytes, lambda d: d),
             ("rt_inverse_sweep_kernel", lib.cgt_rt_inverse_sweep_smem_bytes,
              lambda d: d)):
@@ -1381,6 +1505,22 @@ def main():
         + ", ".join(f"nblocks {nb}: {lib.cgt_celerite_adjoint_smem_bytes(nb, 1)}"
                     f" / {lib.cgt_celerite_adjoint_smem_bytes(nb, 2)}"
                     for nb in range(5, 9)))
+    # kernel 12: one warp per chunk lane at nblocks 5..8 (one instance, the
+    # nblocks a runtime argument; 8 lanes per block), one thread per lane
+    # at 1..4
+    warp12 = "celerite_gap_mahal_sweep_warp_kernel"
+    rep12 = [v for k, v in _build.ptxas_report(0, tag=warp12).items()
+             if v[0] is not None]
+    if len(rep12) != 1:
+        fail(f"{warp12}: no single entry in the compiler's report")
+    regs, stack, spill = rep12[0]
+    say(f"[build] {warp12} (nblocks 5-8): registers {regs}, stack {stack} "
+        f"B, spill stores {spill} B; dynamic shared bytes per block "
+        + ", ".join(f"nblocks {nb}: {lib.cgt_celerite_sweep_smem_bytes(nb)}"
+                    for nb in range(5, 9)))
+    if stack >= 1024 or spill > 0:
+        fail(f"{warp12} runs from local memory (stack {stack} B, spill "
+             f"stores {spill} B)")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -1478,7 +1618,8 @@ def main():
                         f"{e_kern:.3e}, float32 twin {e_twin:.3e}")
             err = compare(key, got, ref, rtol, atol, atol_of_scale, atols)
             ms = cuda_ms(lambda: kernel(*args, **kw), reps)
-            plain_ms = cuda_ms(lambda: twin(*args, **kw), reps)
+            # the twins take 0.03-3 s a call: three runs give their median
+            plain_ms = cuda_ms(lambda: twin(*args, **kw), min(reps, 3))
         b_ms, b_by = bound(key, args, got, g, gaps_of)
         tag = "kernels" if record else phase
         say(f"[{tag}] {key}: max_abs_err={err:.3e} ({why}); "
@@ -2058,10 +2199,12 @@ def main():
     for r in rows:
         r["kernel"].launches = 0
     celerite_cuda.celerite_filter_adjoint_cuda.launches_warp = 0
+    celerite_cuda.celerite_gap_mahal_sweep_cuda.launches_warp = 0
     with torch.no_grad():
         ll_path = float(celerite.log_likelihood(p_train, ts_c, xs_c))
     torch.cuda.synchronize()
     ll_launches = {k: counters[k].launches for k in path_kernels}
+    sweep_warp = celerite_cuda.celerite_gap_mahal_sweep_cuda.launches_warp
     step_ms, cel_losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2071,12 +2214,16 @@ def main():
         step_ms.append(1e3 * (time.perf_counter() - t0))
     cel_launches = {k: counters[k].launches for k in path_kernels}
     adj_warp = celerite_cuda.celerite_filter_adjoint_cuda.launches_warp
-    say(f"[celerite] launches in one log_likelihood call: {ll_launches}; "
-        f"then with {TRAIN_STEPS} Adam steps on nll_loss: {cel_launches} "
-        f"(kernel 15's warp-per-lane instance: {adj_warp})")
+    say(f"[celerite] launches in one log_likelihood call: {ll_launches} "
+        f"(kernel 12's warp-per-lane instance: {sweep_warp}); then with "
+        f"{TRAIN_STEPS} Adam steps on nll_loss: {cel_launches} (kernel "
+        f"15's warp-per-lane instance: {adj_warp})")
     for k in path_kernels:
         if cel_launches[k] <= 0:
             fail(f"kernel {k} was not launched by the celerite path")
+    if sweep_warp != ll_launches["celerite_gap_mahal_sweep"]:
+        fail("kernel 12 did not take its warp-per-lane instance at nblocks "
+             f"{CEL_NB}")
     if adj_warp != cel_launches["celerite_filter_adjoint"]:
         fail("kernel 15 did not take its warp-per-lane instance at nblocks "
              f"{CEL_NB}")
@@ -2120,9 +2267,11 @@ def main():
         f"{ms_auto:.2f} ms, torch {ms_plain:.2f} ms (host clock); agree "
         f"(atol 1e-3 of each output's scale: {why32})")
 
-    # kernel 15's two instances at its edge shapes, and at nblocks 6
+    # kernels 15's and 12's two instances at their edge shapes, and at
+    # nblocks 6
     run_adjoint_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
                       xs_c)
+    run_sweep_edges(dev, check_kernel, celerite, celerite_cuda, ts_c, xs_c)
 
     # ---- 9. wide: block sizes 9-15 (kernels 16, 21, 22) --------------------
     run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,

@@ -42,10 +42,14 @@ __device__ __forceinline__ void osc_core(const float (&g)[4], float dt,
     ecm1 = 0.5f * (ep + en);
     esnc = (ep - en) / (2.f * fmaxf(w, CGT_SERIES_CUT));
   } else if (q2 <= -cut2) {  // trigonometric: a damped oscillation
+    // sin and cos of w as sincospif(w / pi): its exact reduction needs no
+    // local buffer, where sinf / cosf keep one for |w| > 105615; the
+    // rounding of w / pi (6e-8 w) is below the error w carries from q2
     const float w = sqrtf(-q2);
-    const float cw = cosf(w);
+    float sw, cw;
+    sincospif(w * 0.318309886f, &sw, &cw);
     ecm1 = em1_mu * cw + (cw - 1.f);
-    esnc = (1.f + em1_mu) * sinf(w) / fmaxf(w, CGT_SERIES_CUT);
+    esnc = (1.f + em1_mu) * sw / fmaxf(w, CGT_SERIES_CUT);
   } else {  // cosh(w) - 1 and sinh(w)/w as series in the signed q2
     const float cm1 =
         q2 * (1.f / 2.f +

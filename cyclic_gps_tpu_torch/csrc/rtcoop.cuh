@@ -1,15 +1,20 @@
 // Cooperative runtime-d block algebra: ONE WARP PER CHUNK LANE, the lane's
 // d x d blocks in shared memory, d a runtime value in 9..15 (one instance
-// per dtype).  It carries the two Takahashi walks (rt_inverse.cu's
-// rt_takahashi_kernel, wide_backward.cu's wide_backward_kernel) and four
-// forward sweeps on one elimination step (`Sweep`), whose rows start with
-// a Cholesky of the pivot block (`chol`): the likelihood's (rt_solve.cu's
-// rt_sweep_kernel), the two that collect the backward's stacks
-// (rt_solve.cu's rt_collect_kernel, wide_sweep.cu's wide_solveinv_kernel)
-// and the selected inversion's, which has no right-hand side
-// (rt_inverse.cu's rt_inverse_sweep_kernel).
+// per dtype), or up to 16 where a kernel hands `Sweep::step` the d = 16
+// triangle `Tri16` (which also picks the d = 16 paired solve,
+// `solve_pair<.., true>`).  It carries the two Takahashi walks
+// (rt_inverse.cu's rt_takahashi_kernel, wide_backward.cu's
+// wide_backward_kernel) and five forward sweeps on one elimination step
+// (`Sweep`), whose rows start with a Cholesky of the pivot block (`chol`):
+// the likelihood's (rt_solve.cu's rt_sweep_kernel, and wide_sweep.cu's
+// wide_sweep_kernel on the wide layout), the two that collect the
+// backward's stacks (rt_solve.cu's rt_collect_kernel, wide_sweep.cu's
+// wide_solveinv_kernel) and the selected inversion's, which has no
+// right-hand side (rt_inverse.cu's rt_inverse_sweep_kernel); and
+// celerite_sweep.cu's warp instance, which builds its rows in place at
+// d = 2 nblocks (16 at nblocks 8).
 //
-// Why not rtblock.cuh's design (one thread per lane, every block in local
+// Why not the first port's design (one thread per lane, every block in local
 // memory): a walk step is a dependent chain of ~30 d^3 operations over ~14
 // blocks, a sweep row one of ~10-22 d^3.  Held per thread that is 8-25 KB
 // of stack, more local memory than the 50 MB L2 holds at C = 7,813 lanes,
@@ -24,7 +29,7 @@
 // LANES * sizeof(T) = 32 B (8 lanes at float32, 4 at float64), one warp
 // each.  In a product every output element is owned by one thread of the
 // warp (elements lane, lane + 32, ... of the block in row-major order) and
-// summed in ascending k, as rtblock.cuh's mm_op, so results agree with the
+// summed in ascending k, as blockmath.cuh's mm_op, so results agree with the
 // thread-per-lane algebra to rounding.  Triangular solves against a d x d
 // right-hand side run one column per thread; the Cholesky splits each
 // column's trailing update over the warp.  __syncwarp() separates
@@ -211,7 +216,7 @@ __device__ __forceinline__ void sig_ut(const Warp& w, const T* p00,
   }
 }
 
-// x = L^{-1}, the forward substitution of rtblock.cuh's solve_lower on the
+// x = L^{-1}, the forward substitution of blockmath.cuh's solve_lower on the
 // identity, one column per thread
 template <typename T>
 __device__ __forceinline__ void solve_lower(const Warp& w, const T* L,
@@ -226,8 +231,8 @@ __device__ __forceinline__ void solve_lower(const Warp& w, const T* L,
 }
 
 // ---------------------------------------------------------------------------
-// The cooperative elimination step: rtblock.cuh's chol, triangular solves
-// and elim_step, each summing in the order rtblock.cuh sums.
+// The cooperative elimination step: blockmath.cuh's chol, triangular solves
+// and elim_step, each summing in the order blockmath.cuh sums.
 // ---------------------------------------------------------------------------
 
 // out[i] = / += / -= sum_p op(a)[i][p] x[p] (ascending p; op transposes
@@ -257,14 +262,17 @@ __device__ __forceinline__ T sumsq(const Warp& w, const T* v) {
 
 // This thread's share of a d x d block's lower triangle: the elements
 // lane, lane + 32, ... in row-major order (t = a (a + 1) / 2 + b, b <= a),
-// at most four at d <= 15, as (a * ld, b); b = -1 past the triangle
-struct Tri {
-  int ra[4], b[4];
-  __device__ __forceinline__ explicit Tri(const Warp& w) {
+// as (a * ld, b); b = -1 past the triangle.  M slots: four hold the 120
+// elements of d = 15 (`Tri`), five the 136 of d = 16 (`Tri16`).
+template <int M>
+struct TriM {
+  static constexpr int SLOTS = M;
+  int ra[M], b[M];
+  __device__ __forceinline__ explicit TriM(const Warp& w) {
     const int n = w.d * (w.d + 1) / 2;
     int a = 0, bb = w.lane;
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
+    for (int m = 0; m < M; ++m) {
       while (bb > a) bb -= ++a;
       ra[m] = a * w.ld;
       b[m] = w.lane + 32 * m < n ? bb : -1;
@@ -272,15 +280,17 @@ struct Tri {
     }
   }
 };
+using Tri = TriM<4>;
+using Tri16 = TriM<5>;
 
 // Lower Cholesky of the SPD block x (lower triangle read) in place, as
-// rtblock.cuh's chol: right-looking, rsqrt pivots, no floor.  Leaves L in
+// blockmath.cuh's chol: right-looking, rsqrt pivots, no floor.  Leaves L in
 // x (upper triangle zeroed) and 1/L_jj in invd, and returns the half
 // log-determinant sum_j 0.5 log(pivot_j) (ascending j) in every thread.
 // Per column: every thread reads the pivot, threads i > j scale L[i][j],
 // and the warp splits the trailing update of the lower triangle.
-template <typename T>
-__device__ __forceinline__ T chol(const Warp& w, const Tri& tri, T* x,
+template <typename T, int M>
+__device__ __forceinline__ T chol(const Warp& w, const TriM<M>& tri, T* x,
                                   T* invd) {
   const int d = w.d, ld = w.ld, i = w.lane;
   T half = T(0);
@@ -299,7 +309,7 @@ __device__ __forceinline__ T chol(const Warp& w, const Tri& tri, T* x,
       invd[j] = pinv;
     }
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+    for (int m = 0; m < M; ++m)
       if (tri.b[m] > j)
         x[tri.ra[m] + tri.b[m]] -= x[tri.ra[m] + j] * x[tri.b[m] * ld + j];
   }
@@ -309,7 +319,7 @@ __device__ __forceinline__ T chol(const Warp& w, const Tri& tri, T* x,
 
 // One column of a triangular solve against the factor L (1/diag in invd):
 // y at src[i * ss], x at dst[i * ds] (dst may be src); FWD L x = y as
-// rtblock.cuh's solve_lower, else L^T x = y by back substitution (rows
+// blockmath.cuh's solve_lower, else L^T x = y by back substitution (rows
 // d-1 .. 0, each summing k = i+1 .. d-1 in ascending order); with neg the
 // column is negated after
 template <typename T, bool FWD>
@@ -346,8 +356,10 @@ struct Rhs {
 // Two triangular solves with d x d right-hand sides and one with a vector,
 // at once: threads 0-15 take r0's columns, 16-31 r1's, and thread 31 (no
 // column of either at d <= 15) the vector yv -> xv (xv may be yv; none
-// where xv is null).  FWD: L X = Y, else L^T X = Y.
-template <typename T, bool FWD>
+// where xv is null).  FWD: L X = Y, else L^T X = Y.  D16: d may be 16,
+// where thread 31 owns r1's last column, so it solves the vector after it
+// (a second serial chain of d^2 / 2 multiply-adds).
+template <typename T, bool FWD, bool D16 = false>
 __device__ __forceinline__ void solve_pair(const Warp& w, const T* L,
                                            const T* invd, const Rhs<T>& r0,
                                            const Rhs<T>& r1,
@@ -355,6 +367,16 @@ __device__ __forceinline__ void solve_pair(const Warp& w, const T* L,
                                            T* xv = nullptr) {
   const int e = w.lane & 15, ld = w.ld;
   const bool vec = w.lane == 31 && xv != nullptr;
+  if (D16) {
+    if (e < w.d) {
+      const Rhs<T> r = w.lane < 16 ? r0 : r1;
+      solve_col<T, FWD>(L, invd, w.d, ld, r.y + (r.ty ? e * ld : e),
+                        r.ty ? 1 : ld, r.x + (r.tx ? e * ld : e),
+                        r.tx ? 1 : ld, r.neg);
+    }
+    if (vec) solve_col<T, FWD>(L, invd, w.d, ld, yv, 1, xv, 1, false);
+    return;
+  }
   if (e >= w.d && !vec) return;
   const Rhs<T> r = w.lane < 16 ? r0 : r1;
   const T* src = vec ? yv : r.y + (r.ty ? e * ld : e);
@@ -364,12 +386,12 @@ __device__ __forceinline__ void solve_pair(const Warp& w, const T* L,
 }
 
 // The lane's state in the forward sweep of the chunk interior (the
-// cooperative twin of rtblock.cuh's Carry and elim_step), as offsets in
-// the lane's region: the blocks P (R_j, then D_j), O (O_j, then C_j), CP
-// (C_{j-1}), W0, X (scratch, then W0's successor), ACC; the vectors Y
-// (y_j, then w_j), W (w_{j-1}), ACCY0, INVD, and SC, whose first numbers
-// hold per-lane scalars for Tiles::store_s.  A kernel's own blocks and
-// vectors follow (`block`, `vec`).  mh and ld are in registers.
+// cooperative twin of blockmath.cuh's SweepCarry and elim_step), as
+// offsets in the lane's region: the blocks P (R_j, then D_j), O (O_j, then
+// C_j), CP (C_{j-1}), W0, X (scratch, then W0's successor), ACC; the
+// vectors Y (y_j, then w_j), W (w_{j-1}), ACCY0, INVD, and SC, whose first
+// numbers hold per-lane scalars for Tiles::store_s.  A kernel's own blocks
+// and vectors follow (`block`, `vec`).  mh and ld are in registers.
 enum { SW_P, SW_O, SW_CP, SW_W0, SW_X, SW_ACC, SW_BLOCKS };
 enum { SW_Y, SW_W, SW_ACCY0, SW_INVD, SW_SC, SW_VECS };
 
@@ -395,9 +417,10 @@ struct Sweep {
   // log-determinant.  The new state is read under the names `advance`
   // gives; all but acc and accy0 are final when this returns.  VEC =
   // false drops the right-hand side (w, accy0, mh; Y is neither read nor
-  // written) for a sweep that has none, the selected inversion's.
-  template <bool VEC = true>
-  __device__ __forceinline__ T step(const Warp& w, const Tri& tri,
+  // written) for a sweep that has none, the selected inversion's.  The
+  // triangle's type sets the largest d: `Tri` 15, `Tri16` 16.
+  template <bool VEC = true, int M = 4>
+  __device__ __forceinline__ T step(const Warp& w, const TriM<M>& tri,
                                     bool first, T jitter) {
     T* const P = me + p;
     T* const O = me + o;
@@ -422,8 +445,9 @@ struct Sweep {
     // W0 (or -(C W0)) and O^T solved in place, O stored as its transpose
     const Rhs<T> r0 = first ? Rhs<T>{W0, W0, false, false, false}
                             : Rhs<T>{X, X, false, false, true};
-    solve_pair<T, true>(w, P, invd, r0, Rhs<T>{O, O, true, true, false},
-                        VEC ? Y : nullptr, VEC ? Y : nullptr);
+    solve_pair<T, true, (M > 4)>(w, P, invd, r0,
+                                 Rhs<T>{O, O, true, true, false},
+                                 VEC ? Y : nullptr, VEC ? Y : nullptr);
     __syncwarp();
     const T* const W0n = first ? W0 : X;
     T* const acc = me + block(SW_ACC);
@@ -461,7 +485,7 @@ struct Sweep {
 };
 
 // element q of a wide block (a11 elements 0..63, then the strip's rows of
-// 8: A21, A12^T, A22; wideblock.cuh) -> its offset in the dense d x ld
+// 8: A21, A12^T, A22; ops/wideblock.py) -> its offset in the dense d x ld
 // block, or -1 for the A22 strip's padding columns (>= e)
 __device__ __forceinline__ int wide_dense(int q, int e, int ld) {
   if (q < 64) return (q >> 3) * ld + (q & 7);

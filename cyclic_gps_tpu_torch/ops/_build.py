@@ -34,15 +34,13 @@ _SOURCES = ("forward_sweep.cu", "gap_emission.cu", "backward_sweep.cu",
             "celerite_sweep.cu", "celerite_filter.cu",
             "celerite_adjoint.cu", "wide_sweep.cu", "wide_backward.cu",
             "rt_solve.cu", "rt_inverse.cu")
-_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtblock.cuh", "rtcoop.cuh",
-            "wideblock.cuh")
+_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtblock.cuh", "rtcoop.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# threads per block of the thread-per-lane kernels (CGT_THREADS); the four
-# warp-per-lane kernels (csrc/rtcoop.cuh: the two Takahashi walks and the
-# two collecting sweeps) take 32 per chunk lane, 8 lanes a block at
-# float32 and 4 at float64
+# threads per block of the thread-per-lane kernels (CGT_THREADS); the
+# warp-per-lane kernels (csrc/rtcoop.cuh's tiles) take 32 per chunk lane,
+# 8 lanes a block at float32 and 4 at float64
 THREADS = 128
 
 _P = ctypes.c_void_p
@@ -85,10 +83,10 @@ _SIGNATURES = {
     "cgt_celerite_filter_adjoint_f32": [_P] * 17 + [_I, _I, _I, _I]
     + [_P] * 5 + [_P],
 }
-# kernel 15's warp-per-lane design at every nblocks (the routed entry
-# takes it at 5..8 only)
-_SIGNATURES["cgt_celerite_filter_adjoint_warp_f32"] = _SIGNATURES[
-    "cgt_celerite_filter_adjoint_f32"]
+# kernels 15's and 12's warp-per-lane designs at every nblocks (the
+# routed entries take them at 5..8 only)
+for _name in ("cgt_celerite_filter_adjoint", "cgt_celerite_gap_mahal_sweep"):
+    _SIGNATURES[f"{_name}_warp_f32"] = _SIGNATURES[f"{_name}_f32"]
 # the wide kernels, float32 and float64 (outputs, then the stream)
 _SIGNATURES.update({
     name + suf: argtypes
@@ -99,16 +97,18 @@ _SIGNATURES.update({
          [_P] * 5 + [real, _I, _I, _I] + [_P] * 18 + [_P]),
         ("cgt_wide_backward", [_P] * 19 + [_I, _I, _I] + [_P] * 9 + [_P]))
 })
-# the dynamic shared bytes per thread block of the six warp-per-lane
-# kernels (rt_inverse.cu's sweep and recursion and rt_solve.cu's two
-# sweeps at block size d, wide_backward.cu's and wide_sweep.cu's
-# collecting sweep at 8 + e; the second argument 1 for float64) and of the
-# celerite filter adjoint at nblocks and obs_dim
+# the dynamic shared bytes per thread block of the seven warp-per-lane
+# kernels of block sizes 9-15 (rt_inverse.cu's sweep and recursion and
+# rt_solve.cu's two sweeps at block size d, wide_backward.cu's and
+# wide_sweep.cu's two sweeps at 8 + e; the second argument 1 for float64),
+# of the celerite filter adjoint at nblocks and obs_dim, and of the
+# celerite likelihood sweep at nblocks
 _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes",
     "cgt_rt_collect_smem_bytes", "cgt_wide_solveinv_smem_bytes",
-    "cgt_rt_sweep_smem_bytes", "cgt_rt_inverse_sweep_smem_bytes",
-    "cgt_celerite_adjoint_smem_bytes")})
+    "cgt_wide_sweep_smem_bytes", "cgt_rt_sweep_smem_bytes",
+    "cgt_rt_inverse_sweep_smem_bytes", "cgt_celerite_adjoint_smem_bytes")})
+_SIGNATURES["cgt_celerite_sweep_smem_bytes"] = [_I]
 # the runtime-d kernels of the likelihood's sweep, the solve and the
 # selected inversion (d = 9..15) take the arguments of their
 # rank-templated counterparts

@@ -42,9 +42,12 @@ Tensor = torch.Tensor
 
 NBLOCKS = tuple(range(1, 9))  # instantiated oscillator counts (rank 2..16)
 OBS_DIMS = (1, 2)  # instantiated observation sizes of the filter kernels
-# the filter adjoint runs one warp per chunk lane from this nblocks up
-# (csrc/celerite_adjoint.cu's WARP_NB), one thread per lane below
+# the filter adjoint (kernel 15) and the fused likelihood sweep (kernel
+# 12) run one warp per chunk lane from these nblocks up (the WARP_NB of
+# csrc/celerite_adjoint.cu and csrc/celerite_sweep.cu), one thread per
+# lane below
 WARP_NBLOCKS = 5
+SWEEP_WARP_NBLOCKS = 5
 
 
 def _cel():
@@ -191,7 +194,8 @@ def _stream():
 
 def celerite_gap_mahal_sweep_cuda(gb: Tensor, boost: Tensor, dt_cm: Tensor,
                                   gv_cm: Tensor, real_cm: Tensor,
-                                  wrap_em: Tensor, y_cm: Tensor):
+                                  wrap_em: Tensor, y_cm: Tensor,
+                                  warp: bool = False):
     """Fused celerite gaps -> forward-eliminated likelihood sweep.
 
     gb [nb, 2, 2]: the oscillator blocks of G (``celerite.g_blocks``);
@@ -204,7 +208,10 @@ def celerite_gap_mahal_sweep_cuda(gb: Tensor, boost: Tensor, dt_cm: Tensor,
     float32.
 
     CUDA tensors launch ``csrc/celerite_sweep.cu``
-    (``celerite_gap_mahal_sweep_cuda.launches``); CPU tensors run
+    (``celerite_gap_mahal_sweep_cuda.launches``): one warp per chunk lane
+    at nblocks 5..8 (``.launches_warp`` counts those launches), one thread
+    per lane at 1..4; ``warp=True`` takes the warp-per-lane design at every
+    nblocks (to time the two).  CPU tensors run
     `celerite_gap_mahal_sweep_plain`.
     """
     name = "celerite_gap_mahal_sweep_cuda"
@@ -230,17 +237,21 @@ def celerite_gap_mahal_sweep_cuda(gb: Tensor, boost: Tensor, dt_cm: Tensor,
              (c,), (c,), (c,), (r, r, c), (r, r, c)]]
     lib = _build.load()
     with torch.cuda.device(dt_cm.device):
-        err = lib.cgt_celerite_gap_mahal_sweep_f32(
-            *[a.data_ptr() for a in args], nb, s, c,
-            *[o.data_ptr() for o in outs], _stream())
+        entry = (lib.cgt_celerite_gap_mahal_sweep_warp_f32 if warp
+                 else lib.cgt_celerite_gap_mahal_sweep_f32)
+        err = entry(*[a.data_ptr() for a in args], nb, s, c,
+                    *[o.data_ptr() for o in outs], _stream())
     _build.check_launch(err, name)
     celerite_gap_mahal_sweep_cuda.launches += 1
+    if warp or nb >= SWEEP_WARP_NBLOCKS:
+        celerite_gap_mahal_sweep_cuda.launches_warp += 1
     acc00, accy0, w0l, wl, dl, invdl, mh, ld, lq, k0, olast = outs
     return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
             torch.sum(lq), k0, olast)
 
 
 celerite_gap_mahal_sweep_cuda.launches = 0
+celerite_gap_mahal_sweep_cuda.launches_warp = 0
 
 
 def _launch_filter(name, args, collect: bool):
