@@ -10,8 +10,8 @@ Phases, one line of output each (or more):
   2. build    nvcc builds the package's CUDA kernels from csrc/; the
               compiler's registers / stack / spills at rank 5, of the
               celerite kernels at nblocks 2 and 8 (and of every instance
-              of the filter adjoint, kernel 15), of kernels 1, 6 and 7 at
-              rank 16, and of the wide and runtime-d kernels; the dynamic
+              of the filter adjoint, kernel 15), of kernel 1 at rank 16,
+              and of the wide and runtime-d kernels; the dynamic
               shared bytes per block of the six warp-per-lane kernels of
               block sizes 9-15 (the walks 20' and 22, the sweeps 17', 21,
               19' and kernel 1's runtime-d instance) at d = 9, 12 and 15,
@@ -20,7 +20,9 @@ Phases, one line of output each (or more):
               per-lane kernels of 9-15 now include kernel 16 (the wide
               likelihood sweep); kernel 12's warp-per-lane instance
               (nblocks 5-8) with its shared bytes, failing on local
-              memory as well.
+              memory as well; kernels 6 and 7 at block size 16 (one warp
+              per chunk lane, csrc/backward_sweep.cu) with their shared
+              bytes at both dtypes, failing on local memory as well.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -57,11 +59,15 @@ Phases, one line of output each (or more):
               on the bench grid (gaps randint(1, 5) * 0.125, float32): the
               four celerite kernels against their twins, and the engine's
               kernels 1, 6 and 7 at block size 16, on the inputs one
-              gradient of each likelihood route hands them; both routes
+              gradient of each likelihood route hands them (6 and 7, one
+              warp per chunk lane, at both levels of the boundary chain,
+              C = 245 and 8); both routes
               and their gradients with backend="auto" against "torch" at
               nblocks 2 and 8; one likelihood call and three Adam steps on
               nll_loss with launch counts reset just before and read just
-              after; one profiled step; make_predictions(method=
+              after, kernels 6 and 7 taking their warp-per-lane kernel at
+              every launch of the Adam steps; one profiled step;
+              make_predictions(method=
               "precision") at nblocks 2; kernel 15's two instances (one
               thread per lane at nblocks 1-4, one warp per lane at 5-8)
               against their twin at nblocks 1, 2, 5 and 8, obs 1 and 2,
@@ -72,7 +78,10 @@ Phases, one line of output each (or more):
               against their twin at nblocks 1, 2, 4, 5 and 8 on C = 9
               chunks (masked gaps and unobserved rows in the ragged last
               chunk) and on that last lane, both timed at nblocks 2 and
-              4, N = 1e6, and the routed one at nblocks 6, N = 1e6.
+              4, N = 1e6, and the routed one at nblocks 6, N = 1e6;
+              kernels 6 and 7 at block size 16 at their edge shapes
+              (s = 3 on C = 1, 8 and 9; s = 32 on C = 245; float32 and
+              float64) on the inputs one solve_and_inverse_cm hands them.
   9. wide     block sizes 9-15 on the wide route (kernels 16, 21, 22):
               the natural mahal_and_logdet at N = 1e6 on the well-
               conditioned system of tests/test_wideblock.py, value and
@@ -486,7 +495,13 @@ WARP_KERNELS = ("rt_takahashi_kernel", "wide_backward_kernel",
                 "rt_sweep_kernel", "rt_inverse_sweep_kernel",
                 "wide_sweep_kernel")
 WARP_DS = (9, 12, 15)  # block sizes of their shared-memory report
-EDGES = ((9, 1), (9, 9), (15, 1), (15, 9))  # (d, C) at s = 3
+# kernels 6 and 7 at block size 16 (csrc/backward_sweep.cu), one warp per
+# chunk lane on rtcoop.cuh
+WARP16_KERNELS = ("solveinv_warp_kernel", "backsolve_warp_kernel")
+EDGES = ((9, 3, 1), (9, 3, 9), (15, 3, 1), (15, 3, 9))  # (d, s, C)
+# 6 and 7 at 16: the shortest chunk on a lone lane, one whole float32
+# tile and a ragged one, and the chain's chunk length on its C = 245
+EDGES16 = ((16, 3, 1), (16, 3, 8), (16, 3, 9), (16, 32, 245))
 # each kernel's edge check: (module, wrapper, source, the TPU kernel, the
 # entry whose top level hands it its inputs, what s = 3 gives it)
 _TWO_ROWS = "two elimination rows, the first and one that carries"
@@ -513,18 +528,28 @@ EDGE_KERNELS = {
     "forward_sweep_wide": (
         "wide_cuda", "forward_sweep_wide_cuda", "wide_sweep.cu",
         "pallas_wide.py:166", "mahal_and_logdet_wide", _TWO_ROWS),
+    "forward_sweep_solveinv": (
+        "sweep_cuda", "forward_sweep_solveinv_cuda", "backward_sweep.cu",
+        "pallas_sweep.py:772", "solve_and_inverse_cm", _TWO_ROWS),
+    "backward_solve_takahashi": (
+        "sweep_cuda", "backward_solve_takahashi_cuda", "backward_sweep.cu",
+        "pallas_sweep.py:918", "solve_and_inverse_cm",
+        "two rows of the back-substitution and the walk"),
 }
 
 
-def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels):
+def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels,
+              edges=EDGES):
     """Each of ``kernels`` (keys of EDGE_KERNELS: 20', 17' and 19' in
     [solve-rt], 22 and 21 in [wide], kernel 1's runtime-d instance in
-    [sweep-rt]) against its twin at the edge shapes of the warp-per-lane
-    kernels: s = 3, shorter than any chunk the engine hands them (32 or
+    [sweep-rt], 6 and 7 at block size 16 in [celerite]) against its twin
+    at the edge shapes (d, s, C) of the warp-per-lane kernels: by default
+    (EDGES) s = 3, shorter than any chunk the engine hands them (32 or
     128); C = 1, a lone lane, and C = 9, a ragged second tile of 8
-    (float32) or 4 (float64) lanes; d = 9 and 15; float32 and float64; on
-    the inputs the top level of one call of the kernel's entry
-    (inverse_blocks_cm, solve_and_inverse_cm, solve_cm,
+    (float32) or 4 (float64) lanes; d = 9 and 15 (EDGES16 at d = 16 adds
+    C = 8, one whole float32 tile, and s = 32 on C = 245); float32 and
+    float64; on the inputs the top level of one call of the kernel's
+    entry (inverse_blocks_cm, solve_and_inverse_cm, solve_cm,
     mahal_and_logdet_cm, or mahal_and_logdet_wide on the same blocks in
     the wide layout) hands it, under no_grad."""
     from cyclic_gps_tpu_torch.ops import sweep_cuda, wide_cuda
@@ -535,14 +560,14 @@ def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels):
         module = modules[mod_name]
         twin = getattr(module, attr.replace("_cuda", "_plain"))
         run = getattr(pt, entry)
-        for d, c in EDGES:
-            n = 3 * c
+        for d, s, c in edges:
+            n = s * c
             system = nat_system(n + 1, d, dev, seed=60 + d + c)
             for dtype, (rtol, atol) in ((torch.float32, (1e-3, 1e-4)),
                                         (torch.float64, (1e-9, 1e-10))):
                 diag, off, y = (t.to(dtype) for t in system)
                 R_cm, O_cm, y_cm, _ = pt._chunk_layout(
-                    diag[:n], off[:n - 1], y[:n], 3)
+                    diag[:n], off[:n - 1], y[:n], s)
                 captured.clear()
                 orig = capture(module, attr)
                 try:
@@ -562,7 +587,8 @@ def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels):
                     kernel, f"cyclic_gps_tpu_torch/csrc/{src}",
                     f"cyclic_gps_tpu/ops/{tpu}",
                     getattr(module, attr), twin, args_k, rtol, atol,
-                    f"edge: d = {d}, s = 3, C = {c}, {dtype}; {why}; atol "
+                    f"edge: d = {d}, s = {s}, C = {c}, {dtype}; "
+                    f"{why if s == 3 else 'the chain chunk length'}; atol "
                     f"{atol:g} of each output's scale",
                     kw=kw_k, atol_of_scale=True, record=False, phase=phase,
                     reps=1)
@@ -1438,9 +1464,9 @@ def main():
         say(f"[build] rank {RANK} {base.group(1)}{kind}: registers {regs}, "
             f"stack {stack} B, spill stores {spill} B")
     # the celerite kernels at nblocks 2 and 8 (rank 4 and 16; template
-    # arguments nblocks, obs_dim, collect) and kernels 1, 6, 7 at rank 16
-    sweeps16 = ("forward_sweep_kernel", "forward_sweep_solveinv_kernel",
-                "backward_solve_takahashi_kernel")
+    # arguments nblocks, obs_dim, collect) and kernel 1 at rank 16 (6 and
+    # 7 take 16 one warp per lane: below)
+    sweeps16 = ("forward_sweep_kernel",)
     for tag in (CEL_NB_SMALL, CEL_NB, 16):
         for fn_name, (regs, stack, spill) in sorted(
                 _build.ptxas_report(tag).items()):
@@ -1456,8 +1482,9 @@ def main():
             say(f"[build] {base.group(1)}<{base.group(2)}>: registers "
                 f"{regs}, stack {stack} B, spill stores {spill} B")
     # the wide kernels and the runtime-d solve and selected-inversion
-    # kernels (one instance per dtype; d = 9..15 at run time)
-    for tag in ("wide_", "rt_"):
+    # kernels (one instance per dtype; d = 9..15 at run time), and kernels
+    # 6 and 7 at block size 16 (one warp per lane, one instance per dtype)
+    for tag in ("wide_", "rt_", "solveinv_warp", "backsolve_warp"):
         for fn_name, (regs, stack, spill) in sorted(
                 _build.ptxas_report(0, tag=tag).items()):
             base = re.search(rf"\d+({tag}[a-z_]+?)I(\w*?)EEv", fn_name)
@@ -1465,8 +1492,8 @@ def main():
                 continue
             say(f"[build] {base.group(1)}<{base.group(2)}>: registers "
                 f"{regs}, stack {stack} B, spill stores {spill} B")
-            if base.group(1) in WARP_KERNELS and (stack >= 1024
-                                                  or spill > 0):
+            if (base.group(1) in WARP_KERNELS + WARP16_KERNELS
+                    and (stack >= 1024 or spill > 0)):
                 fail(f"{base.group(1)}<{base.group(2)}> runs from local "
                      f"memory (stack {stack} B, spill stores {spill} B)")
     # the warp-per-lane kernels: dynamic shared memory per thread block
@@ -1490,6 +1517,13 @@ def main():
             "shared bytes per block (float32 / float64) "
             + ", ".join(f"d {d}: {query(of_d(d), 0)} / {query(of_d(d), 1)}"
                         for d in WARP_DS))
+    for kname, query in zip(WARP16_KERNELS,
+                            (lib.cgt_solveinv_warp_smem_bytes,
+                             lib.cgt_backsolve_warp_smem_bytes)):
+        say(f"[build] {kname} (kernel {6 if 'solveinv' in kname else 7} "
+            "at block size 16): one warp per chunk lane, 8 lanes per block "
+            "at float32, 4 at float64; dynamic shared bytes per block "
+            f"(float32 / float64) d 16: {query(16, 0)} / {query(16, 1)}")
     # kernel 15: one warp per chunk lane at nblocks 5..8 (8 lanes per
     # block), one thread per lane at 1..4
     for fn_name, (regs, stack, spill) in sorted(_build.ptxas_report(
@@ -2084,16 +2118,32 @@ def main():
              for k in cel_kernels]
     with torch.no_grad():
         celerite.log_likelihood(p8, ts_c, xs_c)
-    origs += [(sweep_cuda, f"{k}_cuda", capture(sweep_cuda, f"{k}_cuda"))
-              for k in ("forward_sweep", "forward_sweep_solveinv",
-                        "backward_solve_takahashi")]
+    origs.append((sweep_cuda, "forward_sweep_cuda",
+                  capture(sweep_cuda, "forward_sweep_cuda")))
+    # kernels 6 and 7: the first call at every level of the chain (C)
+    levels = {}
+
+    def level_capture(attr):
+        orig = getattr(sweep_cuda, attr)
+
+        @functools.wraps(orig)
+        def spy(*args, **kw):
+            levels.setdefault((attr, args[0].shape[-1]), (args, kw))
+            return orig(*args, **kw)
+
+        setattr(sweep_cuda, attr, spy)
+        return orig
+
+    origs += [(sweep_cuda, f"{k}_cuda", level_capture(f"{k}_cuda"))
+              for k in ("forward_sweep_solveinv", "backward_solve_takahashi")]
     torch.autograd.grad(celerite.log_likelihood_filter(p8, ts_c, xs_c),
                         list(p8.parameters()))
     torch.cuda.synchronize()
     for module, attr, orig in origs:
         setattr(module, attr, orig)
-    if len(captured) != 7:
-        fail(f"the celerite routes reached only {sorted(captured)}")
+    if len(captured) != 5 or len(levels) < 4:
+        fail(f"the celerite routes reached only {sorted(captured)} and "
+             f"{sorted(levels)}")
     for key, source, line, rtol, why in (
             ("celerite_gap_mahal_sweep", "celerite_sweep.cu", 285, 1e-3,
              "127 dependent elimination steps on closed-form rank-16 rows; "
@@ -2115,15 +2165,25 @@ def main():
             getattr(celerite_cuda, f"{key}_cuda"),
             getattr(celerite_cuda, f"{key}_plain"), args_k, rtol, 1e-4, why,
             kw=kw_k, atol_of_scale=True)
-    for key in ("forward_sweep", "forward_sweep_solveinv",
-                "backward_solve_takahashi"):
-        args_k, kw_k = captured[f"{key}_cuda"]
+    args_k, kw_k = captured["forward_sweep_cuda"]
+    check_kernel(
+        "forward_sweep", "", "", sweep_cuda.forward_sweep_cuda,
+        sweep_cuda.forward_sweep_plain, args_k, 1e-3, 1e-4,
+        f"block size {args_k[0].shape[1]}, one thread per lane, the "
+        f"boundary chain's top level (C = {args_k[0].shape[-1]} chunks); "
+        "atol 1e-4 of each output's scale",
+        kw=kw_k, atol_of_scale=True, record=False)
+    # 6 and 7 at block size 16 (one warp per lane) at every level
+    for (attr, c), (args_k, kw_k) in sorted(levels.items(),
+                                            key=lambda kv: -kv[0][1]):
+        key = attr.removesuffix("_cuda")
+        s_k = args_k[0].shape[0] + (key == "backward_solve_takahashi")
         check_kernel(
-            key, "", "", getattr(sweep_cuda, f"{key}_cuda"),
+            key, "", "", getattr(sweep_cuda, attr),
             getattr(sweep_cuda, f"{key}_plain"), args_k, 1e-3, 1e-4,
-            f"block size {args_k[0].shape[1]}, the boundary chain's top "
-            f"level (C = {args_k[0].shape[-1]} chunks); atol 1e-4 of each "
-            "output's scale",
+            f"block size {args_k[0].shape[1]}, one warp per lane, the "
+            f"boundary chain at C = {c} chunks of s = {s_k}; atol 1e-4 of "
+            "each output's scale",
             kw=kw_k, atol_of_scale=True, record=False)
     captured.clear()
     torch.cuda.empty_cache()
@@ -2196,6 +2256,8 @@ def main():
         opt.step(p_train, loss.item())
         return loss.item()
 
+    warp67 = (sweep_cuda.forward_sweep_solveinv_cuda,
+              sweep_cuda.backward_solve_takahashi_cuda)
     for r in rows:
         r["kernel"].launches = 0
     celerite_cuda.celerite_filter_adjoint_cuda.launches_warp = 0
@@ -2205,6 +2267,10 @@ def main():
     torch.cuda.synchronize()
     ll_launches = {k: counters[k].launches for k in path_kernels}
     sweep_warp = celerite_cuda.celerite_gap_mahal_sweep_cuda.launches_warp
+    # 6 and 7 over the Adam steps alone (the likelihood call runs neither)
+    step_before = {w.__name__: w.launches for w in warp67}
+    for w in warp67:
+        w.launches_warp = 0
     step_ms, cel_losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2214,10 +2280,17 @@ def main():
         step_ms.append(1e3 * (time.perf_counter() - t0))
     cel_launches = {k: counters[k].launches for k in path_kernels}
     adj_warp = celerite_cuda.celerite_filter_adjoint_cuda.launches_warp
+    steps67 = {w.__name__: (w.launches - step_before[w.__name__],
+                            w.launches_warp) for w in warp67}
     say(f"[celerite] launches in one log_likelihood call: {ll_launches} "
         f"(kernel 12's warp-per-lane instance: {sweep_warp}); then with "
         f"{TRAIN_STEPS} Adam steps on nll_loss: {cel_launches} (kernel "
-        f"15's warp-per-lane instance: {adj_warp})")
+        f"15's warp-per-lane instance: {adj_warp}); kernels 6 and 7 over "
+        f"the Adam steps (launches, warp-per-lane launches): {steps67}")
+    for name, (n_all, n_warp) in steps67.items():
+        if n_all <= 0 or n_warp != n_all:
+            fail(f"{name}: {n_warp} of {n_all} launches over the nblocks "
+                 f"{CEL_NB} Adam steps took the warp-per-lane kernel")
     for k in path_kernels:
         if cel_launches[k] <= 0:
             fail(f"kernel {k} was not launched by the celerite path")
@@ -2272,6 +2345,10 @@ def main():
     run_adjoint_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
                       xs_c)
     run_sweep_edges(dev, check_kernel, celerite, celerite_cuda, ts_c, xs_c)
+    # kernels 6 and 7 at block size 16 at their edge shapes
+    run_edges(dev, "celerite", captured, capture, check_kernel, pt,
+              ("forward_sweep_solveinv", "backward_solve_takahashi"),
+              EDGES16)
 
     # ---- 9. wide: block sizes 9-15 (kernels 16, 21, 22) --------------------
     run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,

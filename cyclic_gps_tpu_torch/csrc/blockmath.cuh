@@ -707,8 +707,9 @@ __device__ __forceinline__ void store_sweep_state(
     default: return int(cudaErrorInvalidValue); \
   }
 
-// The same for ranks 1..8 and 16 (the engine's forward sweep and its two
-// backward kernels, which also run the celerite boundary chain).
+// The same for ranks 1..8 and 16 (the engine's forward sweep, which also
+// runs the celerite boundary chain; its two backward kernels take 16 one
+// warp per lane, backward_sweep.cu).
 #define CGT_RANK_SWITCH_16(r, CALL) \
   switch (r) {                      \
     case 1: CALL(1); break;         \

@@ -2,17 +2,19 @@
 // d x d blocks in shared memory, d a runtime value in 9..15 (one instance
 // per dtype), or up to 16 where a kernel hands `Sweep::step` the d = 16
 // triangle `Tri16` (which also picks the d = 16 paired solve,
-// `solve_pair<.., true>`).  It carries the two Takahashi walks
+// `solve_pair<.., true>`).  It carries the Takahashi walks
 // (rt_inverse.cu's rt_takahashi_kernel, wide_backward.cu's
-// wide_backward_kernel) and five forward sweeps on one elimination step
-// (`Sweep`), whose rows start with a Cholesky of the pivot block (`chol`):
-// the likelihood's (rt_solve.cu's rt_sweep_kernel, and wide_sweep.cu's
-// wide_sweep_kernel on the wide layout), the two that collect the
-// backward's stacks (rt_solve.cu's rt_collect_kernel, wide_sweep.cu's
-// wide_solveinv_kernel) and the selected inversion's, which has no
-// right-hand side (rt_inverse.cu's rt_inverse_sweep_kernel); and
-// celerite_sweep.cu's warp instance, which builds its rows in place at
-// d = 2 nblocks (16 at nblocks 8).
+// wide_backward_kernel and backward_sweep.cu's backsolve_warp_kernel at
+// d = 16) and the forward sweeps on one elimination step (`Sweep`),
+// whose rows start with a Cholesky of the pivot block (`chol`): the
+// likelihood's (rt_solve.cu's rt_sweep_kernel, and wide_sweep.cu's
+// wide_sweep_kernel on the wide layout), the three that collect the
+// backward's stacks (rt_solve.cu's rt_collect_kernel; with
+// `Sweep::hats`, wide_sweep.cu's wide_solveinv_kernel and
+// backward_sweep.cu's solveinv_warp_kernel at d = 16) and the selected
+// inversion's, which has no right-hand side (rt_inverse.cu's
+// rt_inverse_sweep_kernel); and celerite_sweep.cu's warp instance, which
+// builds its rows in place at d = 2 nblocks (16 at nblocks 8).
 //
 // Why not the first port's design (one thread per lane, every block in local
 // memory): a walk step is a dependent chain of ~30 d^3 operations over ~14
@@ -481,6 +483,22 @@ struct Sweep {
       w0 = x;
       x = t_w0;
     }
+  }
+
+  // After `step` and `advance`: the row's hats from the triangular inverse
+  // di = D^{-1} (into the kernel's block `o_di`), as the TPU kernels' emit
+  // builds them: hat_C = di^T C^T (block `o_hc`), hat_W0 = di^T W0 (into
+  // the free X), pinv = di^T di (block `o_pinv`), hat_w = di^T w (vector
+  // `o_hw`).
+  __device__ __forceinline__ void hats(const Warp& w, int o_di, int o_hc,
+                                       int o_pinv, int o_hw) const {
+    T* const di = at(o_di);
+    solve_lower<T>(w, at(p), at(vec(SW_INVD)), di);
+    __syncwarp();
+    mm_op<T, true, true, SET>(w, di, at(cp), at(o_hc));
+    mm_op<T, true, false, SET>(w, di, at(w0), at(x));
+    mm_op<T, true, false, SET>(w, di, di, at(o_pinv));
+    mv_op<T, true, SET>(w, di, at(wv), at(o_hw));
   }
 };
 

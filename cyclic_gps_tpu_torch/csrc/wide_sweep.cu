@@ -90,18 +90,7 @@ __device__ __forceinline__ void wide_rows(
     __syncthreads();
     if (live) sw.step(w, tri, j == 1, jitter);
     sw.advance(j == 1);
-    if (HATS && live) {
-      // the hats and pinv from the triangular inverse di = D^{-1}, as the
-      // TPU kernel's emit: hat_C = di^T C^T, hat_W0 = di^T W0 (into the
-      // free X), hat_w = di^T w, pinv = di^T di
-      T* const di = sw.at(o_di);
-      co::solve_lower<T>(w, sw.at(sw.p), sw.at(sw.vec(co::SW_INVD)), di);
-      __syncwarp();
-      co::mm_op<T, true, true, co::SET>(w, di, sw.at(sw.cp), sw.at(o_hc));
-      co::mm_op<T, true, false, co::SET>(w, di, sw.at(sw.w0), sw.at(sw.x));
-      co::mm_op<T, true, false, co::SET>(w, di, di, sw.at(o_pinv));
-      co::mv_op<T, true, co::SET>(w, di, sw.at(sw.wv), sw.at(o_hw));
-    }
+    if (HATS && live) sw.hats(w, o_di, o_hc, o_pinv, o_hw);
     __syncthreads();
     if (HATS) {
       tile.store_w(hc11, hcst, j - 1, o_hc);

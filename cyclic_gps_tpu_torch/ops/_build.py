@@ -101,13 +101,15 @@ _SIGNATURES.update({
 # kernels of block sizes 9-15 (rt_inverse.cu's sweep and recursion and
 # rt_solve.cu's two sweeps at block size d, wide_backward.cu's and
 # wide_sweep.cu's two sweeps at 8 + e; the second argument 1 for float64),
-# of the celerite filter adjoint at nblocks and obs_dim, and of the
-# celerite likelihood sweep at nblocks
+# of the celerite filter adjoint at nblocks and obs_dim, of the
+# celerite likelihood sweep at nblocks, and of kernels 6 and 7 at block
+# size 16 (backward_sweep.cu's warp-per-lane sweep and walk)
 _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes",
     "cgt_rt_collect_smem_bytes", "cgt_wide_solveinv_smem_bytes",
     "cgt_wide_sweep_smem_bytes", "cgt_rt_sweep_smem_bytes",
-    "cgt_rt_inverse_sweep_smem_bytes", "cgt_celerite_adjoint_smem_bytes")})
+    "cgt_rt_inverse_sweep_smem_bytes", "cgt_celerite_adjoint_smem_bytes",
+    "cgt_solveinv_warp_smem_bytes", "cgt_backsolve_warp_smem_bytes")})
 _SIGNATURES["cgt_celerite_sweep_smem_bytes"] = [_I]
 # the runtime-d kernels of the likelihood's sweep, the solve and the
 # selected inversion (d = 9..15) take the arguments of their
@@ -223,7 +225,7 @@ def load() -> ctypes.CDLL:
 # Block sizes each kernel is instantiated for: every kernel takes 1..8;
 # the engine's forward sweep and its two backward kernels (Queue 2 items
 # 1, 6 and 7) also take 16, the boundary chain of the celerite family at
-# nblocks = 8; the forward sweep (item 1) and the solve and
+# nblocks = 8 (6 and 7 there one warp per chunk lane); the forward sweep (item 1) and the solve and
 # selected-inversion kernels (items 8-11) also take 9..15, through one
 # runtime-d instance per dtype (rt_solve.cu's likelihood sweep and items
 # 17-20).

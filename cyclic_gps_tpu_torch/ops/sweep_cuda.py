@@ -30,7 +30,10 @@ instances (``csrc/rt_solve.cu``, ``csrc/rt_inverse.cu``), which replace
 forward_sweep_collect_wide_pallas, :496 backward_substitute_wide_pallas,
 :641 forward_sweep_inverse_wide_pallas and :812
 takahashi_backward_wide_pallas on the chunk-major layout; a wrapper counts
-the two apart (``launches`` and ``launches_rt``).
+the two apart (``launches`` and ``launches_rt``).  The second and third
+take block sizes 1..8 one thread per chunk lane and 16 (celerite's
+boundary chain at nblocks 8) one warp per chunk lane; ``launches`` counts
+both, ``launches_warp`` the second.
 
 Each wrapper launches its kernel for CUDA tensors; for CPU tensors it runs
 its plain twin (``*_plain``), which computes the same function with tensor
@@ -232,8 +235,10 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     stack row j-1 holding step j: hat_C = D^{-T} C^T, hat_W0 = D^{-T} W0,
     hat_w = D^{-T} w and pinv = P^{-1} = D^{-T} D^{-1}.
 
-    CUDA tensors launch ``csrc/backward_sweep.cu``
-    (``forward_sweep_solveinv_cuda.launches``); CPU tensors run
+    CUDA tensors launch ``csrc/backward_sweep.cu``: one thread per chunk
+    lane at d = 1..8, one warp per chunk lane at d = 16
+    (``forward_sweep_solveinv_cuda.launches`` counts every launch,
+    ``.launches_warp`` those at 16); CPU tensors run
     `forward_sweep_solveinv_plain`.
     """
     name = "forward_sweep_solveinv_cuda"
@@ -250,6 +255,8 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
         _launch(name, "cgt_forward_sweep_solveinv", R_cm.dtype, R_cm, O_cm,
                 y_cm, float(jitter), s, d, c, *outs)
     forward_sweep_solveinv_cuda.launches += 1
+    if d == 16:
+        forward_sweep_solveinv_cuda.launches_warp += 1
     (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0, hw, pinv,
      ld_rows) = outs
     return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
@@ -257,6 +264,7 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 
 
 forward_sweep_solveinv_cuda.launches = 0
+forward_sweep_solveinv_cuda.launches_warp = 0
 
 
 def _sig_ut(p00, p01, p10, p11, u0, u1):
@@ -319,8 +327,10 @@ def backward_solve_takahashi_cuda(hat_cs: Tensor, hat_w0s: Tensor,
     (the last is the right-edge block), u0_final, u1_final [d, d, C]).
     float32 or float64, d in 1..8 or 16.
 
-    CUDA tensors launch ``csrc/backward_sweep.cu``
-    (``backward_solve_takahashi_cuda.launches``); CPU tensors run
+    CUDA tensors launch ``csrc/backward_sweep.cu``: one thread per chunk
+    lane at d = 1..8, one warp per chunk lane at d = 16
+    (``backward_solve_takahashi_cuda.launches`` counts every launch,
+    ``.launches_warp`` those at 16); CPU tensors run
     `backward_solve_takahashi_plain`.
     """
     name = "backward_solve_takahashi_cuda"
@@ -345,10 +355,13 @@ def backward_solve_takahashi_cuda(hat_cs: Tensor, hat_w0s: Tensor,
         _launch(name, "cgt_backward_solve_takahashi", hat_cs.dtype, *args,
                 sm1 + 1, d, c, *outs)
     backward_solve_takahashi_cuda.launches += 1
+    if d == 16:
+        backward_solve_takahashi_cuda.launches_warp += 1
     return tuple(outs)
 
 
 backward_solve_takahashi_cuda.launches = 0
+backward_solve_takahashi_cuda.launches_warp = 0
 
 
 
