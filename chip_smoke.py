@@ -10,8 +10,8 @@ Phases, one line of output each (or more):
   2. build    nvcc builds the package's CUDA kernels from csrc/; the
               compiler's registers / stack / spills at rank 5, of the
               celerite kernels at nblocks 2 and 8 (and of every instance
-              of the filter adjoint, kernel 15), of kernel 1 at rank 16,
-              and of the wide and runtime-d kernels; the dynamic
+              of the filter adjoint, kernel 15), and of the wide and
+              runtime-d kernels; the dynamic
               shared bytes per block of the six warp-per-lane kernels of
               block sizes 9-15 (the walks 20' and 22, the sweeps 17', 21,
               19' and kernel 1's runtime-d instance) at d = 9, 12 and 15,
@@ -20,9 +20,12 @@ Phases, one line of output each (or more):
               per-lane kernels of 9-15 now include kernel 16 (the wide
               likelihood sweep); kernel 12's warp-per-lane instance
               (nblocks 5-8) with its shared bytes, failing on local
-              memory as well; kernels 6 and 7 at block size 16 (one warp
-              per chunk lane, csrc/backward_sweep.cu) with their shared
-              bytes at both dtypes, failing on local memory as well.
+              memory as well; kernels 1, 6 and 7 at block size 16 (one
+              warp per chunk lane, csrc/forward_sweep.cu and
+              csrc/backward_sweep.cu) with their shared bytes at both
+              dtypes, and kernel 14's warp-per-lane instances (nblocks
+              5-8, obs 1 and 2) with theirs, failing on local memory as
+              well (on any stack or spill at all for 1 at 16 and 14).
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -59,29 +62,33 @@ Phases, one line of output each (or more):
               on the bench grid (gaps randint(1, 5) * 0.125, float32): the
               four celerite kernels against their twins, and the engine's
               kernels 1, 6 and 7 at block size 16, on the inputs one
-              gradient of each likelihood route hands them (6 and 7, one
-              warp per chunk lane, at both levels of the boundary chain,
-              C = 245 and 8); both routes
+              gradient of each likelihood route hands them (one warp per
+              chunk lane, at both levels of the boundary chain, C = 245
+              and 8); both routes
               and their gradients with backend="auto" against "torch" at
               nblocks 2 and 8; one likelihood call and three Adam steps on
               nll_loss with launch counts reset just before and read just
-              after, kernels 6 and 7 taking their warp-per-lane kernel at
-              every launch of the Adam steps; one profiled step;
+              after, kernels 1, 6 and 7 at block size 16 and kernels 14
+              and 15 taking their warp-per-lane kernel at every launch of
+              the Adam steps; one profiled step;
               make_predictions(method=
               "precision") at nblocks 2; kernel 15's two instances (one
               thread per lane at nblocks 1-4, one warp per lane at 5-8)
               against their twin at nblocks 1, 2, 5 and 8, obs 1 and 2,
               on C = 9 chunks (a ragged last chunk and tile) and on one
-              lane, and at nblocks 6, N = 1e6; kernel 12's two instances
+              lane, and at nblocks 6, N = 1e6; kernel 14's two instances
+              the same way (timed at nblocks 2 in turns and at 6); kernel
+              12's two instances
               (one thread per lane at nblocks 1-4, one warp per lane at
               5-8, which the likelihood call must take at nblocks 8)
               against their twin at nblocks 1, 2, 4, 5 and 8 on C = 9
               chunks (masked gaps and unobserved rows in the ragged last
               chunk) and on that last lane, both timed at nblocks 2 and
               4, N = 1e6, and the routed one at nblocks 6, N = 1e6;
-              kernels 6 and 7 at block size 16 at their edge shapes
+              kernels 1, 6 and 7 at block size 16 at their edge shapes
               (s = 3 on C = 1, 8 and 9; s = 32 on C = 245; float32 and
-              float64) on the inputs one solve_and_inverse_cm hands them.
+              float64) on the inputs one mahal_and_logdet_cm (1) or
+              solve_and_inverse_cm (6, 7) hands them.
   9. wide     block sizes 9-15 on the wide route (kernels 16, 21, 22):
               the natural mahal_and_logdet at N = 1e6 on the well-
               conditioned system of tests/test_wideblock.py, value and
@@ -498,8 +505,13 @@ WARP_DS = (9, 12, 15)  # block sizes of their shared-memory report
 # kernels 6 and 7 at block size 16 (csrc/backward_sweep.cu), one warp per
 # chunk lane on rtcoop.cuh
 WARP16_KERNELS = ("solveinv_warp_kernel", "backsolve_warp_kernel")
+# kernel 1 at block size 16 (csrc/forward_sweep.cu) and kernel 14 at
+# nblocks 5-8 (csrc/celerite_filter.cu), one warp per chunk lane: no local
+# memory at all
+WARP_NEW_KERNELS = ("forward_sweep_warp_kernel",
+                    "celerite_filter_collect_warp_kernel")
 EDGES = ((9, 3, 1), (9, 3, 9), (15, 3, 1), (15, 3, 9))  # (d, s, C)
-# 6 and 7 at 16: the shortest chunk on a lone lane, one whole float32
+# 1, 6 and 7 at 16: the shortest chunk on a lone lane, one whole float32
 # tile and a ragged one, and the chain's chunk length on its C = 245
 EDGES16 = ((16, 3, 1), (16, 3, 8), (16, 3, 9), (16, 32, 245))
 # each kernel's edge check: (module, wrapper, source, the TPU kernel, the
@@ -525,6 +537,9 @@ EDGE_KERNELS = {
     "forward_sweep_rt": (
         "sweep_cuda", "forward_sweep_cuda", "rt_solve.cu",
         "pallas_sweep.py:248", "mahal_and_logdet_cm", _TWO_ROWS),
+    "forward_sweep": (
+        "sweep_cuda", "forward_sweep_cuda", "forward_sweep.cu",
+        "pallas_sweep.py:248", "mahal_and_logdet_cm", _TWO_ROWS),
     "forward_sweep_wide": (
         "wide_cuda", "forward_sweep_wide_cuda", "wide_sweep.cu",
         "pallas_wide.py:166", "mahal_and_logdet_wide", _TWO_ROWS),
@@ -542,7 +557,7 @@ def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels,
               edges=EDGES):
     """Each of ``kernels`` (keys of EDGE_KERNELS: 20', 17' and 19' in
     [solve-rt], 22 and 21 in [wide], kernel 1's runtime-d instance in
-    [sweep-rt], 6 and 7 at block size 16 in [celerite]) against its twin
+    [sweep-rt], 1, 6 and 7 at block size 16 in [celerite]) against its twin
     at the edge shapes (d, s, C) of the warp-per-lane kernels: by default
     (EDGES) s = 3, shorter than any chunk the engine hands them (32 or
     128); C = 1, a lone lane, and C = 9, a ragged second tile of 8
@@ -1267,6 +1282,92 @@ def run_adjoint_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
           f"N {N_BIG}, the bench grid", 3)
 
 
+COLLECT_EDGE_NBS = (1, 2, 5, 8)  # kernel 14's edge nblocks, obs 1 and 2
+
+
+def run_collect_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
+                      xs_c):
+    """Kernel 14's two designs (one thread per lane, routed at nblocks
+    1..4; one warp per lane, routed at 5..8 and forced by ``warp=True``)
+    against its twin at nblocks 1, 2, 5, 8 and obs 1, 2 on the inputs one
+    filter-route gradient hands it at N = 283 (s = 32, C = 9: a ragged
+    last chunk whose padding rows are masked gaps and unobserved rows,
+    and a ragged second tile of 8 lanes) and on lane 0 of them alone
+    (C = 1); then both designs at nblocks 2 and the routed one at nblocks
+    6, N = 1e6 on the bench grid (the inputs of the training steps),
+    timed."""
+    wrapper = celerite_cuda.celerite_filter_collect_cuda
+
+    def inputs(nb, q, t, x, seed):
+        p = celerite.init_params(nb, q, generator=torch.Generator()
+                                 .manual_seed(seed), device=dev)
+        got = {}
+        orig = celerite.celerite_filter_collect_cuda
+
+        def spy(*a):
+            got["args"] = a
+            return orig(*a)
+
+        celerite.celerite_filter_collect_cuda = spy
+        try:
+            torch.autograd.grad(celerite.log_likelihood_filter(p, t, x),
+                                list(p.parameters()))
+            torch.cuda.synchronize()
+        finally:
+            celerite.celerite_filter_collect_cuda = orig
+        return got["args"]
+
+    def lane0(args):
+        f = lambda t: t[..., :1].contiguous()  # noqa: E731
+        return args[:3] + tuple(map(f, args[3:]))
+
+    def check(args, label, reps, warp=False):
+        nb, (s, c) = args[0].shape[0], args[3].shape
+        before = wrapper.launches_warp
+        design = ("warp per lane"
+                  if warp or nb >= celerite_cuda.COLLECT_WARP_NBLOCKS
+                  else "thread per lane")
+        masked = int((args[4] == 0).sum())
+        unobserved = int((args[5] == 0).sum())
+        check_kernel(
+            "celerite_filter_collect",
+            "cyclic_gps_tpu_torch/csrc/celerite_filter.cu",
+            "cyclic_gps_tpu/ops/celerite_pallas.py:592",
+            functools.partial(wrapper, warp=warp),
+            celerite_cuda.celerite_filter_collect_plain, args, 1e-3, 1e-4,
+            f"{label}, {design}: nblocks {nb}, obs {args[6].shape[1]}, s "
+            f"{s}, C {c}, {masked} masked gaps, {unobserved} unobserved "
+            f"rows; {s} dependent filter steps and their history; atol 1e-4 "
+            "of each output's scale",
+            atol_of_scale=True, record=False, phase="celerite", reps=reps)
+        if (wrapper.launches_warp > before) != (design == "warp per lane"):
+            fail(f"kernel 14 at nblocks {nb} took the wrong design")
+
+    rng = torch.Generator().manual_seed(13)
+    n = 32 * 9 - 5
+    t_e = torch.cumsum(torch.randint(1, 5, (n,), generator=rng) * 0.125,
+                       0).to(dev)
+    for nb in COLLECT_EDGE_NBS:
+        for q in (1, 2):
+            x_e = torch.randn(n, q, generator=rng).to(dev)
+            args = inputs(nb, q, t_e, x_e, seed=30 + 10 * nb + q)
+            if (int((args[4] == 0).sum()) == 0
+                    or int((args[5] == 0).sum()) == 0):
+                fail("kernel 14's edge inputs hold no masked gap or no "
+                     "unobserved row")
+            for warp in (False, True) \
+                    if nb < celerite_cuda.COLLECT_WARP_NBLOCKS else (False,):
+                check(args, "edge", 1, warp)
+                check(lane0(args), "edge, one lane", 1, warp)
+    # the two designs at nblocks 2 (the routing's evidence, in turns), then
+    # nblocks 6
+    args = inputs(CEL_NB_SMALL, 1, ts_c, xs_c, seed=1)
+    for warp in (False, True, True, False):
+        check(args, f"N {N_BIG}, the bench grid", 3, warp)
+    check(inputs(CEL_NB_WIDE, 1, ts_c, xs_c, seed=0),
+          f"N {N_BIG}, the bench grid", 3)
+
+
 SWEEP_EDGE_NBS = (1, 2, 4, 5, 8)  # kernel 12's edge nblocks
 
 
@@ -1464,27 +1565,25 @@ def main():
         say(f"[build] rank {RANK} {base.group(1)}{kind}: registers {regs}, "
             f"stack {stack} B, spill stores {spill} B")
     # the celerite kernels at nblocks 2 and 8 (rank 4 and 16; template
-    # arguments nblocks, obs_dim, collect) and kernel 1 at rank 16 (6 and
-    # 7 take 16 one warp per lane: below)
-    sweeps16 = ("forward_sweep_kernel",)
-    for tag in (CEL_NB_SMALL, CEL_NB, 16):
+    # arguments nblocks, obs_dim, collect; 1, 6 and 7 take 16 one warp per
+    # lane: below)
+    for tag in (CEL_NB_SMALL, CEL_NB):
         for fn_name, (regs, stack, spill) in sorted(
                 _build.ptxas_report(tag).items()):
             base = re.search(r"\d+([a-z_]+?)I(\w*?)EEv", fn_name)
             if base is None or regs is None:
                 continue
-            if tag == 16:
-                if base.group(1) not in sweeps16:
-                    continue
-            elif ("celerite" not in base.group(1)
-                  or not base.group(2).startswith(f"Li{tag}E")):
+            if ("celerite" not in base.group(1)
+                    or not base.group(2).startswith(f"Li{tag}E")):
                 continue
             say(f"[build] {base.group(1)}<{base.group(2)}>: registers "
                 f"{regs}, stack {stack} B, spill stores {spill} B")
     # the wide kernels and the runtime-d solve and selected-inversion
-    # kernels (one instance per dtype; d = 9..15 at run time), and kernels
+    # kernels (one instance per dtype; d = 9..15 at run time), kernels 1,
     # 6 and 7 at block size 16 (one warp per lane, one instance per dtype)
-    for tag in ("wide_", "rt_", "solveinv_warp", "backsolve_warp"):
+    # and kernel 14's warp instances (nblocks 5-8, obs 1 and 2)
+    for tag in ("wide_", "rt_", "solveinv_warp", "backsolve_warp",
+                "forward_sweep_warp", "celerite_filter_collect_warp"):
         for fn_name, (regs, stack, spill) in sorted(
                 _build.ptxas_report(0, tag=tag).items()):
             base = re.search(rf"\d+({tag}[a-z_]+?)I(\w*?)EEv", fn_name)
@@ -1496,6 +1595,9 @@ def main():
                     and (stack >= 1024 or spill > 0)):
                 fail(f"{base.group(1)}<{base.group(2)}> runs from local "
                      f"memory (stack {stack} B, spill stores {spill} B)")
+            if base.group(1) in WARP_NEW_KERNELS and (stack or spill):
+                fail(f"{base.group(1)}<{base.group(2)}> uses local memory "
+                     f"(stack {stack} B, spill stores {spill} B)")
     # the warp-per-lane kernels: dynamic shared memory per thread block
     lib = _build.load()
     for kname, query, of_d in (
@@ -1517,13 +1619,21 @@ def main():
             "shared bytes per block (float32 / float64) "
             + ", ".join(f"d {d}: {query(of_d(d), 0)} / {query(of_d(d), 1)}"
                         for d in WARP_DS))
-    for kname, query in zip(WARP16_KERNELS,
-                            (lib.cgt_solveinv_warp_smem_bytes,
-                             lib.cgt_backsolve_warp_smem_bytes)):
-        say(f"[build] {kname} (kernel {6 if 'solveinv' in kname else 7} "
-            "at block size 16): one warp per chunk lane, 8 lanes per block "
-            "at float32, 4 at float64; dynamic shared bytes per block "
-            f"(float32 / float64) d 16: {query(16, 0)} / {query(16, 1)}")
+    for kname, num, query in zip(
+            ("forward_sweep_warp_kernel",) + WARP16_KERNELS, (1, 6, 7),
+            (lib.cgt_forward_sweep_warp_smem_bytes,
+             lib.cgt_solveinv_warp_smem_bytes,
+             lib.cgt_backsolve_warp_smem_bytes)):
+        say(f"[build] {kname} (kernel {num} at block size 16): one warp per "
+            "chunk lane, 8 lanes per block at float32, 4 at float64; "
+            "dynamic shared bytes per block (float32 / float64) d 16: "
+            f"{query(16, 0)} / {query(16, 1)}")
+    say("[build] celerite_filter_collect_warp_kernel (kernel 14, warp per "
+        "lane at nblocks 5-8, 8 lanes per block, blocks in clusters of 4): "
+        "dynamic shared bytes per block (obs 1 / obs 2) " + ", ".join(
+            f"nblocks {nb}: {lib.cgt_celerite_collect_smem_bytes(nb, 1)} / "
+            f"{lib.cgt_celerite_collect_smem_bytes(nb, 2)}"
+            for nb in range(5, 9)))
     # kernel 15: one warp per chunk lane at nblocks 5..8 (8 lanes per
     # block), one thread per lane at 1..4
     for fn_name, (regs, stack, spill) in sorted(_build.ptxas_report(
@@ -2118,9 +2228,7 @@ def main():
              for k in cel_kernels]
     with torch.no_grad():
         celerite.log_likelihood(p8, ts_c, xs_c)
-    origs.append((sweep_cuda, "forward_sweep_cuda",
-                  capture(sweep_cuda, "forward_sweep_cuda")))
-    # kernels 6 and 7: the first call at every level of the chain (C)
+    # kernels 1, 6 and 7: the first call at every level of the chain (C)
     levels = {}
 
     def level_capture(attr):
@@ -2135,13 +2243,14 @@ def main():
         return orig
 
     origs += [(sweep_cuda, f"{k}_cuda", level_capture(f"{k}_cuda"))
-              for k in ("forward_sweep_solveinv", "backward_solve_takahashi")]
+              for k in ("forward_sweep", "forward_sweep_solveinv",
+                        "backward_solve_takahashi")]
     torch.autograd.grad(celerite.log_likelihood_filter(p8, ts_c, xs_c),
                         list(p8.parameters()))
     torch.cuda.synchronize()
     for module, attr, orig in origs:
         setattr(module, attr, orig)
-    if len(captured) != 5 or len(levels) < 4:
+    if len(captured) != 4 or len(levels) < 6:
         fail(f"the celerite routes reached only {sorted(captured)} and "
              f"{sorted(levels)}")
     for key, source, line, rtol, why in (
@@ -2165,18 +2274,13 @@ def main():
             getattr(celerite_cuda, f"{key}_cuda"),
             getattr(celerite_cuda, f"{key}_plain"), args_k, rtol, 1e-4, why,
             kw=kw_k, atol_of_scale=True)
-    args_k, kw_k = captured["forward_sweep_cuda"]
-    check_kernel(
-        "forward_sweep", "", "", sweep_cuda.forward_sweep_cuda,
-        sweep_cuda.forward_sweep_plain, args_k, 1e-3, 1e-4,
-        f"block size {args_k[0].shape[1]}, one thread per lane, the "
-        f"boundary chain's top level (C = {args_k[0].shape[-1]} chunks); "
-        "atol 1e-4 of each output's scale",
-        kw=kw_k, atol_of_scale=True, record=False)
-    # 6 and 7 at block size 16 (one warp per lane) at every level
+    # 1, 6 and 7 at block size 16 (one warp per lane) at every level
     for (attr, c), (args_k, kw_k) in sorted(levels.items(),
                                             key=lambda kv: -kv[0][1]):
         key = attr.removesuffix("_cuda")
+        if args_k[0].shape[1] != 16:
+            fail(f"{key} on the nblocks-{CEL_NB} chain at block size "
+                 f"{args_k[0].shape[1]}")
         s_k = args_k[0].shape[0] + (key == "backward_solve_takahashi")
         check_kernel(
             key, "", "", getattr(sweep_cuda, attr),
@@ -2238,9 +2342,9 @@ def main():
             fail(f"celerite {label}: the backend='auto' gradient disagrees")
 
     # the path: one likelihood call (precision route, kernel 12) and three
-    # Adam steps on nll_loss (filter route, kernels 13-15; the boundary
-    # chain through 1, 6 and 7 at block size 16), counts reset just
-    # before and read just after
+    # Adam steps on nll_loss (filter route, kernels 13-15, 14 and 15 one
+    # warp per lane; the boundary chain through 1, 6 and 7 at block size
+    # 16, one warp per lane), counts reset just before and read just after
     path_kernels = cel_kernels + ("forward_sweep", "forward_sweep_solveinv",
                                   "backward_solve_takahashi")
     counters = {r["name"]: r["kernel"] for r in rows}
@@ -2256,20 +2360,22 @@ def main():
         opt.step(p_train, loss.item())
         return loss.item()
 
-    warp67 = (sweep_cuda.forward_sweep_solveinv_cuda,
+    warp16 = (sweep_cuda.forward_sweep_cuda,
+              sweep_cuda.forward_sweep_solveinv_cuda,
               sweep_cuda.backward_solve_takahashi_cuda)
     for r in rows:
         r["kernel"].launches = 0
     celerite_cuda.celerite_filter_adjoint_cuda.launches_warp = 0
+    celerite_cuda.celerite_filter_collect_cuda.launches_warp = 0
     celerite_cuda.celerite_gap_mahal_sweep_cuda.launches_warp = 0
     with torch.no_grad():
         ll_path = float(celerite.log_likelihood(p_train, ts_c, xs_c))
     torch.cuda.synchronize()
     ll_launches = {k: counters[k].launches for k in path_kernels}
     sweep_warp = celerite_cuda.celerite_gap_mahal_sweep_cuda.launches_warp
-    # 6 and 7 over the Adam steps alone (the likelihood call runs neither)
-    step_before = {w.__name__: w.launches for w in warp67}
-    for w in warp67:
+    # 1, 6 and 7 over the Adam steps alone (6 and 7 run only there)
+    step_before = {w.__name__: w.launches for w in warp16}
+    for w in warp16:
         w.launches_warp = 0
     step_ms, cel_losses = [], []
     for _ in range(TRAIN_STEPS):
@@ -2280,14 +2386,16 @@ def main():
         step_ms.append(1e3 * (time.perf_counter() - t0))
     cel_launches = {k: counters[k].launches for k in path_kernels}
     adj_warp = celerite_cuda.celerite_filter_adjoint_cuda.launches_warp
-    steps67 = {w.__name__: (w.launches - step_before[w.__name__],
-                            w.launches_warp) for w in warp67}
+    col_warp = celerite_cuda.celerite_filter_collect_cuda.launches_warp
+    steps16 = {w.__name__: (w.launches - step_before[w.__name__],
+                            w.launches_warp) for w in warp16}
     say(f"[celerite] launches in one log_likelihood call: {ll_launches} "
         f"(kernel 12's warp-per-lane instance: {sweep_warp}); then with "
         f"{TRAIN_STEPS} Adam steps on nll_loss: {cel_launches} (kernel "
-        f"15's warp-per-lane instance: {adj_warp}); kernels 6 and 7 over "
-        f"the Adam steps (launches, warp-per-lane launches): {steps67}")
-    for name, (n_all, n_warp) in steps67.items():
+        f"15's warp-per-lane instance: {adj_warp}, kernel 14's: "
+        f"{col_warp}); kernels 1, 6 and 7 over the Adam steps (launches, "
+        f"warp-per-lane launches at block size 16): {steps16}")
+    for name, (n_all, n_warp) in steps16.items():
         if n_all <= 0 or n_warp != n_all:
             fail(f"{name}: {n_warp} of {n_all} launches over the nblocks "
                  f"{CEL_NB} Adam steps took the warp-per-lane kernel")
@@ -2299,6 +2407,9 @@ def main():
              f"{CEL_NB}")
     if adj_warp != cel_launches["celerite_filter_adjoint"]:
         fail("kernel 15 did not take its warp-per-lane instance at nblocks "
+             f"{CEL_NB}")
+    if col_warp != cel_launches["celerite_filter_collect"]:
+        fail("kernel 14 did not take its warp-per-lane instance at nblocks "
              f"{CEL_NB}")
     for r in rows:
         if r["name"] in cel_kernels:
@@ -2340,15 +2451,17 @@ def main():
         f"{ms_auto:.2f} ms, torch {ms_plain:.2f} ms (host clock); agree "
         f"(atol 1e-3 of each output's scale: {why32})")
 
-    # kernels 15's and 12's two instances at their edge shapes, and at
-    # nblocks 6
+    # kernels 15's, 14's and 12's two instances at their edge shapes, and
+    # at nblocks 6
     run_adjoint_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
                       xs_c)
+    run_collect_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
+                      xs_c)
     run_sweep_edges(dev, check_kernel, celerite, celerite_cuda, ts_c, xs_c)
-    # kernels 6 and 7 at block size 16 at their edge shapes
+    # kernels 1, 6 and 7 at block size 16 at their edge shapes
     run_edges(dev, "celerite", captured, capture, check_kernel, pt,
-              ("forward_sweep_solveinv", "backward_solve_takahashi"),
-              EDGES16)
+              ("forward_sweep", "forward_sweep_solveinv",
+               "backward_solve_takahashi"), EDGES16)
 
     # ---- 9. wide: block sizes 9-15 (kernels 16, 21, 22) --------------------
     run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,

@@ -91,40 +91,25 @@ __device__ __forceinline__ void load_dense(const T* p, T (&m)[R][R]) {
 
 // ---------------------------------------------------------------------------
 // Block products.  Each sums its k terms in ascending order, as the Pallas
-// _mm helper does.  Blocks above CGT_UNROLL_MAX (rank 16, the celerite
-// boundary chain) keep these O(R^3) loops rolled: such blocks live in local
-// memory however the loops are unrolled, and unrolling 16^3 multiply-adds
-// per product makes ptxas take minutes.
+// _mm helper does.  Every kernel that takes them is of rank 8 or less (the
+// engine's rank-16 sweeps run one warp per chunk lane on rtcoop.cuh), so
+// the loops unroll fully and the blocks stay in registers.
 // ---------------------------------------------------------------------------
-
-#define CGT_UNROLL_MAX 8
 
 // out = op(a) op(b), op transposing where TA / TB
 template <typename T, int R, bool TA, bool TB>
 __device__ __forceinline__ void mm_op(const T (&a)[R][R], const T (&b)[R][R],
                                       T (&out)[R][R]) {
-  if constexpr (R <= CGT_UNROLL_MAX) {
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int k = 0; k < R; ++k) {
-        T acc = (TA ? a[0][i] : a[i][0]) * (TB ? b[k][0] : b[0][k]);
+    for (int k = 0; k < R; ++k) {
+      T acc = (TA ? a[0][i] : a[i][0]) * (TB ? b[k][0] : b[0][k]);
 #pragma unroll
-        for (int p = 1; p < R; ++p)
-          acc += (TA ? a[p][i] : a[i][p]) * (TB ? b[k][p] : b[p][k]);
-        out[i][k] = acc;
-      }
-  } else {
-#pragma unroll 1
-    for (int i = 0; i < R; ++i)
-#pragma unroll 1
-      for (int k = 0; k < R; ++k) {
-        T acc = (TA ? a[0][i] : a[i][0]) * (TB ? b[k][0] : b[0][k]);
-        for (int p = 1; p < R; ++p)
-          acc += (TA ? a[p][i] : a[i][p]) * (TB ? b[k][p] : b[p][k]);
-        out[i][k] = acc;
-      }
-  }
+      for (int p = 1; p < R; ++p)
+        acc += (TA ? a[p][i] : a[i][p]) * (TB ? b[k][p] : b[p][k]);
+      out[i][k] = acc;
+    }
 }
 
 // out = a b
@@ -704,23 +689,6 @@ __device__ __forceinline__ void store_sweep_state(
     case 6: CALL(6); break;      \
     case 7: CALL(7); break;      \
     case 8: CALL(8); break;      \
-    default: return int(cudaErrorInvalidValue); \
-  }
-
-// The same for ranks 1..8 and 16 (the engine's forward sweep, which also
-// runs the celerite boundary chain; its two backward kernels take 16 one
-// warp per lane, backward_sweep.cu).
-#define CGT_RANK_SWITCH_16(r, CALL) \
-  switch (r) {                      \
-    case 1: CALL(1); break;         \
-    case 2: CALL(2); break;         \
-    case 3: CALL(3); break;         \
-    case 4: CALL(4); break;         \
-    case 5: CALL(5); break;         \
-    case 6: CALL(6); break;         \
-    case 7: CALL(7); break;         \
-    case 8: CALL(8); break;         \
-    case 16: CALL(16); break;       \
     default: return int(cudaErrorInvalidValue); \
   }
 

@@ -6,8 +6,8 @@
 //   celerite_filter_kernel<.., false> <- :479 celerite_filter_sweep_pallas
 //                                        (kernel body _cel_filter_kernel,
 //                                        :387)
-//   celerite_filter_kernel<.., true>  <- :592
-//                                        celerite_filter_collect_sweep_pallas
+//   celerite_filter_kernel<.., true>, <- :592
+//   celerite_filter_collect_warp_kernel  celerite_filter_collect_sweep_pallas
 //                                        (_cel_filter_collect_kernel, :563)
 //
 // Per chunk lane c and step j (ops/chunked_filter.conditional_filter_xla's
@@ -21,18 +21,44 @@
 // against 3 + q floats of input; the plain sweep writes only the chunk's
 // statistics, so it is bound by operations (~6 GFLOP at R = 16, N = 1e6).
 // The collect variant writes 2 R^2 + R floats of history per step (2.1 GB
-// at R = 16, N = 1e6) and is bound by those bytes.  With one thread per
-// chunk lane (7,813 threads at N = 1e6, s = 128, under half the SMs) both
-// are latency- and occupancy-bound instead; at R = 16 the carried a, F, P,
-// H, h (~800 floats) live in local memory.
+// at R = 16, N = 1e6) and is bound by those bytes.
 //
-// What the simple design does about it: one thread walks its chunk's s
-// steps with the whole filter state carried between them, so device memory
-// sees each input once and the statistics (or the history) once; the lane
-// axis is innermost so every load and store coalesces.  A warp per chunk
-// (lane i holding row i of F and P, the 2 x 2 mixes as shuffles) is the
-// design that would fill the card; it is later work.
+// Two designs:
+// * ONE THREAD PER CHUNK LANE (celerite_filter_kernel): one thread walks
+//   its chunk's s steps with the whole filter state carried between them,
+//   so device memory sees each input once and the statistics (or the
+//   history) once; the lane axis is innermost so every load and store
+//   coalesces.  The plain sweep (kernel 13) at every nblocks, and the
+//   collect variant at nblocks 1..4, where the state fits in registers.  At
+//   R = 16 the carried a, F, P, H, h (~800 floats) live in local memory,
+//   and 7,813 threads (N = 1e6, s = 128) fill under half the SMs.
+// * ONE WARP PER CHUNK LANE (celerite_filter_collect_warp_kernel,
+//   rtcoop.cuh's tiles): the collect variant at nblocks 5..8.  The lane's
+//   state sits in shared memory as celerite_adjoint.cu's warp instance
+//   keeps it -- F and P twice (this step's and the next one's), H, at the
+//   odd row stride R | 1; the Q x R blocks B P, G and the gains X, X2; a
+//   twice and h; the oscillators' e and Q -- ~6.4 KB per lane at R = 16,
+//   with B, Lambda and the oscillators' blocks as constants of the thread
+//   block.  Per step one barrier: after it the 8 lanes of the block store
+//   the step's pre-update (a, F, P) as whole 32-byte spans (the bytes that
+//   bound the kernel) and load the next step's real, dt, gv and y the same
+//   way, while each warp updates its lane, one output element per thread,
+//   into the other copy of F, P and a: the rank-q update and e's row mix
+//   per pair of rows (2k, 2k+1) and column, then e's column mix and + Q per
+//   pair of columns and row.  S, its Cholesky and every q x q solve run in
+//   every thread's registers (q <= 2).  Every sum keeps the thread kernel's
+//   order, so the two designs agree to rounding.  The barrier spans a
+//   cluster of four thread blocks, the 32 lanes whose spans make up each
+//   128-byte line of the history, so that they write each line within one
+//   step of each other, and more of the spans meet in L2 before a line is
+//   written back (on an H100 at nblocks 8, N = 1e6 the kernel's time fell
+//   by about a fifth; chip_smoke.py times it).  Spans stay the limit: a
+//   history laid out in whole lines per thread block, read back by the
+//   adjoint, would take less.
+#include <cooperative_groups.h>
+
 #include "celerite.cuh"
+#include "rtcoop.cuh"
 
 namespace {
 
@@ -195,54 +221,438 @@ celerite_filter_kernel(const float* __restrict__ gb,
   cgt::store_mat<float, R>(P_out, 0, C, c, P);
 }
 
+namespace co = cgt::coop;
+namespace cg = cooperative_groups;
+using Tile = co::Tile<float>;
+
+// The collect variant runs one warp per chunk lane from this nblocks up,
+// one thread per lane below (celerite_cuda.COLLECT_WARP_NBLOCKS).
+constexpr int COLLECT_WARP_NB = 5;
+
+// thread blocks per cluster of the warp-per-lane collect kernel: their
+// CLUSTER * 8 lanes make each 128-byte line of the history
+constexpr int CLUSTER = 4;
+
+// One lane's region in shared memory (offsets in floats) at nblocks NB,
+// obs_dim Q: five R x ld blocks (F and P, each twice, and H), four Q x R
+// blocks, three vectors of R (a twice, h), the oscillators' e (4 per
+// oscillator) and Q (3), c0 and ld for the final store, and two slots of
+// the step's inputs (real, dt, gv, y), one per step parity.
+template <int NB, int Q>
+struct FLay {
+  static constexpr int R = 2 * NB;
+  static constexpr int LD = R | 1;
+  static constexpr int BS = R * LD;
+  static constexpr int QR = Q * R;
+  static constexpr int NIN = 3 + Q;
+  static constexpr int F0 = 0, F1 = BS, P0 = 2 * BS, P1 = 3 * BS,
+                       H = 4 * BS;
+  static constexpr int BP = 5 * BS, G = BP + QR, X = G + QR, X2 = X + QR;
+  static constexpr int A0 = X2 + QR, A1 = A0 + R, HV = A1 + R;
+  static constexpr int E = HV + R, QN = E + 4 * NB, SC = QN + 3 * NB;
+  static constexpr int IN = SC + 2;
+  static constexpr int STRIDE = IN + 2 * NIN;
+  // the block's constants after its LANES regions: B [Q][R], Lambda
+  // [Q][Q], the oscillators' blocks of G [NB][4]
+  static constexpr int CB = 0, CL = QR, CG = QR + Q * Q;
+  static constexpr int CONSTS = CG + 4 * NB;
+  static constexpr size_t bytes() {
+    return (size_t(Tile::LANES) * STRIDE + CONSTS) * sizeof(float);
+  }
+};
+
+// celerite_filter_kernel<NB, Q, true> as one warp per chunk lane, its
+// thread blocks in step by clusters of CLUSTER.
+template <int NB, int Q>
+__global__ void __cluster_dims__(CLUSTER, 1, 1)
+__launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
+celerite_filter_collect_warp_kernel(
+    const float* __restrict__ gb, const float* __restrict__ b_p,
+    const float* __restrict__ lam_p, const float* __restrict__ dt,
+    const float* __restrict__ gv, const float* __restrict__ real,
+    const float* __restrict__ y, int s, int C, float* H_out, float* h_out,
+    float* c0_out, float* ld_out, float* F_out, float* a_out, float* P_out,
+    float* a_h, float* F_h, float* P_h) {
+  using Ly = FLay<NB, Q>;
+  constexpr int R = Ly::R, LD = Ly::LD, NIN = Ly::NIN;
+  constexpr int L = Tile::LANES;
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  float* sm = reinterpret_cast<float*>(cgt_smem);
+  float* const cst = sm + L * Ly::STRIDE;
+  const co::Tiles<float> tile(sm, Ly::STRIDE, R, C);
+  const co::Warp w(R);
+  const int t = w.lane;
+  const int tl = int(threadIdx.x) >> 5;  // this warp's lane of the tile
+  const bool live = int(blockIdx.x) * L + tl < C;
+  float* const me = sm + tl * Ly::STRIDE;
+  const float* const B = cst + Ly::CB;  // B[q][i] at q * R + i
+  float* const H = me + Ly::H;
+  float* const BP = me + Ly::BP;
+  float* const G = me + Ly::G;
+  float* const X = me + Ly::X;
+  float* const X2 = me + Ly::X2;
+  float* const h = me + Ly::HV;
+  float* const E = me + Ly::E;
+  float* const QN = me + Ly::QN;
+
+  for (int q = int(threadIdx.x); q < Ly::CONSTS; q += Tile::THREADS)
+    cst[q] = q < Ly::CL ? b_p[q]
+             : q < Ly::CG ? lam_p[q - Ly::CL] : gb[q - Ly::CG];
+  // the step inputs of the block's lanes, as 32-byte spans: the L threads
+  // of group `in_f` fetch field in_f (real, dt, gv, then y's Q entries) of
+  // lane in_l into the slot of the step's parity
+  const int in_f = int(threadIdx.x) / L, in_l = int(threadIdx.x) % L;
+  const int in_c = int(blockIdx.x) * L + in_l;
+  const bool loader = in_f < NIN && in_c < C;
+  const float* const in_src = in_f == 0 ? real : in_f == 1 ? dt
+                              : in_f == 2 ? gv : y;
+  auto load_in = [&](int j) {
+    if (!loader) return;
+    const size_t at = in_f < 3 ? size_t(j) * C + in_c
+                               : cgt::vec_at<Q>(j, in_f - 3, C, in_c);
+    sm[in_l * Ly::STRIDE + Ly::IN + (j & 1) * NIN + in_f] = in_src[at];
+  };
+  load_in(0);
+  // a = 0, h = 0, F = I, P = 0, H = 0
+  if (live) {
+    for (co::Cursor cu(w.w); cu.q < w.dd; cu.next(w.w)) {
+      const int o = cu.i * LD + cu.k;
+      me[Ly::F0 + o] = cu.i == cu.k ? 1.f : 0.f;
+      me[Ly::P0 + o] = 0.f;
+      H[o] = 0.f;
+    }
+    if (t < R) {
+      me[Ly::A0 + t] = 0.f;
+      h[t] = 0.f;
+    }
+  }
+  // thread t owns element (q, m) = (t / R, t % R) of the Q x R blocks
+  const bool own = t < Ly::QR;
+  const int oq = t / R, om = t % R;
+  float c0 = 0.f, ld = 0.f;
+  // this step's F, P, a and the next step's (swapped after each step)
+  int of = Ly::F0, onf = Ly::F1, op = Ly::P0, onp = Ly::P1, oa = Ly::A0,
+      ona = Ly::A1;
+  cg::cluster_group cl = cg::this_cluster();
+
+  for (int j = 0; j < s; ++j) {
+    // step j-1's state and step j's inputs are in place; every read of
+    // the blocks this step writes (step j-1's stores) is done; and the
+    // cluster's blocks store step j's history together
+    cl.sync();
+    tile.store_v(a_h, j, oa);  // the pre-update state of step j
+    tile.store_m(F_h, j, of);
+    tile.store_m(P_h, j, op);
+    if (j + 1 < s) load_in(j + 1);
+    if (live) {
+      const float* const in = me + Ly::IN + (j & 1) * NIN;
+      const float v = in[0];
+      const float* const F = me + of;
+      const float* const P = me + op;
+      const float* const a = me + oa;
+      float* const Fn = me + onf;
+      float* const Pn = me + onp;
+      float* const an = me + ona;
+      // the oscillators' e and Q through the following gap (thread k for
+      // oscillator k)
+      if (t < NB) {
+        float gk[4], em[4], qq[3];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) gk[i] = cst[Ly::CG + 4 * t + i];
+        cgt::osc_core(gk, in[1], em, qq);
+        const float g_v = in[2];
+        E[4 * t + 0] = 1.f + g_v * em[0];
+        E[4 * t + 1] = g_v * em[1];
+        E[4 * t + 2] = g_v * em[2];
+        E[4 * t + 3] = 1.f + g_v * em[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) QN[3 * t + i] = g_v * qq[i];
+      }
+      // ---- innovation update (masked by v; S >= Lambda always SPD) ----
+      // BP = B P and G = B F, element (oq, om)
+      if (own) {
+        float bp = 0.f, bf = 0.f;
+        for (int i = 0; i < R; ++i) {
+          bp += B[oq * R + i] * P[i * LD + om];
+          bf += B[oq * R + i] * F[i * LD + om];
+        }
+        BP[oq * R + om] = bp;
+        G[oq * R + om] = bf;
+      }
+      float resid[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        float ba = 0.f;
+        for (int k = 0; k < R; ++k) ba += B[q * R + k] * a[k];
+        resid[q] = in[3 + q] - ba;
+      }
+      __syncwarp();
+      // S = Lambda + BP B^T, its factor and sr = S^{-1} resid: in every
+      // thread
+      float S[Q][Q], Lc[Q][Q], invd[Q], tv[Q], sr[Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+#pragma unroll
+        for (int p = 0; p < Q; ++p) {
+          float acc = cst[Ly::CL + q * Q + p];
+          for (int k = 0; k < R; ++k) acc += BP[q * R + k] * B[p * R + k];
+          S[q][p] = acc;
+        }
+      const float ldh = cgt::chol<float, Q>(S, Lc, invd);
+      cgt::solve_lower_vec<float, Q>(Lc, invd, resid, tv);
+      cgt::solve_lower_t_vec<float, Q>(Lc, invd, tv, sr);
+      // the gains X = S^{-1} G (threads 0..R-1) and X2 = S^{-1} BP
+      // (threads 16..16+R-1), one column each
+      {
+        const int m = t & 15;
+        if (m < R) {
+          const float* src = t < 16 ? G : BP;
+          float* dst = t < 16 ? X : X2;
+          float col[Q][1], tc[Q][1], xc[Q][1];
+#pragma unroll
+          for (int q = 0; q < Q; ++q) col[q][0] = src[q * R + m];
+          cgt::solve_lower<float, Q, 1>(Lc, invd, col, tc);
+          cgt::solve_lower_t<float, Q, 1>(Lc, invd, tc, xc);
+#pragma unroll
+          for (int q = 0; q < Q; ++q) dst[q * R + m] = xc[q][0];
+        }
+      }
+      // h += v G^T sr (thread i for row i)
+      if (t < R) {
+        float hi = 0.f;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) hi += G[q * R + t] * sr[q];
+        h[t] += v * hi;
+      }
+      float rs = 0.f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) rs += resid[q] * sr[q];
+      c0 += v * rs;
+      ld += v * 2.f * ldh;
+      __syncwarp();
+      // H += v G^T X, element (i, k)
+      for (co::Cursor cu(w.w); cu.q < w.dd; cu.next(w.w)) {
+        const int i = cu.i, k = cu.k;
+        float hq = 0.f;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) hq += G[q * R + i] * X[q * R + k];
+        H[i * LD + k] += v * hq;
+      }
+      // F1 = F - v BP^T X and P1 = P - v BP^T X2 (BP^T = P B^T, P
+      // symmetric), then the predict's row mixes e F1 and e P1 into the
+      // next copies: per pair of rows (2k, 2k+1) and column m
+      for (int p = t; p < NB * R; p += 32) {
+        const int k = p / R, m = p % R;
+        const int r0 = 2 * k, r1 = 2 * k + 1;
+        const float e00 = E[4 * k], e01 = E[4 * k + 1], e10 = E[4 * k + 2],
+                    e11 = E[4 * k + 3];
+        float fq0 = 0.f, fq1 = 0.f, pq0 = 0.f, pq1 = 0.f;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          fq0 += BP[q * R + r0] * X[q * R + m];
+          pq0 += BP[q * R + r0] * X2[q * R + m];
+        }
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          fq1 += BP[q * R + r1] * X[q * R + m];
+          pq1 += BP[q * R + r1] * X2[q * R + m];
+        }
+        const float f0 = F[r0 * LD + m] - v * fq0;
+        const float f1 = F[r1 * LD + m] - v * fq1;
+        Fn[r0 * LD + m] = e00 * f0 + e01 * f1;
+        Fn[r1 * LD + m] = e10 * f0 + e11 * f1;
+        const float p0 = P[r0 * LD + m] - v * pq0;
+        const float p1 = P[r1 * LD + m] - v * pq1;
+        Pn[r0 * LD + m] = e00 * p0 + e01 * p1;
+        Pn[r1 * LD + m] = e10 * p0 + e11 * p1;
+      }
+      // a1 = a + v BP^T sr, then e a1 (thread k for pair k)
+      if (t < NB) {
+        const int r0 = 2 * t, r1 = 2 * t + 1;
+        float ai0 = 0.f, ai1 = 0.f;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          ai0 += BP[q * R + r0] * sr[q];
+          ai1 += BP[q * R + r1] * sr[q];
+        }
+        const float a0 = a[r0] + v * ai0, a1 = a[r1] + v * ai1;
+        an[r0] = E[4 * t] * a0 + E[4 * t + 1] * a1;
+        an[r1] = E[4 * t + 2] * a0 + E[4 * t + 3] * a1;
+      }
+      __syncwarp();
+      // (e P1) e^T, then + Q on the diagonal blocks: per pair of columns
+      // (2k, 2k+1) and row m
+      for (int p = t; p < NB * R; p += 32) {
+        const int k = p % NB, m = p / NB;
+        const int r0 = 2 * k, r1 = 2 * k + 1;
+        const float p0 = Pn[m * LD + r0], p1 = Pn[m * LD + r1];
+        float n0 = p0 * E[4 * k] + p1 * E[4 * k + 1];
+        float n1 = p0 * E[4 * k + 2] + p1 * E[4 * k + 3];
+        if (m == r0) {
+          n0 += QN[3 * k];
+          n1 += QN[3 * k + 1];
+        } else if (m == r1) {
+          n0 += QN[3 * k + 1];
+          n1 += QN[3 * k + 2];
+        }
+        Pn[m * LD + r0] = n0;
+        Pn[m * LD + r1] = n1;
+      }
+    }
+    // the next copies become this step's
+    const int tf = of, tp = op, ta = oa;
+    of = onf;
+    onf = tf;
+    op = onp;
+    onp = tp;
+    oa = ona;
+    ona = ta;
+  }
+  if (live && t == 0) {
+    me[Ly::SC] = c0;
+    me[Ly::SC + 1] = ld;
+  }
+  __syncthreads();
+  tile.store_m(H_out, 0, Ly::H);
+  tile.store_v(h_out, 0, Ly::HV);
+  tile.store_s(c0_out, 0, Ly::SC);
+  tile.store_s(ld_out, 0, Ly::SC + 1);
+  tile.store_m(F_out, 0, of);
+  tile.store_v(a_out, 0, oa);
+  tile.store_m(P_out, 0, op);
+}
+
 inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
 
-template <int Q, bool COLLECT>
+// kernel 13: one thread per chunk lane at every nblocks
+template <int Q>
 int launch_filter(const float* gb, const float* b, const float* lam,
                   const float* dt, const float* gv, const float* real,
                   const float* y, int nb, int s, int C, float* H, float* h,
                   float* c0, float* ld, float* F, float* a, float* P,
-                  float* a_h, float* F_h, float* P_h, cudaStream_t st) {
+                  cudaStream_t st) {
 #define CGT_LAUNCH(NB)                                                       \
-  celerite_filter_kernel<NB, Q, COLLECT>                                     \
+  celerite_filter_kernel<NB, Q, false>                                       \
       <<<blocks_for(C), CGT_THREADS, 0, st>>>(gb, b, lam, dt, gv, real, y, s, \
-                                              C, H, h, c0, ld, F, a, P, a_h,  \
-                                              F_h, P_h)
+                                              C, H, h, c0, ld, F, a, P,      \
+                                              nullptr, nullptr, nullptr)
   CGT_NB_SWITCH(nb, CGT_LAUNCH)
 #undef CGT_LAUNCH
   return int(cudaGetLastError());
+}
+
+// kernel 14 at nblocks NB: the warp-per-lane kernel where `warp`, else the
+// thread-per-lane one, which has no instance from COLLECT_WARP_NB up
+template <int NB, int Q>
+int launch_collect_nb(const float* gb, const float* b, const float* lam,
+                      const float* dt, const float* gv, const float* real,
+                      const float* y, int s, int C, float* H, float* h,
+                      float* c0, float* ld, float* F, float* a, float* P,
+                      float* a_h, float* F_h, float* P_h, bool warp,
+                      cudaStream_t st) {
+  if (!warp) {
+    if constexpr (NB < COLLECT_WARP_NB) {
+      celerite_filter_kernel<NB, Q, true>
+          <<<blocks_for(C), CGT_THREADS, 0, st>>>(gb, b, lam, dt, gv, real, y,
+                                                  s, C, H, h, c0, ld, F, a, P,
+                                                  a_h, F_h, P_h);
+      return int(cudaGetLastError());
+    }
+    return int(cudaErrorInvalidValue);
+  }
+  const size_t smem = FLay<NB, Q>::bytes();
+  const cudaError_t err =
+      co::prepare(celerite_filter_collect_warp_kernel<NB, Q>, smem);
+  if (err != cudaSuccess) return int(err);
+  const int grid = (co::grid_for<float>(C) + CLUSTER - 1) / CLUSTER * CLUSTER;
+  celerite_filter_collect_warp_kernel<NB, Q>
+      <<<grid, Tile::THREADS, smem, st>>>(
+          gb, b, lam, dt, gv, real, y, s, C, H, h, c0, ld, F, a, P, a_h, F_h,
+          P_h);
+  return int(cudaGetLastError());
+}
+
+template <int Q>
+int launch_collect(const float* gb, const float* b, const float* lam,
+                   const float* dt, const float* gv, const float* real,
+                   const float* y, int nb, int s, int C, float* H, float* h,
+                   float* c0, float* ld, float* F, float* a, float* P,
+                   float* a_h, float* F_h, float* P_h, bool warp,
+                   cudaStream_t st) {
+#define CGT_LAUNCH(NB)                                                       \
+  return launch_collect_nb<NB, Q>(gb, b, lam, dt, gv, real, y, s, C, H, h,  \
+                                  c0, ld, F, a, P, a_h, F_h, P_h, warp, st)
+  CGT_NB_SWITCH(nb, CGT_LAUNCH)
+#undef CGT_LAUNCH
+  return int(cudaErrorInvalidValue);
+}
+
+template <int Q>
+int smem_of(int nb) {
+#define CGT_SIZE(NB) return int(FLay<NB, Q>::bytes())
+  switch (nb) {
+    case 1: CGT_SIZE(1);
+    case 2: CGT_SIZE(2);
+    case 3: CGT_SIZE(3);
+    case 4: CGT_SIZE(4);
+    case 5: CGT_SIZE(5);
+    case 6: CGT_SIZE(6);
+    case 7: CGT_SIZE(7);
+    case 8: CGT_SIZE(8);
+    default: return -1;
+  }
+#undef CGT_SIZE
 }
 
 }  // namespace
 
 extern "C" {
 
-// The collect variant runs when a_h is not null (then F_h and P_h are
-// written too).
+// kernel 13: the chunk statistics
 int cgt_celerite_filter_f32(const float* gb, const float* b, const float* lam,
                             const float* dt, const float* gv,
                             const float* real, const float* y, int nb, int q,
                             int s, int C, float* H, float* h, float* c0,
                             float* ld, float* F, float* a, float* P,
-                            float* a_h, float* F_h, float* P_h,
                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const bool collect = a_h != nullptr;
   if (q == 1)
-    return collect ? launch_filter<1, true>(gb, b, lam, dt, gv, real, y, nb,
-                                            s, C, H, h, c0, ld, F, a, P, a_h,
-                                            F_h, P_h, st)
-                   : launch_filter<1, false>(gb, b, lam, dt, gv, real, y, nb,
-                                             s, C, H, h, c0, ld, F, a, P, a_h,
-                                             F_h, P_h, st);
+    return launch_filter<1>(gb, b, lam, dt, gv, real, y, nb, s, C, H, h, c0,
+                            ld, F, a, P, st);
   if (q == 2)
-    return collect ? launch_filter<2, true>(gb, b, lam, dt, gv, real, y, nb,
-                                            s, C, H, h, c0, ld, F, a, P, a_h,
-                                            F_h, P_h, st)
-                   : launch_filter<2, false>(gb, b, lam, dt, gv, real, y, nb,
-                                             s, C, H, h, c0, ld, F, a, P, a_h,
-                                             F_h, P_h, st);
+    return launch_filter<2>(gb, b, lam, dt, gv, real, y, nb, s, C, H, h, c0,
+                            ld, F, a, P, st);
   return int(cudaErrorInvalidValue);
+}
+
+// kernel 14: the statistics and the per-step history (a_h, F_h, P_h), one
+// warp per chunk lane where warp is 1 (any nblocks), one thread per lane
+// where it is 0 (nblocks 1..4 only: the caller routes)
+int cgt_celerite_filter_collect_f32(const float* gb, const float* b,
+                                    const float* lam, const float* dt,
+                                    const float* gv, const float* real,
+                                    const float* y, int nb, int q, int s,
+                                    int C, float* H, float* h, float* c0,
+                                    float* ld, float* F, float* a, float* P,
+                                    float* a_h, float* F_h, float* P_h,
+                                    int warp, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (q == 1)
+    return launch_collect<1>(gb, b, lam, dt, gv, real, y, nb, s, C, H, h, c0,
+                             ld, F, a, P, a_h, F_h, P_h, warp != 0, st);
+  if (q == 2)
+    return launch_collect<2>(gb, b, lam, dt, gv, real, y, nb, s, C, H, h, c0,
+                             ld, F, a, P, a_h, F_h, P_h, warp != 0, st);
+  return int(cudaErrorInvalidValue);
+}
+
+// dynamic shared bytes per thread block (8 chunk lanes) of kernel 14's
+// warp-per-lane instance at nblocks nb and obs_dim q, or -1 for a size
+// that has no instance
+int cgt_celerite_collect_smem_bytes(int nb, int q) {
+  if (q == 1) return smem_of<1>(nb);
+  if (q == 2) return smem_of<2>(nb);
+  return -1;
 }
 
 }  // extern "C"

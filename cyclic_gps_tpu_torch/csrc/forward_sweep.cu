@@ -5,25 +5,35 @@
 // Replaces: cyclic_gps_tpu/ops/pallas_sweep.py:248 forward_sweep_pallas
 // (kernel body _sweep_kernel, pallas_sweep.py:163).
 //
-// What bounds it on the H100: one thread owns one chunk lane c and walks
-// its s-1 interior rows in order, so the launch has only C = N/s threads
-// (7,813 at N = 1e6, s = 128: ~61 blocks of 128 for 132 SMs).  At that size
-// the kernel is latency- and occupancy-bound -- each step is a dependent
-// chain of an R x R Cholesky, triangular solves and products -- not
-// bandwidth-bound: it reads R_cm, O_cm, y_cm once (2 R^2 + R floats per
-// row) and writes O(R^2) floats per lane.
+// What bounds it on the H100: each chunk lane c walks its s-1 interior rows
+// in order, a dependent chain of an R x R Cholesky, triangular solves and
+// products per row, over C = N/s lanes (7,813 at N = 1e6, s = 128).  It
+// reads R_cm, O_cm, y_cm once (2 R^2 + R floats per row) and writes O(R^2)
+// floats per lane, so its bound is those bytes, but the chain's latency
+// sets its time.
 //
-// What the simple design does about it: the carried state (C_j, W0_j, w_j
-// and the two accumulators) stays in registers for the whole walk, so
-// device memory sees each input row exactly once, and the chunk-major
-// layout puts the lane axis innermost so every thread's loads coalesce
-// with its neighbours' without a transpose.  Spreading one chunk over
-// several threads, or more chunks per SM, is later work.
-//
-// Instantiated for block sizes 1..8 and 16 (the celerite family's boundary
-// chain at nblocks = 8); at 16 the carried state lives in local memory and
-// the block products run as rolled loops (blockmath.cuh, CGT_UNROLL_MAX).
+// Two designs, routed by block size in the launcher:
+// * R = 1..8: ONE THREAD PER CHUNK LANE.  The carried state (C_j, W0_j,
+//   w_j and the two accumulators) stays in registers for the whole walk,
+//   so device memory sees each input row exactly once, and the chunk-major
+//   layout puts the lane axis innermost so every thread's loads coalesce
+//   with its neighbours' without a transpose.
+// * R = 16 (the celerite family's boundary chain at nblocks = 8: C = 245
+//   lanes of s = 32 at N = 1e6, then 8): ONE WARP PER CHUNK LANE on
+//   rtcoop.cuh.  Held per thread, the rank-16 state lives in local memory
+//   and 245 threads fill two of the card's 132 SMs, so each row ran from
+//   memory at one thread's pace.  Here the row is Sweep::step on the d = 16
+//   triangle Tri16 (rt_solve.cu's rt_sweep_kernel, which runs block sizes
+//   9-15, at d = 16; kernel 6's warp instance without its hats): the lane's
+//   blocks sit in shared memory, its 32 threads share every product, the
+//   Cholesky's trailing updates and the triangular solves, and the 8
+//   (float32) or 4 (float64) lanes of a thread block load their rows as
+//   whole 32-byte spans.  It sums as the thread kernel did, so the two
+//   designs agree to rounding.  (A copy, not rt_sweep_kernel templated on
+//   its triangle, so that kernel's register allocation at 9-15 stays as
+//   it is.)
 #include "blockmath.cuh"
+#include "rtcoop.cuh"
 
 namespace {
 
@@ -52,17 +62,87 @@ forward_sweep_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
                                mh, ld);
 }
 
+namespace co = cgt::coop;
+
+// the block size of the warp-per-lane instance
+constexpr int WARP_D = 16;
+
+// forward_sweep_kernel<T, 16> as one warp per chunk lane: per row
+// Sweep::step on Tri16; per row only the pivot log-det leaves the SM, and
+// the final state as the thread kernel's.
+template <typename T>
+__global__ void __launch_bounds__(co::Tile<T>::THREADS, co::Tile<T>::MIN_BLOCKS)
+forward_sweep_warp_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
+                          const T* __restrict__ ym, T jitter, int s, int C,
+                          T* acc00, T* accy0, T* w0l, T* wl, T* dl,
+                          T* invdl, T* mh, T* ld, T* ld_rows) {
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  T* sm = reinterpret_cast<T*>(cgt_smem);
+  const int d = WARP_D;
+  const int stride = co::region(d, co::SW_BLOCKS, co::SW_VECS);
+  const co::Tiles<T> tile(sm, stride, d, C);
+  const co::Warp w(d);
+  const co::Tri16 tri(w);
+  const int tl = int(threadIdx.x) >> 5;  // this warp's lane of the tile
+  const bool live = int(blockIdx.x) * co::Tile<T>::LANES + tl < C;
+  co::Sweep<T> sw(sm + tl * stride, d, co::SW_BLOCKS);
+  const int o_sc = sw.vec(co::SW_SC);
+  tile.load_m(Om, 0, sw.w0);  // o_left
+  for (int j = 1; j < s; ++j) {
+    tile.load_m(Rm, j, sw.p);
+    tile.load_m(Om, j, sw.o);
+    tile.load_v(ym, j, sw.y);
+    __syncthreads();
+    if (live) {
+      const T ldl = sw.step(w, tri, j == 1, jitter);
+      if (w.lane == 0) sw.at(o_sc)[0] = T(2) * ldl;
+    }
+    sw.advance(j == 1);
+    __syncthreads();
+    tile.store_s(ld_rows, j - 1, o_sc);
+  }
+  if (live && w.lane == 0) {
+    sw.at(o_sc)[1] = sw.mh;
+    sw.at(o_sc)[2] = sw.ld;
+  }
+  __syncthreads();
+  tile.store_m(acc00, 0, sw.block(co::SW_ACC));
+  tile.store_v(accy0, 0, sw.vec(co::SW_ACCY0));
+  tile.store_m(w0l, 0, sw.w0);
+  tile.store_v(wl, 0, sw.wv);
+  tile.store_m(dl, 0, sw.p);
+  tile.store_v(invdl, 0, sw.vec(co::SW_INVD));
+  tile.store_s(mh, 0, o_sc + 1);
+  tile.store_s(ld, 0, o_sc + 2);
+}
+
+// dynamic shared bytes of one thread block of the warp-per-lane instance
+template <typename T>
+size_t warp_smem() {
+  return co::smem_bytes<T>(WARP_D, co::SW_BLOCKS, co::SW_VECS);
+}
+
 template <typename T>
 int launch_forward_sweep(const T* R_cm, const T* O_cm, const T* y_cm,
                          T jitter, int s, int d, int C, T* acc00, T* accy0,
                          T* w0l, T* wl, T* dl, T* invdl, T* mh, T* ld,
                          T* ld_rows, cudaStream_t stream) {
+  if (d == WARP_D) {
+    const size_t smem = warp_smem<T>();
+    const cudaError_t err = co::prepare(forward_sweep_warp_kernel<T>, smem);
+    if (err != cudaSuccess) return int(err);
+    forward_sweep_warp_kernel<T><<<co::grid_for<T>(C), co::Tile<T>::THREADS,
+                                   smem, stream>>>(
+        R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl, mh,
+        ld, ld_rows);
+    return int(cudaGetLastError());
+  }
   const int blocks = (C + CGT_THREADS - 1) / CGT_THREADS;
 #define CGT_LAUNCH(RR)                                                      \
   forward_sweep_kernel<T, RR><<<blocks, CGT_THREADS, 0, stream>>>(          \
       R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl, mh, \
       ld, ld_rows)
-  CGT_RANK_SWITCH_16(d, CGT_LAUNCH)
+  CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
   return int(cudaGetLastError());
 }
@@ -89,6 +169,13 @@ int cgt_forward_sweep_f64(const double* R_cm, const double* O_cm,
   return launch_forward_sweep<double>(R_cm, O_cm, y_cm, jitter, s, d, C,
                                       acc00, accy0, w0l, wl, dl, invdl, mh,
                                       ld, ld_rows, (cudaStream_t)stream);
+}
+
+// dynamic shared bytes per thread block of the warp-per-lane instance at
+// block size d (16 only; the second argument 1 for float64)
+int cgt_forward_sweep_warp_smem_bytes(int d, int f64) {
+  if (d != WARP_D) return -1;
+  return int(f64 ? warp_smem<double>() : warp_smem<float>());
 }
 
 }  // extern "C"

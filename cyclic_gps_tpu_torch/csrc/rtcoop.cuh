@@ -7,7 +7,8 @@
 // wide_backward_kernel and backward_sweep.cu's backsolve_warp_kernel at
 // d = 16) and the forward sweeps on one elimination step (`Sweep`),
 // whose rows start with a Cholesky of the pivot block (`chol`): the
-// likelihood's (rt_solve.cu's rt_sweep_kernel, and wide_sweep.cu's
+// likelihood's (rt_solve.cu's rt_sweep_kernel, forward_sweep.cu's
+// forward_sweep_warp_kernel at d = 16, and wide_sweep.cu's
 // wide_sweep_kernel on the wide layout), the three that collect the
 // backward's stacks (rt_solve.cu's rt_collect_kernel; with
 // `Sweep::hats`, wide_sweep.cu's wide_solveinv_kernel and

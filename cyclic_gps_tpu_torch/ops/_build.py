@@ -78,8 +78,10 @@ _SIGNATURES = {
     "cgt_takahashi_backward_f64": [_P] * 11 + [_I, _I, _I] + [_P] * 4 + [_P],
     "cgt_celerite_gap_mahal_sweep_f32": [_P] * 7 + [_I, _I, _I] + [_P] * 11
     + [_P],
-    "cgt_celerite_filter_f32": [_P] * 7 + [_I, _I, _I, _I] + [_P] * 10
+    "cgt_celerite_filter_f32": [_P] * 7 + [_I, _I, _I, _I] + [_P] * 7
     + [_P],
+    "cgt_celerite_filter_collect_f32": [_P] * 7 + [_I, _I, _I, _I]
+    + [_P] * 10 + [_I] + [_P],
     "cgt_celerite_filter_adjoint_f32": [_P] * 17 + [_I, _I, _I, _I]
     + [_P] * 5 + [_P],
 }
@@ -102,13 +104,15 @@ _SIGNATURES.update({
 # rt_solve.cu's two sweeps at block size d, wide_backward.cu's and
 # wide_sweep.cu's two sweeps at 8 + e; the second argument 1 for float64),
 # of the celerite filter adjoint at nblocks and obs_dim, of the
-# celerite likelihood sweep at nblocks, and of kernels 6 and 7 at block
-# size 16 (backward_sweep.cu's warp-per-lane sweep and walk)
+# celerite likelihood sweep at nblocks, of the celerite collecting filter
+# at nblocks and obs_dim, and of kernels 1, 6 and 7 at block size 16
+# (forward_sweep.cu's and backward_sweep.cu's warp-per-lane sweeps and walk)
 _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes",
     "cgt_rt_collect_smem_bytes", "cgt_wide_solveinv_smem_bytes",
     "cgt_wide_sweep_smem_bytes", "cgt_rt_sweep_smem_bytes",
     "cgt_rt_inverse_sweep_smem_bytes", "cgt_celerite_adjoint_smem_bytes",
+    "cgt_celerite_collect_smem_bytes", "cgt_forward_sweep_warp_smem_bytes",
     "cgt_solveinv_warp_smem_bytes", "cgt_backsolve_warp_smem_bytes")})
 _SIGNATURES["cgt_celerite_sweep_smem_bytes"] = [_I]
 # the runtime-d kernels of the likelihood's sweep, the solve and the
@@ -222,13 +226,13 @@ def load() -> ctypes.CDLL:
 # Checks shared by the kernel wrappers (ops/sweep_cuda.py, ops/expm_cuda.py).
 # ---------------------------------------------------------------------------
 
-# Block sizes each kernel is instantiated for: every kernel takes 1..8;
-# the engine's forward sweep and its two backward kernels (Queue 2 items
-# 1, 6 and 7) also take 16, the boundary chain of the celerite family at
-# nblocks = 8 (6 and 7 there one warp per chunk lane); the forward sweep (item 1) and the solve and
-# selected-inversion kernels (items 8-11) also take 9..15, through one
-# runtime-d instance per dtype (rt_solve.cu's likelihood sweep and items
-# 17-20).
+# Block sizes each kernel is instantiated for: every kernel takes 1..8
+# (one thread per chunk lane); the engine's forward sweep and its two
+# backward kernels (Queue 2 items 1, 6 and 7) also take 16, the boundary
+# chain of the celerite family at nblocks = 8, one warp per chunk lane
+# there; the forward sweep (item 1) and the solve and selected-inversion
+# kernels (items 8-11) also take 9..15, through one runtime-d instance per
+# dtype (rt_solve.cu's likelihood sweep and items 17-20).
 RANKS = tuple(range(1, 9))
 SWEEP_RANKS = RANKS + (16,)
 SOLVE_RANKS = RANKS + tuple(range(9, 16))

@@ -42,12 +42,14 @@ Tensor = torch.Tensor
 
 NBLOCKS = tuple(range(1, 9))  # instantiated oscillator counts (rank 2..16)
 OBS_DIMS = (1, 2)  # instantiated observation sizes of the filter kernels
-# the filter adjoint (kernel 15) and the fused likelihood sweep (kernel
-# 12) run one warp per chunk lane from these nblocks up (the WARP_NB of
-# csrc/celerite_adjoint.cu and csrc/celerite_sweep.cu), one thread per
-# lane below
+# the filter adjoint (kernel 15), the fused likelihood sweep (kernel 12)
+# and the collecting filter (kernel 14) run one warp per chunk lane from
+# these nblocks up (the WARP_NB of csrc/celerite_adjoint.cu and
+# csrc/celerite_sweep.cu, the COLLECT_WARP_NB of csrc/celerite_filter.cu),
+# one thread per lane below
 WARP_NBLOCKS = 5
 SWEEP_WARP_NBLOCKS = 5
+COLLECT_WARP_NBLOCKS = 5
 
 
 def _cel():
@@ -254,7 +256,9 @@ celerite_gap_mahal_sweep_cuda.launches = 0
 celerite_gap_mahal_sweep_cuda.launches_warp = 0
 
 
-def _launch_filter(name, args, collect: bool):
+def _launch_filter(name, args, collect: bool, warp: bool = False):
+    """Launch kernel 13 (``collect=False``) or kernel 14, the latter one
+    warp per chunk lane where ``warp``; returns (statistics, histories)."""
     nb, qd, s, c = _check_filter(name, *args)
     r = 2 * nb
     y_cm = args[-1]
@@ -263,11 +267,14 @@ def _launch_filter(name, args, collect: bool):
     hists = ([y_cm.new_empty(shape) for shape in
               [(s, r, c), (s, r, r, c), (s, r, r, c)]] if collect else [])
     lib = _build.load()
+    ptrs = [a.data_ptr() for a in (*args, *stats, *hists)]
     with torch.cuda.device(y_cm.device):
-        err = lib.cgt_celerite_filter_f32(
-            *[a.data_ptr() for a in args], nb, qd, s, c,
-            *[o.data_ptr() for o in stats],
-            *([h.data_ptr() for h in hists] or [None] * 3), _stream())
+        if collect:
+            err = lib.cgt_celerite_filter_collect_f32(
+                *ptrs[:7], nb, qd, s, c, *ptrs[7:], int(warp), _stream())
+        else:
+            err = lib.cgt_celerite_filter_f32(*ptrs[:7], nb, qd, s, c,
+                                              *ptrs[7:], _stream())
     _build.check_launch(err, name)
     return tuple(stats), tuple(hists)
 
@@ -303,7 +310,8 @@ celerite_filter_cuda.launches = 0
 
 def celerite_filter_collect_cuda(gb: Tensor, b: Tensor, lam: Tensor,
                                  dt_cm: Tensor, gv_cm: Tensor,
-                                 real_cm: Tensor, y_cm: Tensor):
+                                 real_cm: Tensor, y_cm: Tensor,
+                                 warp: bool = False):
     """`celerite_filter_cuda` that also writes the per-step pre-update
     state: returns (statistics, (a_h [s, r, C], F_h [s, r, r, C], P_h
     [s, r, r, C])), step j's state before its update at [j].  The
@@ -311,7 +319,10 @@ def celerite_filter_collect_cuda(gb: Tensor, b: Tensor, lam: Tensor,
     per step); the backward runs it, a forward-only call never does.
 
     CUDA tensors launch ``csrc/celerite_filter.cu``
-    (``celerite_filter_collect_cuda.launches``); CPU tensors run
+    (``celerite_filter_collect_cuda.launches``): one warp per chunk lane
+    at nblocks 5..8 (``.launches_warp`` counts those launches), one thread
+    per lane at 1..4; ``warp=True`` takes the warp-per-lane design at every
+    nblocks (to time the two).  CPU tensors run
     `celerite_filter_collect_plain`.
     """
     name = "celerite_filter_collect_cuda"
@@ -319,12 +330,16 @@ def celerite_filter_collect_cuda(gb: Tensor, b: Tensor, lam: Tensor,
     _build.check_no_grad(name, *args)
     if not dt_cm.is_cuda:
         return celerite_filter_collect_plain(*args)
-    stats, hists = _launch_filter(name, args, collect=True)
+    warp = warp or gb.shape[0] >= COLLECT_WARP_NBLOCKS
+    stats, hists = _launch_filter(name, args, collect=True, warp=warp)
     celerite_filter_collect_cuda.launches += 1
+    if warp:
+        celerite_filter_collect_cuda.launches_warp += 1
     return stats, hists
 
 
 celerite_filter_collect_cuda.launches = 0
+celerite_filter_collect_cuda.launches_warp = 0
 
 
 def celerite_filter_adjoint_cuda(gb: Tensor, b: Tensor, lam: Tensor,

@@ -30,10 +30,10 @@ instances (``csrc/rt_solve.cu``, ``csrc/rt_inverse.cu``), which replace
 forward_sweep_collect_wide_pallas, :496 backward_substitute_wide_pallas,
 :641 forward_sweep_inverse_wide_pallas and :812
 takahashi_backward_wide_pallas on the chunk-major layout; a wrapper counts
-the two apart (``launches`` and ``launches_rt``).  The second and third
-take block sizes 1..8 one thread per chunk lane and 16 (celerite's
-boundary chain at nblocks 8) one warp per chunk lane; ``launches`` counts
-both, ``launches_warp`` the second.
+the two apart (``launches`` and ``launches_rt``).  The first three take
+block sizes 1..8 one thread per chunk lane and 16 (celerite's boundary
+chain at nblocks 8) one warp per chunk lane; ``launches`` counts both,
+``launches_warp`` the second.
 
 Each wrapper launches its kernel for CUDA tensors; for CPU tensors it runs
 its plain twin (``*_plain``), which computes the same function with tensor
@@ -172,9 +172,10 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     to every pivot block's diagonal.  The per-lane partial sums of mh and
     ld are summed outside the kernel.
 
-    CUDA tensors launch ``csrc/forward_sweep.cu`` at d in 1..8 and 16
-    (``forward_sweep_cuda.launches`` counts the launches) and
-    ``csrc/rt_solve.cu``'s runtime-d sweep at d = 9..15
+    CUDA tensors launch ``csrc/forward_sweep.cu`` at d in 1..8 (one
+    thread per chunk lane) and 16 (one warp per chunk lane)
+    (``forward_sweep_cuda.launches`` counts both, ``.launches_warp`` those
+    at 16) and ``csrc/rt_solve.cu``'s runtime-d sweep at d = 9..15
     (``.launches_rt``), on the current stream; CPU tensors run
     `forward_sweep_plain`.
     """
@@ -191,6 +192,8 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
         _launch(name, _solve_symbol("forward_sweep", d), R_cm.dtype, R_cm,
                 O_cm, y_cm, float(jitter), s, d, c, *outs)
     _count_solve(forward_sweep_cuda, d)
+    if d == 16:
+        forward_sweep_cuda.launches_warp += 1
     acc00, accy0, w0l, wl, dl, invdl, mh, ld, ld_rows = outs
     return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
             ld_rows)
@@ -198,6 +201,7 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 
 forward_sweep_cuda.launches = 0
 forward_sweep_cuda.launches_rt = 0
+forward_sweep_cuda.launches_warp = 0
 
 
 def forward_sweep_solveinv_plain(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
