@@ -25,7 +25,11 @@ Phases, one line of output each (or more):
               csrc/backward_sweep.cu) with their shared bytes at both
               dtypes, and kernel 14's warp-per-lane instances (nblocks
               5-8, obs 1 and 2) with theirs, failing on local memory as
-              well (on any stack or spill at all for 1 at 16 and 14).
+              well (on any stack or spill at all for 1 at 16 and 14);
+              kernel 13's warp-per-lane instances beside 14's (one body)
+              and kernel 18' (the solve's back-substitution at 9-15, one
+              warp per lane) with its shared bytes, failing on any stack
+              or spill.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -78,6 +82,10 @@ Phases, one line of output each (or more):
               on C = 9 chunks (a ragged last chunk and tile) and on one
               lane, and at nblocks 6, N = 1e6; kernel 14's two instances
               the same way (timed at nblocks 2 in turns and at 6); kernel
+              13's two instances the same way, its warp statistics equal
+              to kernel 14's bit for bit (timed at nblocks 2 and 4 in
+              turns and at 6; its launches over the Adam steps must all
+              take the warp-per-lane kernel); kernel
               12's two instances
               (one thread per lane at nblocks 1-4, one warp per lane at
               5-8, which the likelihood call must take at nblocks 8)
@@ -117,11 +125,12 @@ Phases, one line of output each (or more):
               float64, d = 12, N = 1e5; at N = 1e6, d = 12 the value,
               the gradient of sum(x w) + 0.7 ld and inverse_blocks with
               backend="auto" against "torch", with the launch counts of
-              one call each; kernels 20' and 17' against their twins at
-              their edge shapes (s = 3; C = 1 and 9; d = 9 and 15; float32
-              and float64) on the inputs one inverse_blocks_cm (20') or
-              solve_cm (17') call hands them; kernel 19' at the same
-              edge shapes on the inputs of inverse_blocks_cm.
+              one call each; kernels 20', 17' and 18' against their
+              twins at their edge shapes (s = 3; C = 1 and 9; d = 9 and
+              15; float32 and float64) on the inputs one
+              inverse_blocks_cm (20') or solve_cm (17', 18') call hands
+              them; kernel 19' at the same edge shapes on the inputs of
+              inverse_blocks_cm.
  11. sweep-rt kernel 1 at block sizes 9-15 (csrc/rt_solve.cu's runtime-d
               sweep) against its twin at d = 9, 12 (recorded), 15,
               N = 1e6 and at float64, d = 12, N = 1e5, on the inputs one
@@ -505,11 +514,13 @@ WARP_DS = (9, 12, 15)  # block sizes of their shared-memory report
 # kernels 6 and 7 at block size 16 (csrc/backward_sweep.cu), one warp per
 # chunk lane on rtcoop.cuh
 WARP16_KERNELS = ("solveinv_warp_kernel", "backsolve_warp_kernel")
-# kernel 1 at block size 16 (csrc/forward_sweep.cu) and kernel 14 at
-# nblocks 5-8 (csrc/celerite_filter.cu), one warp per chunk lane: no local
-# memory at all
+# kernel 1 at block size 16 (csrc/forward_sweep.cu), kernels 14 and 13 at
+# nblocks 5-8 (csrc/celerite_filter.cu) and kernel 18' (the solve's
+# back-substitution at d = 9-15, csrc/rt_solve.cu), one warp per chunk
+# lane: no local memory at all
 WARP_NEW_KERNELS = ("forward_sweep_warp_kernel",
-                    "celerite_filter_collect_warp_kernel")
+                    "celerite_filter_collect_warp_kernel",
+                    "celerite_filter_warp_kernel", "rt_backsub_warp_kernel")
 EDGES = ((9, 3, 1), (9, 3, 9), (15, 3, 1), (15, 3, 9))  # (d, s, C)
 # 1, 6 and 7 at 16: the shortest chunk on a lone lane, one whole float32
 # tile and a ragged one, and the chain's chunk length on its C = 245
@@ -528,6 +539,10 @@ EDGE_KERNELS = {
     "forward_sweep_collect_rt": (
         "sweep_cuda", "forward_sweep_collect_cuda", "rt_solve.cu",
         "pallas_wide.py:366", "solve_cm", _TWO_ROWS),
+    "backward_substitute_rt": (
+        "sweep_cuda", "backward_substitute_cuda", "rt_solve.cu",
+        "pallas_wide.py:496", "solve_cm",
+        "two rows, the first from hat_W1, the second carrying x"),
     "forward_sweep_solveinv_wide": (
         "wide_cuda", "forward_sweep_solveinv_wide_cuda", "wide_sweep.cu",
         "pallas_wide.py:998", "solve_and_inverse_cm", _TWO_ROWS),
@@ -555,7 +570,7 @@ EDGE_KERNELS = {
 
 def run_edges(dev, phase, captured, capture, check_kernel, pt, kernels,
               edges=EDGES):
-    """Each of ``kernels`` (keys of EDGE_KERNELS: 20', 17' and 19' in
+    """Each of ``kernels`` (keys of EDGE_KERNELS: 20', 17', 19' and 18' in
     [solve-rt], 22 and 21 in [wide], kernel 1's runtime-d instance in
     [sweep-rt], 1, 6 and 7 at block size 16 in [celerite]) against its twin
     at the edge shapes (d, s, C) of the warp-per-lane kernels: by default
@@ -879,7 +894,8 @@ def run_solve_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
             "substitutions per row"),
         "backward_substitute": (
             "rt_solve.cu", 496,
-            lambda s: f"{s - 1} dependent multiply-add steps"),
+            lambda s: f"{s - 1} dependent rows of two matrix-vector "
+            "products, one warp per chunk lane"),
         "forward_sweep_inverse": (
             "rt_inverse.cu", 641,
             lambda s: f"{s - 1} dependent elimination steps"),
@@ -1026,10 +1042,10 @@ def run_solve_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
                     bars=(1e-9, 1e-10))
     del system
     torch.cuda.empty_cache()
-    # kernels 20', 17' and 19' at their edge shapes
+    # kernels 20', 17', 19' and 18' at their edge shapes
     run_edges(dev, "solve-rt", captured, capture, check_kernel, pt,
               ("takahashi_backward_rt", "forward_sweep_collect_rt",
-               "forward_sweep_inverse_rt"))
+               "forward_sweep_inverse_rt", "backward_substitute_rt"))
     say(f"[solve-rt] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1368,6 +1384,112 @@ def run_collect_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
           f"N {N_BIG}, the bench grid", 3)
 
 
+FILTER_EDGE_NBS = (1, 2, 5, 8)  # kernel 13's edge nblocks, obs 1 and 2
+
+
+def run_filter_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
+                     xs_c):
+    """Kernel 13's two designs (one thread per lane, routed at nblocks
+    1..4; one warp per lane, routed from FILTER_WARP_NBLOCKS up and forced
+    by ``warp=True``) against its twin at nblocks 1, 2, 5, 8 and obs 1, 2
+    on the inputs one filter-route likelihood hands it at N = 283 (s = 32,
+    C = 9: a ragged last chunk whose padding rows are masked gaps and
+    unobserved rows, and a ragged second tile of 8 lanes) and on lane 0 of
+    them alone (C = 1); its warp design's statistics equal to kernel 14's
+    warp design's bit for bit on each of those inputs (one body, the same
+    sums); then both designs at nblocks 2 and 4 (the evidence for
+    FILTER_WARP_NBLOCKS, in turns) and the routed one at nblocks 6, N =
+    1e6 on the bench grid, timed."""
+    wrapper = celerite_cuda.celerite_filter_cuda
+    collect = celerite_cuda.celerite_filter_collect_cuda
+
+    def inputs(nb, q, t, x, seed):
+        p = celerite.init_params(nb, q, generator=torch.Generator()
+                                 .manual_seed(seed), device=dev)
+        got = {}
+        orig = celerite.celerite_filter_cuda
+
+        def spy(*a):
+            got["args"] = a
+            return orig(*a)
+
+        celerite.celerite_filter_cuda = spy
+        try:
+            with torch.no_grad():
+                celerite.log_likelihood_filter(p, t, x)
+            torch.cuda.synchronize()
+        finally:
+            celerite.celerite_filter_cuda = orig
+        return got["args"]
+
+    def lane0(args):
+        f = lambda t: t[..., :1].contiguous()  # noqa: E731
+        return args[:3] + tuple(map(f, args[3:]))
+
+    def check(args, label, reps, warp=False):
+        nb, (s, c) = args[0].shape[0], args[3].shape
+        before = wrapper.launches_warp
+        design = ("warp per lane"
+                  if warp or nb >= celerite_cuda.FILTER_WARP_NBLOCKS
+                  else "thread per lane")
+        masked = int((args[4] == 0).sum())
+        unobserved = int((args[5] == 0).sum())
+        check_kernel(
+            "celerite_filter",
+            "cyclic_gps_tpu_torch/csrc/celerite_filter.cu",
+            "cyclic_gps_tpu/ops/celerite_pallas.py:479",
+            functools.partial(wrapper, warp=warp),
+            celerite_cuda.celerite_filter_plain, args, 1e-3, 1e-4,
+            f"{label}, {design}: nblocks {nb}, obs {args[6].shape[1]}, s "
+            f"{s}, C {c}, {masked} masked gaps, {unobserved} unobserved "
+            f"rows; {s} dependent filter steps; atol 1e-4 of each output's "
+            "scale",
+            atol_of_scale=True, record=False, phase="celerite", reps=reps)
+        if (wrapper.launches_warp > before) != (design == "warp per lane"):
+            fail(f"kernel 13 at nblocks {nb} took the wrong design")
+
+    def same_as_14(args, label):
+        with torch.no_grad():
+            got13 = wrapper(*args, warp=True)
+            got14, _ = collect(*args, warp=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got13, got14)):
+            fail(f"kernel 13's warp statistics differ from kernel 14's "
+                 f"({label})")
+
+    rng = torch.Generator().manual_seed(17)
+    n = 32 * 9 - 5
+    t_e = torch.cumsum(torch.randint(1, 5, (n,), generator=rng) * 0.125,
+                       0).to(dev)
+    for nb in FILTER_EDGE_NBS:
+        for q in (1, 2):
+            x_e = torch.randn(n, q, generator=rng).to(dev)
+            args = inputs(nb, q, t_e, x_e, seed=50 + 10 * nb + q)
+            if (int((args[4] == 0).sum()) == 0
+                    or int((args[5] == 0).sum()) == 0):
+                fail("kernel 13's edge inputs hold no masked gap or no "
+                     "unobserved row")
+            for warp in (False, True) \
+                    if nb < celerite_cuda.FILTER_WARP_NBLOCKS else (False,):
+                check(args, "edge", 1, warp)
+                check(lane0(args), "edge, one lane", 1, warp)
+            same_as_14(args, f"edge, nblocks {nb}, obs {q}")
+            same_as_14(lane0(args), f"edge, one lane, nblocks {nb}, obs {q}")
+    say("[celerite] kernel 13's warp statistics == kernel 14's warp "
+        f"statistics bit for bit at nblocks {FILTER_EDGE_NBS}, obs 1 and 2, "
+        "C = 9 and 1")
+    # the two designs at nblocks 2 and 4 (the routing's evidence, in
+    # turns), then nblocks 6
+    for nb in (2, 4):
+        args = inputs(nb, 1, ts_c, xs_c, seed=nb)
+        for warp in (False, True, True, False):
+            check(args, f"N {N_BIG}, the bench grid", 3, warp)
+        del args
+    check(inputs(CEL_NB_WIDE, 1, ts_c, xs_c, seed=0),
+          f"N {N_BIG}, the bench grid", 3)
+    torch.cuda.empty_cache()
+
+
 SWEEP_EDGE_NBS = (1, 2, 4, 5, 8)  # kernel 12's edge nblocks
 
 
@@ -1527,8 +1649,9 @@ def main():
     from cyclic_gps_tpu_torch.data.synthetic import generate_data
     from cyclic_gps_tpu_torch.entry import entry
     from cyclic_gps_tpu_torch.models import leg
-    from cyclic_gps_tpu_torch.ops import _build, expm_cuda, sweep_cuda
+    from cyclic_gps_tpu_torch.ops import _build, celerite_cuda, expm_cuda
     from cyclic_gps_tpu_torch.ops import partitioned as pt
+    from cyclic_gps_tpu_torch.ops import sweep_cuda
     from cyclic_gps_tpu_torch.train import loop
 
     dev = torch.device("cuda", 0)
@@ -1581,9 +1704,11 @@ def main():
     # the wide kernels and the runtime-d solve and selected-inversion
     # kernels (one instance per dtype; d = 9..15 at run time), kernels 1,
     # 6 and 7 at block size 16 (one warp per lane, one instance per dtype)
-    # and kernel 14's warp instances (nblocks 5-8, obs 1 and 2)
+    # and the warp instances of kernels 14 and 13 (nblocks 5-8, obs 1 and
+    # 2; one body, so 14's lines stand next to 13's)
     for tag in ("wide_", "rt_", "solveinv_warp", "backsolve_warp",
-                "forward_sweep_warp", "celerite_filter_collect_warp"):
+                "forward_sweep_warp", "celerite_filter_collect_warp",
+                "celerite_filter_warp"):
         for fn_name, (regs, stack, spill) in sorted(
                 _build.ptxas_report(0, tag=tag).items()):
             base = re.search(rf"\d+({tag}[a-z_]+?)I(\w*?)EEv", fn_name)
@@ -1613,6 +1738,8 @@ def main():
              lambda d: d - 8),
             ("rt_sweep_kernel", lib.cgt_rt_sweep_smem_bytes, lambda d: d),
             ("rt_inverse_sweep_kernel", lib.cgt_rt_inverse_sweep_smem_bytes,
+             lambda d: d),
+            ("rt_backsub_warp_kernel", lib.cgt_rt_backsub_smem_bytes,
              lambda d: d)):
         say(f"[build] {kname}: one warp per chunk lane, 8 lanes (256 "
             "threads) per block at float32, 4 (128) at float64; dynamic "
@@ -1633,6 +1760,13 @@ def main():
         "dynamic shared bytes per block (obs 1 / obs 2) " + ", ".join(
             f"nblocks {nb}: {lib.cgt_celerite_collect_smem_bytes(nb, 1)} / "
             f"{lib.cgt_celerite_collect_smem_bytes(nb, 2)}"
+            for nb in range(5, 9)))
+    say("[build] celerite_filter_warp_kernel (kernel 13, the same body "
+        "without the history or the cluster, one copy of F, P and a; from "
+        f"nblocks {celerite_cuda.FILTER_WARP_NBLOCKS}): dynamic shared bytes "
+        "per block (obs 1 / obs 2) " + ", ".join(
+            f"nblocks {nb}: {lib.cgt_celerite_filter_smem_bytes(nb, 1)} / "
+            f"{lib.cgt_celerite_filter_smem_bytes(nb, 2)}"
             for nb in range(5, 9)))
     # kernel 15: one warp per chunk lane at nblocks 5..8 (8 lanes per
     # block), one thread per lane at 1..4
@@ -2367,6 +2501,7 @@ def main():
         r["kernel"].launches = 0
     celerite_cuda.celerite_filter_adjoint_cuda.launches_warp = 0
     celerite_cuda.celerite_filter_collect_cuda.launches_warp = 0
+    celerite_cuda.celerite_filter_cuda.launches_warp = 0
     celerite_cuda.celerite_gap_mahal_sweep_cuda.launches_warp = 0
     with torch.no_grad():
         ll_path = float(celerite.log_likelihood(p_train, ts_c, xs_c))
@@ -2387,14 +2522,16 @@ def main():
     cel_launches = {k: counters[k].launches for k in path_kernels}
     adj_warp = celerite_cuda.celerite_filter_adjoint_cuda.launches_warp
     col_warp = celerite_cuda.celerite_filter_collect_cuda.launches_warp
+    flt_warp = celerite_cuda.celerite_filter_cuda.launches_warp
     steps16 = {w.__name__: (w.launches - step_before[w.__name__],
                             w.launches_warp) for w in warp16}
     say(f"[celerite] launches in one log_likelihood call: {ll_launches} "
         f"(kernel 12's warp-per-lane instance: {sweep_warp}); then with "
         f"{TRAIN_STEPS} Adam steps on nll_loss: {cel_launches} (kernel "
         f"15's warp-per-lane instance: {adj_warp}, kernel 14's: "
-        f"{col_warp}); kernels 1, 6 and 7 over the Adam steps (launches, "
-        f"warp-per-lane launches at block size 16): {steps16}")
+        f"{col_warp}, kernel 13's: {flt_warp}); kernels 1, 6 and 7 over "
+        "the Adam steps (launches, warp-per-lane launches at block size "
+        f"16): {steps16}")
     for name, (n_all, n_warp) in steps16.items():
         if n_all <= 0 or n_warp != n_all:
             fail(f"{name}: {n_warp} of {n_all} launches over the nblocks "
@@ -2410,6 +2547,9 @@ def main():
              f"{CEL_NB}")
     if col_warp != cel_launches["celerite_filter_collect"]:
         fail("kernel 14 did not take its warp-per-lane instance at nblocks "
+             f"{CEL_NB}")
+    if flt_warp != cel_launches["celerite_filter"]:
+        fail("kernel 13 did not take its warp-per-lane instance at nblocks "
              f"{CEL_NB}")
     for r in rows:
         if r["name"] in cel_kernels:
@@ -2451,12 +2591,14 @@ def main():
         f"{ms_auto:.2f} ms, torch {ms_plain:.2f} ms (host clock); agree "
         f"(atol 1e-3 of each output's scale: {why32})")
 
-    # kernels 15's, 14's and 12's two instances at their edge shapes, and
-    # at nblocks 6
+    # kernels 15's, 14's, 13's and 12's two instances at their edge
+    # shapes, and at nblocks 6
     run_adjoint_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
                       xs_c)
     run_collect_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
                       xs_c)
+    run_filter_edges(dev, check_kernel, celerite, celerite_cuda, ts_c,
+                     xs_c)
     run_sweep_edges(dev, check_kernel, celerite, celerite_cuda, ts_c, xs_c)
     # kernels 1, 6 and 7 at block size 16 at their edge shapes
     run_edges(dev, "celerite", captured, capture, check_kernel, pt,

@@ -3,12 +3,12 @@
 // analytic adjoint (celerite_adjoint.cu).
 //
 // Replaces (cyclic_gps_tpu/ops/celerite_pallas.py):
-//   celerite_filter_kernel<.., false> <- :479 celerite_filter_sweep_pallas
-//                                        (kernel body _cel_filter_kernel,
-//                                        :387)
-//   celerite_filter_kernel<.., true>, <- :592
-//   celerite_filter_collect_warp_kernel  celerite_filter_collect_sweep_pallas
-//                                        (_cel_filter_collect_kernel, :563)
+//   celerite_filter_kernel<.., false>, <- :479 celerite_filter_sweep_pallas
+//   celerite_filter_warp_kernel           (kernel body _cel_filter_kernel,
+//                                         :387)
+//   celerite_filter_kernel<.., true>,  <- :592
+//   celerite_filter_collect_warp_kernel   celerite_filter_collect_sweep_pallas
+//                                         (_cel_filter_collect_kernel, :563)
 //
 // Per chunk lane c and step j (ops/chunked_filter.conditional_filter_xla's
 // recursion): the masked innovation update at row j -- S = B P B^T + Lambda,
@@ -28,33 +28,40 @@
 //   its chunk's s steps with the whole filter state carried between them,
 //   so device memory sees each input once and the statistics (or the
 //   history) once; the lane axis is innermost so every load and store
-//   coalesces.  The plain sweep (kernel 13) at every nblocks, and the
-//   collect variant at nblocks 1..4, where the state fits in registers.  At
-//   R = 16 the carried a, F, P, H, h (~800 floats) live in local memory,
-//   and 7,813 threads (N = 1e6, s = 128) fill under half the SMs.
-// * ONE WARP PER CHUNK LANE (celerite_filter_collect_warp_kernel,
-//   rtcoop.cuh's tiles): the collect variant at nblocks 5..8.  The lane's
-//   state sits in shared memory as celerite_adjoint.cu's warp instance
-//   keeps it -- F and P twice (this step's and the next one's), H, at the
-//   odd row stride R | 1; the Q x R blocks B P, G and the gains X, X2; a
-//   twice and h; the oscillators' e and Q -- ~6.4 KB per lane at R = 16,
-//   with B, Lambda and the oscillators' blocks as constants of the thread
-//   block.  Per step one barrier: after it the 8 lanes of the block store
-//   the step's pre-update (a, F, P) as whole 32-byte spans (the bytes that
-//   bound the kernel) and load the next step's real, dt, gv and y the same
-//   way, while each warp updates its lane, one output element per thread,
-//   into the other copy of F, P and a: the rank-q update and e's row mix
-//   per pair of rows (2k, 2k+1) and column, then e's column mix and + Q per
+//   coalesces.  Both variants at nblocks 1..4, where the state fits in
+//   registers and the warp designs lose to it (chip_smoke.py times the two
+//   at nblocks 2 and 4).  At R = 16 the carried a, F, P, H, h (~800
+//   floats) would live in local memory, and 7,813 threads (N = 1e6,
+//   s = 128) fill under half the SMs.
+// * ONE WARP PER CHUNK LANE at nblocks 5..8 (rtcoop.cuh's tiles; one body,
+//   filter_warp, for celerite_filter_collect_warp_kernel and
+//   celerite_filter_warp_kernel).  The lane's state sits in shared memory
+//   as celerite_adjoint.cu's warp instance keeps it -- F and P twice (this
+//   step's and the next one's), H, at the odd row stride R | 1; the Q x R
+//   blocks B P, G and the gains X, X2; a twice and h; the oscillators' e
+//   and Q -- ~6.4 KB per lane at R = 16, with B, Lambda and the
+//   oscillators' blocks as constants of the thread block.  Per step one
+//   barrier: after it the 8 lanes of the block load the next step's real,
+//   dt, gv and y as whole 32-byte spans (and the collect variant stores
+//   the step's pre-update a, F, P the same way, the bytes that bound it),
+//   while each warp updates its lane, one output element per thread, into
+//   the other copy of F, P and a: the rank-q update and e's row mix per
+//   pair of rows (2k, 2k+1) and column, then e's column mix and + Q per
 //   pair of columns and row.  S, its Cholesky and every q x q solve run in
 //   every thread's registers (q <= 2).  Every sum keeps the thread kernel's
-//   order, so the two designs agree to rounding.  The barrier spans a
-//   cluster of four thread blocks, the 32 lanes whose spans make up each
-//   128-byte line of the history, so that they write each line within one
-//   step of each other, and more of the spans meet in L2 before a line is
-//   written back (on an H100 at nblocks 8, N = 1e6 the kernel's time fell
-//   by about a fifth; chip_smoke.py times it).  Spans stay the limit: a
-//   history laid out in whole lines per thread block, read back by the
-//   adjoint, would take less.
+//   order, so the designs agree to rounding and the two warp kernels'
+//   statistics agree bit for bit.  In the collect variant the barrier
+//   spans a cluster of four thread blocks, the 32 lanes whose spans make
+//   up each 128-byte line of the history, so that they write each line
+//   within one step of each other, and more of the spans meet in L2
+//   before a line is written back (on an H100 at nblocks 8, N = 1e6 the
+//   kernel's time fell by about a fifth; chip_smoke.py times it).  Spans
+//   stay the limit: a history laid out in whole lines per thread block,
+//   read back by the adjoint, would take less.  The plain sweep (kernel
+//   13) stores nothing per step, so its barrier is the block's, and it
+//   keeps one copy of F, P and a, updated in place (~3.9 KB per lane at
+//   R = 16): on an H100 the second copy made it slightly slower, not
+//   faster.
 #include <cooperative_groups.h>
 
 #include "celerite.cuh"
@@ -225,9 +232,11 @@ namespace co = cgt::coop;
 namespace cg = cooperative_groups;
 using Tile = co::Tile<float>;
 
-// The collect variant runs one warp per chunk lane from this nblocks up,
-// one thread per lane below (celerite_cuda.COLLECT_WARP_NBLOCKS).
+// The collect variant (kernel 14) and the plain sweep (kernel 13) run one
+// warp per chunk lane from these nblocks up, one thread per lane below
+// (celerite_cuda.COLLECT_WARP_NBLOCKS and FILTER_WARP_NBLOCKS).
 constexpr int COLLECT_WARP_NB = 5;
+constexpr int FILTER_WARP_NB = 5;
 
 // thread blocks per cluster of the warp-per-lane collect kernel: their
 // CLUSTER * 8 lanes make each 128-byte line of the history
@@ -237,18 +246,22 @@ constexpr int CLUSTER = 4;
 // obs_dim Q: five R x ld blocks (F and P, each twice, and H), four Q x R
 // blocks, three vectors of R (a twice, h), the oscillators' e (4 per
 // oscillator) and Q (3), c0 and ld for the final store, and two slots of
-// the step's inputs (real, dt, gv, y), one per step parity.
-template <int NB, int Q>
+// the step's inputs (real, dt, gv, y), one per step parity.  TWO = false
+// (kernel 13) keeps one copy of F, P and a (F1 = F0, P1 = P0, A1 = A0):
+// the step updates them in place.
+template <int NB, int Q, bool TWO = true>
 struct FLay {
   static constexpr int R = 2 * NB;
   static constexpr int LD = R | 1;
   static constexpr int BS = R * LD;
   static constexpr int QR = Q * R;
   static constexpr int NIN = 3 + Q;
-  static constexpr int F0 = 0, F1 = BS, P0 = 2 * BS, P1 = 3 * BS,
-                       H = 4 * BS;
-  static constexpr int BP = 5 * BS, G = BP + QR, X = G + QR, X2 = X + QR;
-  static constexpr int A0 = X2 + QR, A1 = A0 + R, HV = A1 + R;
+  static constexpr int NC = TWO ? 2 : 1;  // copies of F, P and a
+  static constexpr int F0 = 0, F1 = TWO ? BS : F0, P0 = NC * BS,
+                       P1 = TWO ? 3 * BS : P0, H = 2 * NC * BS;
+  static constexpr int BP = H + BS, G = BP + QR, X = G + QR, X2 = X + QR;
+  static constexpr int A0 = X2 + QR, A1 = TWO ? A0 + R : A0,
+                       HV = A0 + NC * R;
   static constexpr int E = HV + R, QN = E + 4 * NB, SC = QN + 3 * NB;
   static constexpr int IN = SC + 2;
   static constexpr int STRIDE = IN + 2 * NIN;
@@ -261,19 +274,22 @@ struct FLay {
   }
 };
 
-// celerite_filter_kernel<NB, Q, true> as one warp per chunk lane, its
-// thread blocks in step by clusters of CLUSTER.
-template <int NB, int Q>
-__global__ void __cluster_dims__(CLUSTER, 1, 1)
-__launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
-celerite_filter_collect_warp_kernel(
+// celerite_filter_kernel<NB, Q, COLLECT> as one warp per chunk lane: the
+// body of both warp kernels below.  COLLECT stores each step's pre-update
+// state after the step's barrier, a barrier over the thread block's
+// cluster, while the step writes the next state into the second copy;
+// without it the barrier is the block's and the state is updated in place
+// (every element of F, P and a is read and written by one thread, after
+// the __syncwarp that ends the step's reads of the whole blocks).
+template <int NB, int Q, bool COLLECT>
+__device__ __forceinline__ void filter_warp(
     const float* __restrict__ gb, const float* __restrict__ b_p,
     const float* __restrict__ lam_p, const float* __restrict__ dt,
     const float* __restrict__ gv, const float* __restrict__ real,
     const float* __restrict__ y, int s, int C, float* H_out, float* h_out,
     float* c0_out, float* ld_out, float* F_out, float* a_out, float* P_out,
     float* a_h, float* F_h, float* P_h) {
-  using Ly = FLay<NB, Q>;
+  using Ly = FLay<NB, Q, COLLECT>;
   constexpr int R = Ly::R, LD = Ly::LD, NIN = Ly::NIN;
   constexpr int L = Tile::LANES;
   extern __shared__ __align__(16) unsigned char cgt_smem[];
@@ -333,16 +349,19 @@ celerite_filter_collect_warp_kernel(
   // this step's F, P, a and the next step's (swapped after each step)
   int of = Ly::F0, onf = Ly::F1, op = Ly::P0, onp = Ly::P1, oa = Ly::A0,
       ona = Ly::A1;
-  cg::cluster_group cl = cg::this_cluster();
 
   for (int j = 0; j < s; ++j) {
     // step j-1's state and step j's inputs are in place; every read of
-    // the blocks this step writes (step j-1's stores) is done; and the
-    // cluster's blocks store step j's history together
-    cl.sync();
-    tile.store_v(a_h, j, oa);  // the pre-update state of step j
-    tile.store_m(F_h, j, of);
-    tile.store_m(P_h, j, op);
+    // the blocks this step writes (step j-1's stores) is done; and (where
+    // COLLECT) the cluster's blocks store step j's history together
+    if constexpr (COLLECT) {
+      cg::this_cluster().sync();
+      tile.store_v(a_h, j, oa);  // the pre-update state of step j
+      tile.store_m(F_h, j, of);
+      tile.store_m(P_h, j, op);
+    } else {
+      __syncthreads();
+    }
     if (j + 1 < s) load_in(j + 1);
     if (live) {
       const float* const in = me + Ly::IN + (j & 1) * NIN;
@@ -499,7 +518,7 @@ celerite_filter_collect_warp_kernel(
         Pn[m * LD + r1] = n1;
       }
     }
-    // the next copies become this step's
+    // the next copies become this step's (one copy where !COLLECT: no-op)
     const int tf = of, tp = op, ta = oa;
     of = onf;
     onf = tf;
@@ -522,23 +541,81 @@ celerite_filter_collect_warp_kernel(
   tile.store_m(P_out, 0, op);
 }
 
+// kernel 14 at nblocks COLLECT_WARP_NB..8, its thread blocks in step by
+// clusters of CLUSTER
+template <int NB, int Q>
+__global__ void __cluster_dims__(CLUSTER, 1, 1)
+__launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
+celerite_filter_collect_warp_kernel(
+    const float* __restrict__ gb, const float* __restrict__ b_p,
+    const float* __restrict__ lam_p, const float* __restrict__ dt,
+    const float* __restrict__ gv, const float* __restrict__ real,
+    const float* __restrict__ y, int s, int C, float* H_out, float* h_out,
+    float* c0_out, float* ld_out, float* F_out, float* a_out, float* P_out,
+    float* a_h, float* F_h, float* P_h) {
+  filter_warp<NB, Q, true>(gb, b_p, lam_p, dt, gv, real, y, s, C, H_out,
+                           h_out, c0_out, ld_out, F_out, a_out, P_out, a_h,
+                           F_h, P_h);
+}
+
+// kernel 13 at nblocks FILTER_WARP_NB..8: kernel 14's warp kernel without
+// the history, so without the cluster
+template <int NB, int Q>
+__global__ void __launch_bounds__(Tile::THREADS, Tile::MIN_BLOCKS)
+celerite_filter_warp_kernel(
+    const float* __restrict__ gb, const float* __restrict__ b_p,
+    const float* __restrict__ lam_p, const float* __restrict__ dt,
+    const float* __restrict__ gv, const float* __restrict__ real,
+    const float* __restrict__ y, int s, int C, float* H_out, float* h_out,
+    float* c0_out, float* ld_out, float* F_out, float* a_out,
+    float* P_out) {
+  filter_warp<NB, Q, false>(gb, b_p, lam_p, dt, gv, real, y, s, C, H_out,
+                            h_out, c0_out, ld_out, F_out, a_out, P_out,
+                            nullptr, nullptr, nullptr);
+}
+
 inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
 
-// kernel 13: one thread per chunk lane at every nblocks
+// kernel 13 at nblocks NB: the warp-per-lane kernel where `warp`, else the
+// thread-per-lane one, which has no instance from FILTER_WARP_NB up
+template <int NB, int Q>
+int launch_filter_nb(const float* gb, const float* b, const float* lam,
+                     const float* dt, const float* gv, const float* real,
+                     const float* y, int s, int C, float* H, float* h,
+                     float* c0, float* ld, float* F, float* a, float* P,
+                     bool warp, cudaStream_t st) {
+  if (!warp) {
+    if constexpr (NB < FILTER_WARP_NB) {
+      celerite_filter_kernel<NB, Q, false>
+          <<<blocks_for(C), CGT_THREADS, 0, st>>>(gb, b, lam, dt, gv, real, y,
+                                                  s, C, H, h, c0, ld, F, a, P,
+                                                  nullptr, nullptr, nullptr);
+      return int(cudaGetLastError());
+    }
+    return int(cudaErrorInvalidValue);
+  }
+  const size_t smem = FLay<NB, Q, false>::bytes();
+  const cudaError_t err =
+      co::prepare(celerite_filter_warp_kernel<NB, Q>, smem);
+  if (err != cudaSuccess) return int(err);
+  celerite_filter_warp_kernel<NB, Q>
+      <<<co::grid_for<float>(C), Tile::THREADS, smem, st>>>(
+          gb, b, lam, dt, gv, real, y, s, C, H, h, c0, ld, F, a, P);
+  return int(cudaGetLastError());
+}
+
 template <int Q>
 int launch_filter(const float* gb, const float* b, const float* lam,
                   const float* dt, const float* gv, const float* real,
                   const float* y, int nb, int s, int C, float* H, float* h,
                   float* c0, float* ld, float* F, float* a, float* P,
-                  cudaStream_t st) {
-#define CGT_LAUNCH(NB)                                                       \
-  celerite_filter_kernel<NB, Q, false>                                       \
-      <<<blocks_for(C), CGT_THREADS, 0, st>>>(gb, b, lam, dt, gv, real, y, s, \
-                                              C, H, h, c0, ld, F, a, P,      \
-                                              nullptr, nullptr, nullptr)
+                  bool warp, cudaStream_t st) {
+#define CGT_LAUNCH(NB)                                                      \
+  return launch_filter_nb<NB, Q>(gb, b, lam, dt, gv, real, y, s, C, H, h, \
+                                 c0, ld, F, a, P, warp, st)
   CGT_NB_SWITCH(nb, CGT_LAUNCH)
 #undef CGT_LAUNCH
-  return int(cudaGetLastError());
+  return int(cudaErrorInvalidValue);
 }
 
 // kernel 14 at nblocks NB: the warp-per-lane kernel where `warp`, else the
@@ -587,9 +664,9 @@ int launch_collect(const float* gb, const float* b, const float* lam,
   return int(cudaErrorInvalidValue);
 }
 
-template <int Q>
+template <int Q, bool TWO>
 int smem_of(int nb) {
-#define CGT_SIZE(NB) return int(FLay<NB, Q>::bytes())
+#define CGT_SIZE(NB) return int(FLay<NB, Q, TWO>::bytes())
   switch (nb) {
     case 1: CGT_SIZE(1);
     case 2: CGT_SIZE(2);
@@ -608,20 +685,22 @@ int smem_of(int nb) {
 
 extern "C" {
 
-// kernel 13: the chunk statistics
+// kernel 13: the chunk statistics, one warp per chunk lane where warp is 1
+// (any nblocks), one thread per lane where it is 0 (nblocks 1..4 only: the
+// caller routes)
 int cgt_celerite_filter_f32(const float* gb, const float* b, const float* lam,
                             const float* dt, const float* gv,
                             const float* real, const float* y, int nb, int q,
                             int s, int C, float* H, float* h, float* c0,
-                            float* ld, float* F, float* a, float* P,
+                            float* ld, float* F, float* a, float* P, int warp,
                             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (q == 1)
     return launch_filter<1>(gb, b, lam, dt, gv, real, y, nb, s, C, H, h, c0,
-                            ld, F, a, P, st);
+                            ld, F, a, P, warp != 0, st);
   if (q == 2)
     return launch_filter<2>(gb, b, lam, dt, gv, real, y, nb, s, C, H, h, c0,
-                            ld, F, a, P, st);
+                            ld, F, a, P, warp != 0, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -650,8 +729,15 @@ int cgt_celerite_filter_collect_f32(const float* gb, const float* b,
 // warp-per-lane instance at nblocks nb and obs_dim q, or -1 for a size
 // that has no instance
 int cgt_celerite_collect_smem_bytes(int nb, int q) {
-  if (q == 1) return smem_of<1>(nb);
-  if (q == 2) return smem_of<2>(nb);
+  if (q == 1) return smem_of<1, true>(nb);
+  if (q == 2) return smem_of<2, true>(nb);
+  return -1;
+}
+
+// the same for kernel 13's warp-per-lane instance (one copy of F, P, a)
+int cgt_celerite_filter_smem_bytes(int nb, int q) {
+  if (q == 1) return smem_of<1, false>(nb);
+  if (q == 2) return smem_of<2, false>(nb);
   return -1;
 }
 

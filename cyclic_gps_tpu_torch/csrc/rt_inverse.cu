@@ -52,7 +52,6 @@
 // lane; its seven carried blocks (p00..p11, phi, u0, u1) never leave the
 // SM, and 16-24 warps per SM at float32 (8-12 at float64), not ~2, hide
 // the latency of the dependent chain.
-#include "rtblock.cuh"
 #include "rtcoop.cuh"
 
 namespace {

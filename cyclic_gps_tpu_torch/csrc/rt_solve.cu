@@ -10,7 +10,8 @@
 //   rt_collect_kernel  <- cyclic_gps_tpu/ops/pallas_wide.py:366
 //                         forward_sweep_collect_wide_pallas
 //                         (kernel body _wide_collect_kernel, :258)
-//   rt_backsub_kernel  <- pallas_wide.py:496 backward_substitute_wide_pallas
+//   rt_backsub_warp_kernel
+//                      <- pallas_wide.py:496 backward_substitute_wide_pallas
 //                         (_wide_backsub_kernel, :462)
 // The last two stand for the plain Pallas kernels they are the wide twins
 // of, pallas_sweep.py:400 forward_sweep_collect_pallas and :1006
@@ -44,23 +45,27 @@
 // C = N/s lanes (7,813 at N = 1e6, s = 128): how fast one lane walks its
 // rows bounds them, not the bytes.  Measured at that size on an H100 SXM
 // (700 W; chip_smoke.py, PERF.md): the likelihood's sweep 6.6 ms and the
-// collecting sweep 8.6 ms (5.5 and 8.4 % of their byte bounds), the
-// back-substitution 9.3 ms (4.0 %).
+// collecting sweep 8.6 ms (5.5 and 8.4 % of their byte bounds).  The
+// back-substitution's row is two d x d matrix-vector products, only the
+// second of which waits for the row before: the bytes bound it.
 //
-// The sweeps run one warp per chunk lane on rtcoop.cuh (its Sweep step):
-// the lane's blocks (the pivot and its factor, O_j and C_{j-1}, W0 and its
-// scratch partner, acc; the collecting sweep adds hat_C) and vectors in
-// shared memory, the Cholesky's trailing updates, the products and the
-// triangular solves spread over the warp (the elimination's two forward
-// solves and w's in one pass; the collecting sweep's three hats in one
-// back-substitution pass), and the 8 (float32) or 4 (float64) lanes of a
-// thread block loading and storing their rows as whole 32-byte spans.  The
-// likelihood's sweep is the collecting one without the hats: per row it
-// stores one number per lane.  The back-substitution, a chain of two
-// d x d matrix-vector products per row, keeps the first port's design:
-// one thread per chunk lane, its blocks in local memory (rtblock.cuh; d is
-// a runtime value, so one instance per dtype serves d = 9..15).
-#include "rtblock.cuh"
+// All three run one warp per chunk lane on rtcoop.cuh, and the 8 (float32)
+// or 4 (float64) lanes of a thread block load and store their rows as
+// whole 32-byte spans.  The sweeps (its Sweep step) hold the lane's blocks
+// (the pivot and its factor, O_j and C_{j-1}, W0 and its scratch partner,
+// acc; the collecting sweep adds hat_C) and vectors in shared memory and
+// spread the Cholesky's trailing updates, the products and the triangular
+// solves over the warp (the elimination's two forward solves and w's in
+// one pass; the collecting sweep's three hats in one back-substitution
+// pass).  The likelihood's sweep is the collecting one without the hats:
+// per row it stores one number per lane.  The back-substitution holds two
+// copies of a row's inputs, so that the block loads row r-1 while its
+// warps compute row r (one barrier a row; each thread fetches its share of
+// row r-1 into registers before the products and writes it to shared
+// memory after them, so its loads are all in flight at once), and thread
+// i of a warp computes element i of x_r: 1.3 ms at that size (28.7 % of
+// its byte bound), where a thread-per-lane kernel with its blocks in local
+// memory took 9.2 ms.
 #include "rtcoop.cuh"
 
 namespace {
@@ -178,35 +183,69 @@ rt_sweep_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
   tile.store_s(ld, 0, o_sc + 2);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(CGT_THREADS)
-rt_backsub_kernel(const T* __restrict__ hc, const T* __restrict__ hw0,
-                  const T* __restrict__ hw, const T* __restrict__ hw1_p,
-                  const T* __restrict__ xb_p, const T* __restrict__ xbn_p,
-                  int s, int d, int C, T* x_out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  Mat<T> m;
-  Vec<T> xb, x, common, tv;
-  load_v<T>(xb_p, 0, d, C, c, xb);
-  for (int r = s - 2; r >= 0; --r) {
-    load_v<T>(hw, r, d, C, c, common);
-    load_m<T>(hw0, r, d, C, c, m);
-    mv_op<T, false>(m, xb, tv, d);
-    for (int i = 0; i < d; ++i) common[i] -= tv[i];
-    if (r == s - 2) {
-      load_m<T>(hw1_p, 0, d, C, c, m);
-      load_v<T>(xbn_p, 0, d, C, c, x);  // x_{b,next} in place of x_{j+1}
-    } else {
-      load_m<T>(hc, r, d, C, c, m);
-    }
-    mv_op<T, false>(m, x, tv, d);
-    for (int i = 0; i < d; ++i) x[i] = common[i] - tv[i];
-    store_v<T>(x_out, r, d, C, c, x);
-  }
-}
+// The back-substitution's lane region: two copies of a row's inputs
+// (hat_C, or hat_W1 on row s-2, and hat_W0; hat_w), the one the warp reads
+// and the one the next row loads into, then x_b and two copies of x (the
+// row the warp writes and the one it reads, x_{j+1}).
+enum { BK_HC0, BK_W00, BK_HC1, BK_W01, BK_BLOCKS };
+enum { BK_HW0, BK_HW1, BK_XB, BK_X0, BK_X1, BK_VECS };
 
-inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
+// rows s-2 .. 0, one barrier a row: after it the block stores x_{r+1}
+// and fetches row r-1 into registers, each warp computes its lane's x_r
+// (thread i its element i, with the sums of the thread-per-lane design:
+// ascending p, the product subtracted from hat_w, then the second from
+// that) while those loads are in flight, and the block then writes row
+// r-1 into the other copy
+template <typename T>
+__global__ void __launch_bounds__(co::Tile<T>::THREADS, co::Tile<T>::MIN_BLOCKS)
+rt_backsub_warp_kernel(const T* __restrict__ hc, const T* __restrict__ hw0,
+                       const T* __restrict__ hw, const T* __restrict__ hw1_p,
+                       const T* __restrict__ xb_p,
+                       const T* __restrict__ xbn_p, int s, int d, int C,
+                       T* x_out) {
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  T* sm = reinterpret_cast<T*>(cgt_smem);
+  const int stride = co::region(d, BK_BLOCKS, BK_VECS);
+  const co::Tiles<T> tile(sm, stride, d, C);
+  const int ld = co::pad_ld(d), bs = d * ld, vb = BK_BLOCKS * bs;
+  const int tl = int(threadIdx.x) >> 5;  // this warp's lane of the tile
+  const int i = int(threadIdx.x) & 31;   // the element of x it owns
+  const bool live = int(blockIdx.x) * co::Tile<T>::LANES + tl < C && i < d;
+  T* const me = sm + tl * stride;
+  const T* const xb = me + vb + BK_XB * d;
+  // row s-2: hat_W1 in hat_C's place, x_{b,next} in x_{j+1}'s
+  tile.load_m(hw1_p, 0, BK_HC0 * bs);
+  tile.load_m(hw0, s - 2, BK_W00 * bs);
+  tile.load_v(hw, s - 2, vb + BK_HW0 * d);
+  tile.load_v(xb_p, 0, vb + BK_XB * d);
+  tile.load_v(xbn_p, 0, vb + BK_X1 * d);
+  int k = 0;  // the copy row r reads
+  for (int r = s - 2; r >= 0; --r, k ^= 1) {
+    __syncthreads();
+    if (r < s - 2) tile.store_v(x_out, r + 1, vb + (BK_X0 + (k ^ 1)) * d);
+    T nhc[co::TILE_REGS], nw0[co::TILE_REGS], nhw = T(0);
+    if (r > 0) {
+      tile.fetch_m(hc, r - 1, nhc);
+      tile.fetch_m(hw0, r - 1, nw0);
+      nhw = tile.fetch_v(hw, r - 1);
+    }
+    if (live) {
+      const T common =
+          me[vb + (BK_HW0 + k) * d + i] -
+          co::dot_v(me + (BK_W00 + 2 * k) * bs + i * ld, xb, d);
+      me[vb + (BK_X0 + k) * d + i] =
+          common - co::dot_v(me + (BK_HC0 + 2 * k) * bs + i * ld,
+                             me + vb + (BK_X0 + (k ^ 1)) * d, d);
+    }
+    if (r > 0) {
+      tile.put_m(nhc, (BK_HC0 + 2 * (k ^ 1)) * bs);
+      tile.put_m(nw0, (BK_W00 + 2 * (k ^ 1)) * bs);
+      tile.put_v(nhw, vb + (BK_HW0 + (k ^ 1)) * d);
+    }
+  }
+  __syncthreads();
+  tile.store_v(x_out, 0, vb + (BK_X0 + (k ^ 1)) * d);
+}
 
 // dynamic shared bytes of one thread block of rt_collect_kernel
 template <typename T>
@@ -218,6 +257,12 @@ size_t collect_smem(int d) {
 template <typename T>
 size_t sweep_smem(int d) {
   return co::smem_bytes<T>(d, co::SW_BLOCKS, co::SW_VECS);
+}
+
+// dynamic shared bytes of one thread block of rt_backsub_warp_kernel
+template <typename T>
+size_t backsub_smem(int d) {
+  return co::smem_bytes<T>(d, BK_BLOCKS, BK_VECS);
 }
 
 template <typename T>
@@ -256,8 +301,13 @@ int launch_backsub(const T* hc, const T* hw0, const T* hw, const T* hw1,
                    const T* xb, const T* xbn, int s, int d, int C, T* x,
                    cudaStream_t stream) {
   if (!rt_size(d)) return int(cudaErrorInvalidValue);
-  rt_backsub_kernel<T><<<blocks_for(C), CGT_THREADS, 0, stream>>>(
-      hc, hw0, hw, hw1, xb, xbn, s, d, C, x);
+  if (s < 2) return int(cudaSuccess);  // no interior row
+  const size_t smem = backsub_smem<T>(d);
+  const cudaError_t err = co::prepare(rt_backsub_warp_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  rt_backsub_warp_kernel<T><<<co::grid_for<T>(C), co::Tile<T>::THREADS,
+                              smem, stream>>>(hc, hw0, hw, hw1, xb, xbn, s,
+                                              d, C, x);
   return int(cudaGetLastError());
 }
 
@@ -306,6 +356,12 @@ int cgt_rt_sweep_smem_bytes(int d, int f64) {
 int cgt_rt_collect_smem_bytes(int d, int f64) {
   if (!cgt::rt::rt_size(d)) return -1;
   return int(f64 ? collect_smem<double>(d) : collect_smem<float>(d));
+}
+
+// dynamic shared bytes per thread block of the back-substitution
+int cgt_rt_backsub_smem_bytes(int d, int f64) {
+  if (!cgt::rt::rt_size(d)) return -1;
+  return int(f64 ? backsub_smem<double>(d) : backsub_smem<float>(d));
 }
 
 }  // extern "C"

@@ -14,8 +14,11 @@
 // `Sweep::hats`, wide_sweep.cu's wide_solveinv_kernel and
 // backward_sweep.cu's solveinv_warp_kernel at d = 16) and the selected
 // inversion's, which has no right-hand side (rt_inverse.cu's
-// rt_inverse_sweep_kernel); and celerite_sweep.cu's warp instance, which
-// builds its rows in place at d = 2 nblocks (16 at nblocks 8).
+// rt_inverse_sweep_kernel); celerite_sweep.cu's warp instance, which
+// builds its rows in place at d = 2 nblocks (16 at nblocks 8); and the
+// solve's back-substitution (rt_solve.cu's rt_backsub_warp_kernel), two
+// matrix-vector products a row (`dot_v`).  `rt_size` and WMAX give the
+// runtime block sizes every kernel of 9..15 takes.
 //
 // Why not the first port's design (one thread per lane, every block in local
 // memory): a walk step is a dependent chain of ~30 d^3 operations over ~14
@@ -54,9 +57,20 @@
 // neither load, compute nor store.
 #pragma once
 
-#include "rtblock.cuh"
+#include "blockmath.cuh"
 
 namespace cgt {
+namespace rt {
+
+constexpr int WMAX = 15;  // the largest runtime block size
+
+// the runtime block sizes the chunk-major kernels take
+__host__ __device__ __forceinline__ bool rt_size(int d) {
+  return d > 8 && d <= WMAX;
+}
+
+}  // namespace rt
+
 namespace coop {
 
 // chunk lanes per thread block, one warp each: LANES * sizeof(T) = 32 B
@@ -82,6 +96,10 @@ template <typename T>
 inline size_t smem_bytes(int d, int nb, int nv) {
   return size_t(Tile<T>::LANES) * region(d, nb, nv) * sizeof(T);
 }
+
+// registers a thread needs to hold its share of one d x d block of a tile
+// (Tiles::fetch_m) at every runtime d
+constexpr int TILE_REGS = (rt::WMAX * rt::WMAX + 31) / 32;
 
 template <typename T>
 inline int grid_for(int C) {
@@ -253,6 +271,15 @@ __device__ __forceinline__ void mv_op(const Warp& w, const T* a, const T* x,
   if (M == ADD) out[i] += acc;
   if (M == SUB) out[i] -= acc;
   if (M == NEG) out[i] = -acc;
+}
+
+// sum_p a[p] x[p] in ascending p (one row of a product by a vector, as
+// mv_op sums it)
+template <typename T>
+__device__ __forceinline__ T dot_v(const T* a, const T* x, int d) {
+  T acc = a[0] * x[0];
+  for (int p = 1; p < d; ++p) acc += a[p] * x[p];
+  return acc;
 }
 
 // sum_i v[i]^2 in ascending i, in every thread
@@ -546,6 +573,46 @@ struct Tiles {
     T* p = dst + size_t(j) * d * d * C + c0 + l;
     for (Cursor c(w); c.q < d * d; c.next(w))
       p[size_t(c.q) * C] = src[c.i * ld + c.k];
+  }
+
+  // step j of a chunk-major stack [*, d, d, C] into registers: this
+  // thread's elements of its lane, as load_m takes them (buf[m] holds
+  // element w.q0 + 32 m), all loads issued before any is used; put_m then
+  // writes them into block `off`.  K = TILE_REGS covers every d <= WMAX.
+  template <int K>
+  __device__ __forceinline__ void fetch_m(const T* __restrict__ src, int j,
+                                          T (&buf)[K]) const {
+    if (!live) return;
+    const T* p = src + size_t(j) * d * d * C + c0 + l;
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      const int q = w.q0 + 32 * m;
+      if (q < d * d) buf[m] = p[size_t(q) * C];
+    }
+  }
+
+  template <int K>
+  __device__ __forceinline__ void put_m(const T (&buf)[K], int off) const {
+    if (!live) return;
+    T* dst = sm + l * stride + off;
+    Cursor c(w);
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      if (c.q < d * d) dst[c.i * ld + c.k] = buf[m];
+      c.next(w);
+    }
+  }
+
+  // fetch_m / put_m of a vector stack [*, d, C] (d <= 32: one element a
+  // thread at most)
+  __device__ __forceinline__ T fetch_v(const T* __restrict__ src,
+                                       int j) const {
+    if (!live || w.q0 >= d) return T(0);
+    return src[(size_t(j) * d + w.q0) * C + c0 + l];
+  }
+
+  __device__ __forceinline__ void put_v(T v, int off) const {
+    if (live && w.q0 < d) sm[l * stride + off + w.q0] = v;
   }
 
   // step j of a vector stack [*, d, C] into the vector at `off`

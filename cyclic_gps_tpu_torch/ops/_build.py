@@ -34,7 +34,7 @@ _SOURCES = ("forward_sweep.cu", "gap_emission.cu", "backward_sweep.cu",
             "celerite_sweep.cu", "celerite_filter.cu",
             "celerite_adjoint.cu", "wide_sweep.cu", "wide_backward.cu",
             "rt_solve.cu", "rt_inverse.cu")
-_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtblock.cuh", "rtcoop.cuh")
+_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtcoop.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -79,7 +79,7 @@ _SIGNATURES = {
     "cgt_celerite_gap_mahal_sweep_f32": [_P] * 7 + [_I, _I, _I] + [_P] * 11
     + [_P],
     "cgt_celerite_filter_f32": [_P] * 7 + [_I, _I, _I, _I] + [_P] * 7
-    + [_P],
+    + [_I] + [_P],
     "cgt_celerite_filter_collect_f32": [_P] * 7 + [_I, _I, _I, _I]
     + [_P] * 10 + [_I] + [_P],
     "cgt_celerite_filter_adjoint_f32": [_P] * 17 + [_I, _I, _I, _I]
@@ -99,20 +99,23 @@ _SIGNATURES.update({
          [_P] * 5 + [real, _I, _I, _I] + [_P] * 18 + [_P]),
         ("cgt_wide_backward", [_P] * 19 + [_I, _I, _I] + [_P] * 9 + [_P]))
 })
-# the dynamic shared bytes per thread block of the seven warp-per-lane
+# the dynamic shared bytes per thread block of the eight warp-per-lane
 # kernels of block sizes 9-15 (rt_inverse.cu's sweep and recursion and
-# rt_solve.cu's two sweeps at block size d, wide_backward.cu's and
-# wide_sweep.cu's two sweeps at 8 + e; the second argument 1 for float64),
-# of the celerite filter adjoint at nblocks and obs_dim, of the
-# celerite likelihood sweep at nblocks, of the celerite collecting filter
-# at nblocks and obs_dim, and of kernels 1, 6 and 7 at block size 16
-# (forward_sweep.cu's and backward_sweep.cu's warp-per-lane sweeps and walk)
+# rt_solve.cu's two sweeps and back-substitution at block size d,
+# wide_backward.cu's and wide_sweep.cu's two sweeps at 8 + e; the second
+# argument 1 for float64), of the celerite filter adjoint at nblocks and
+# obs_dim, of the celerite likelihood sweep at nblocks, of the celerite
+# collecting filter and filter sweep at nblocks and obs_dim, and of
+# kernels 1, 6 and 7 at block size 16 (forward_sweep.cu's
+# and backward_sweep.cu's warp-per-lane sweeps and walk)
 _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes",
-    "cgt_rt_collect_smem_bytes", "cgt_wide_solveinv_smem_bytes",
+    "cgt_rt_collect_smem_bytes", "cgt_rt_backsub_smem_bytes",
+    "cgt_wide_solveinv_smem_bytes",
     "cgt_wide_sweep_smem_bytes", "cgt_rt_sweep_smem_bytes",
     "cgt_rt_inverse_sweep_smem_bytes", "cgt_celerite_adjoint_smem_bytes",
-    "cgt_celerite_collect_smem_bytes", "cgt_forward_sweep_warp_smem_bytes",
+    "cgt_celerite_collect_smem_bytes", "cgt_celerite_filter_smem_bytes",
+    "cgt_forward_sweep_warp_smem_bytes",
     "cgt_solveinv_warp_smem_bytes", "cgt_backsolve_warp_smem_bytes")})
 _SIGNATURES["cgt_celerite_sweep_smem_bytes"] = [_I]
 # the runtime-d kernels of the likelihood's sweep, the solve and the

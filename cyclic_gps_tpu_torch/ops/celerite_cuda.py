@@ -42,14 +42,15 @@ Tensor = torch.Tensor
 
 NBLOCKS = tuple(range(1, 9))  # instantiated oscillator counts (rank 2..16)
 OBS_DIMS = (1, 2)  # instantiated observation sizes of the filter kernels
-# the filter adjoint (kernel 15), the fused likelihood sweep (kernel 12)
-# and the collecting filter (kernel 14) run one warp per chunk lane from
-# these nblocks up (the WARP_NB of csrc/celerite_adjoint.cu and
-# csrc/celerite_sweep.cu, the COLLECT_WARP_NB of csrc/celerite_filter.cu),
-# one thread per lane below
+# the filter adjoint (kernel 15), the fused likelihood sweep (kernel 12),
+# the collecting filter (kernel 14) and the filter sweep (kernel 13) run
+# one warp per chunk lane from these nblocks up (the WARP_NB of
+# csrc/celerite_adjoint.cu and csrc/celerite_sweep.cu, the COLLECT_WARP_NB
+# and FILTER_WARP_NB of csrc/celerite_filter.cu), one thread per lane below
 WARP_NBLOCKS = 5
 SWEEP_WARP_NBLOCKS = 5
 COLLECT_WARP_NBLOCKS = 5
+FILTER_WARP_NBLOCKS = 5
 
 
 def _cel():
@@ -256,9 +257,9 @@ celerite_gap_mahal_sweep_cuda.launches = 0
 celerite_gap_mahal_sweep_cuda.launches_warp = 0
 
 
-def _launch_filter(name, args, collect: bool, warp: bool = False):
-    """Launch kernel 13 (``collect=False``) or kernel 14, the latter one
-    warp per chunk lane where ``warp``; returns (statistics, histories)."""
+def _launch_filter(name, args, collect: bool, warp: bool):
+    """Launch kernel 13 (``collect=False``) or kernel 14, one warp per
+    chunk lane where ``warp``; returns (statistics, histories)."""
     nb, qd, s, c = _check_filter(name, *args)
     r = 2 * nb
     y_cm = args[-1]
@@ -274,13 +275,15 @@ def _launch_filter(name, args, collect: bool, warp: bool = False):
                 *ptrs[:7], nb, qd, s, c, *ptrs[7:], int(warp), _stream())
         else:
             err = lib.cgt_celerite_filter_f32(*ptrs[:7], nb, qd, s, c,
-                                              *ptrs[7:], _stream())
+                                              *ptrs[7:], int(warp),
+                                              _stream())
     _build.check_launch(err, name)
     return tuple(stats), tuple(hists)
 
 
 def celerite_filter_cuda(gb: Tensor, b: Tensor, lam: Tensor, dt_cm: Tensor,
-                         gv_cm: Tensor, real_cm: Tensor, y_cm: Tensor):
+                         gv_cm: Tensor, real_cm: Tensor, y_cm: Tensor,
+                         warp: bool = False):
     """Fused conditional-filter sweep: per-chunk statistics of the
     O(N r^2 q) celerite solve.
 
@@ -292,20 +295,27 @@ def celerite_filter_cuda(gb: Tensor, b: Tensor, lam: Tensor, dt_cm: Tensor,
     float32, nblocks 1..8, q 1 or 2.
 
     CUDA tensors launch ``csrc/celerite_filter.cu``
-    (``celerite_filter_cuda.launches``); CPU tensors run
-    `celerite_filter_plain`.
+    (``celerite_filter_cuda.launches``): one warp per chunk lane from
+    nblocks `FILTER_WARP_NBLOCKS` up (``.launches_warp`` counts those
+    launches), one thread per lane below; ``warp=True`` takes the
+    warp-per-lane design at every nblocks (to time the two).  CPU tensors
+    run `celerite_filter_plain`.
     """
     name = "celerite_filter_cuda"
     args = (gb, b, lam, dt_cm, gv_cm, real_cm, y_cm)
     _build.check_no_grad(name, *args)
     if not dt_cm.is_cuda:
         return celerite_filter_plain(*args)
-    stats, _ = _launch_filter(name, args, collect=False)
+    warp = warp or gb.shape[0] >= FILTER_WARP_NBLOCKS
+    stats, _ = _launch_filter(name, args, collect=False, warp=warp)
     celerite_filter_cuda.launches += 1
+    if warp:
+        celerite_filter_cuda.launches_warp += 1
     return stats
 
 
 celerite_filter_cuda.launches = 0
+celerite_filter_cuda.launches_warp = 0
 
 
 def celerite_filter_collect_cuda(gb: Tensor, b: Tensor, lam: Tensor,

@@ -461,10 +461,10 @@ def backward_substitute_cuda(hat_cs: Tensor, hat_w0s: Tensor,
     solution and its next-chunk shift.  Returns x rows [s-1, d, C] for
     steps 1..s-1.  float32 or float64, d in 1..15.
 
-    CUDA tensors launch ``csrc/solve_sweep.cu`` at d <= 8
-    (``backward_substitute_cuda.launches``) and ``csrc/rt_solve.cu`` at
-    d = 9..15 (``.launches_rt``); CPU tensors run
-    `backward_substitute_plain`.
+    CUDA tensors launch ``csrc/solve_sweep.cu`` at d <= 8, one thread per
+    chunk lane (``backward_substitute_cuda.launches``), and
+    ``csrc/rt_solve.cu`` at d = 9..15, one warp per chunk lane
+    (``.launches_rt``); CPU tensors run `backward_substitute_plain`.
     """
     name = "backward_substitute_cuda"
     args = (hat_cs, hat_w0s, hat_ws, hat_w1, xb, xb_next)
