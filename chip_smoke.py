@@ -29,14 +29,22 @@ Phases, one line of output each (or more):
               kernel 13's warp-per-lane instances beside 14's (one body)
               and kernel 18' (the solve's back-substitution at 9-15, one
               warp per lane) with its shared bytes, failing on any stack
-              or spill.
+              or spill; kernels 5 and 4 (the emission adjoint, each
+              thread block's gaps sorted by branch and rounds; the fused
+              emission sweep in tiles of 3 rows, producer and consumer
+              warps) at every rank with their shared bytes, failing if
+              kernel 5's rank-5 instance uses any stack or spill.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
               the median CUDA-event time of kernel and twin, and the
               card's least time for the same work (its bound).  The three
               backward kernels get the inputs the two-kernel route's
-              backward hands them.
+              backward hands them.  Kernel 5 gives the same bits on a
+              second run; then kernels 5 and 4 at their edge shapes
+              ([emission]: ranks 1, 5 and 8; gaps of 0-9 squaring rounds
+              and both branches in every warp, padded gaps; C = 35 and 45
+              lanes, s = 6 and 7 rows) against their twins.
   4. path     the likelihood through the user entry points with
               backend="auto" (the kernels), launch counts reset just
               before and read just after, then each value against
@@ -46,7 +54,8 @@ Phases, one line of output each (or more):
               against backend="torch" on the card, and a float64 small
               case against autograd through the dense oracle.
   6. train    three Adam train steps on the fused N = 1e6 route, launch
-              counts reset just before and read just after; then one
+              counts reset just before and read just after, every launch
+              of kernels 4 and 5 on their redesigned kernels; then one
               step under torch.profiler; then the float32 default on this
               grid, the residual loss: log_likelihood_residual's value and
               gradient with backend="auto" against "torch", and two steps
@@ -1573,6 +1582,88 @@ def run_sweep_edges(dev, check_kernel, celerite, celerite_cuda, ts_c, xs_c):
           f"N {N_BIG}, the bench grid", REPS)
 
 
+# kernels 4 and 5 at their edge shapes: (rank, s, C); C = 35 and 45 are no
+# multiple of kernel 4's 32 lanes a block, s = 7 none of its 3-row tile;
+# 315 gaps fill two of kernel 5's 128-gap blocks and part of a third
+EMISSION_EDGES = ((1, 6, 35), (5, 6, 35), (5, 7, 45), (8, 6, 35), (8, 7, 45))
+EMISSION_ROUNDS = (0, 1, 2, 3, 5, 7, 9)  # squaring rounds of the edge gaps
+
+
+def mixed_gaps(expm_cuda, g, s, c, seed, dev):
+    """Chunk-major gaps dt [s, c] and validity gv [s, c] (float32) that
+    mix, in every 32 consecutive gaps, EMISSION_ROUNDS squaring rounds
+    and gaps just inside and just outside the Van Loan branch
+    (dt ||G/2|| = 0.9, 1.1), each scaled by a seeded factor in [0.9, 1];
+    every 7th gap and the last two are padding (gv = 0): the inputs of
+    tests/test_torch_gap_kernels.py."""
+    import numpy as np
+
+    _, half, augn = expm_cuda._generator_norms(g.double().cpu())
+    half, augn = float(half), float(augn)
+    kinds = [3.92 * 2.0 ** (n - 0.5) / augn if n else 1.96 / augn
+             for n in EMISSION_ROUNDS] + [0.9 / half, 1.1 / half]
+    rng = np.random.RandomState(seed)
+    m = np.arange(s * c)
+    dt = np.array(kinds)[m % len(kinds)] * rng.uniform(0.9, 1.0, s * c)
+    gv = np.where(m % 7 == 6, 0.0, 1.0)
+    gv[-2:] = 0.0
+    return tuple(torch.as_tensor(a.reshape(s, c), dtype=torch.float32)
+                 .to(dev) for a in (dt, gv))
+
+
+def run_emission_edges(dev, check_kernel, leg, expm_cuda):
+    """Kernels 5 (the emission adjoint, each block's gaps sorted by branch
+    and rounds, rounds past the 4 stored ones recomputed) and 4 (the fused
+    emission sweep, 32 lanes a block in tiles of 3 rows) against their
+    twins on `mixed_gaps` at EMISSION_EDGES, with seeded cotangents (5)
+    and a seeded point mask and right-hand side (4); kernel 5 also gives
+    the same bits on a second run."""
+    import numpy as np
+
+    for r, s, c in EMISSION_EDGES:
+        p = leg.init_params(r, OBS, generator=torch.Generator()
+                            .manual_seed(r), dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            g = leg.g_matrix(p).contiguous()
+            boost = (p.b.T @ torch.linalg.solve(leg.lambda_lambda_t(p), p.b)
+                     ).contiguous()
+        dt, gv = mixed_gaps(expm_cuda, g, s, c, 10 * r + s, dev)
+        rng = np.random.RandomState(10 * r + s + 1)
+        cots = [torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dev)
+                for shape in [(s, r, r, c)] * 3 + [(s, c)]]
+        args5 = (g, dt, gv, *cots)
+        where = (f"edge: rank {r}, s = {s}, C = {c}; gaps of "
+                 f"{', '.join(map(str, EMISSION_ROUNDS))} rounds and both "
+                 "branches in every warp, padded gaps")
+        check_kernel(
+            "k_system_adjoint", "", "", expm_cuda.k_system_adjoint_cuda,
+            expm_cuda.k_system_adjoint_plain, args5, 1e-3, 1e-4,
+            f"{where}; atol 1e-4 of each output's scale, c_dt's 4x the "
+            "float32 twin's error against float64", atol_of_scale=True,
+            gaps_of=dt, f64_outputs=(2,), record=False, phase="emission",
+            reps=1)
+        with torch.no_grad():
+            once = expm_cuda.k_system_adjoint_cuda(*args5)
+            twice = expm_cuda.k_system_adjoint_cuda(*args5)
+            torch.cuda.synchronize()
+        if not all(bool(torch.equal(a, b)) for a, b in zip(once, twice)):
+            fail(f"k_system_adjoint at rank {r}: two runs differ")
+        real = torch.as_tensor((rng.rand(s, c) < 0.8).astype(np.float32)
+                               ).to(dev)
+        with torch.no_grad():
+            wrap = leg._wrap_row(g, dt, gv, s).contiguous()
+        y = torch.as_tensor(rng.randn(s, r, c).astype(np.float32)).to(dev)
+        check_kernel(
+            "gap_mahal_sweep", "", "", expm_cuda.gap_mahal_sweep_cuda,
+            expm_cuda.gap_mahal_sweep_plain,
+            (g, boost, dt, gv, real, wrap, y), 1e-3, 1e-4,
+            f"{where}; atol 1e-4 of each output's scale", atol_of_scale=True,
+            gaps_of=dt, record=False, phase="emission", reps=1)
+    say(f"[emission] kernels 5 and 4 agree with their twins at "
+        f"{len(EMISSION_EDGES)} edge shapes; kernel 5 gives the same bits "
+        "on a second run at each")
+
+
 def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
                        grad_bar):
     """The float32 training default on a large irregular grid: fit(loss=
@@ -1799,6 +1890,27 @@ def main():
     if stack >= 1024 or spill > 0:
         fail(f"{warp12} runs from local memory (stack {stack} B, spill "
              f"stores {spill} B)")
+    # kernels 5 and 4 at every rank: one thread per gap, each block's 128
+    # gaps sorted (5); 32 lanes a block in tiles of 3 rows (4); rank 5's
+    # adjoint must not touch local memory
+    for kname, num, query in (
+            ("k_system_adjoint_kernel", 5,
+             lib.cgt_k_system_adjoint_smem_bytes),
+            ("gap_mahal_sweep_kernel", 4, lib.cgt_gap_mahal_sweep_smem_bytes)):
+        for r in _build.RANKS:
+            # the mangled name: its length, then the name (so celerite's
+            # celerite_gap_mahal_sweep_kernel does not match)
+            rep = [v for k, v in _build.ptxas_report(r).items()
+                   if f"{len(kname)}{kname}I" in k and v[0] is not None]
+            if len(rep) != 1:
+                fail(f"{kname}<{r}>: no single entry in the compiler's report")
+            regs, stack, spill = rep[0]
+            say(f"[build] {kname}<{r}> (kernel {num}): registers {regs}, "
+                f"stack {stack} B, spill stores {spill} B, dynamic shared "
+                f"bytes per block {query(r)}")
+            if num == 5 and r == RANK and (stack or spill):
+                fail(f"{kname}<{r}> uses local memory (stack {stack} B, "
+                     f"spill stores {spill} B)")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -1898,7 +2010,9 @@ def main():
             ms = cuda_ms(lambda: kernel(*args, **kw), reps)
             # the twins take 0.03-3 s a call: three runs give their median
             plain_ms = cuda_ms(lambda: twin(*args, **kw), min(reps, 3))
-        b_ms, b_by = bound(key, args, got, g, gaps_of)
+        # an emission kernel's generator is its first argument
+        b_ms, b_by = bound(key, args, got,
+                           g if gaps_of is None else args[0], gaps_of)
         tag = "kernels" if record else phase
         say(f"[{tag}] {key}: max_abs_err={err:.3e} ({why}); "
             f"kernel {ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound "
@@ -1974,6 +2088,15 @@ def main():
         "127 dependent multiply-add steps of the back-substitution and "
         "the Takahashi walk; atol is 1e-4 of each output's scale",
         atol_of_scale=True)
+    with torch.no_grad():
+        once = expm_cuda.k_system_adjoint_cuda(*args5)
+        twice = expm_cuda.k_system_adjoint_cuda(*args5)
+        torch.cuda.synchronize()
+    if not all(bool(torch.equal(a, b)) for a, b in zip(once, twice)):
+        fail("k_system_adjoint: two runs on the main path's inputs differ")
+    say("[kernels] k_system_adjoint: the same bits on a second run")
+    del once, twice
+    run_emission_edges(dev, check_kernel, leg, expm_cuda)
     by_name = {r["name"]: r for r in rows}
 
     # ---- 4. the main path through the user entry points -------------------
@@ -2108,6 +2231,8 @@ def main():
     opt = loop.make_optimizer("adam", 1e-2)
     for r in rows:
         r["kernel"].launches = 0
+    expm_cuda.gap_mahal_sweep_cuda.launches_tiled = 0
+    expm_cuda.k_system_adjoint_cuda.launches_sorted = 0
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2123,6 +2248,15 @@ def main():
     for r in rows:
         if r["launches"] <= 0:
             fail(f"kernel {r['name']} was not launched by the train step")
+    designs = {"gap_mahal_sweep": expm_cuda.gap_mahal_sweep_cuda.launches_tiled,
+               "k_system_adjoint":
+               expm_cuda.k_system_adjoint_cuda.launches_sorted}
+    say(f"[train] launches of kernels 4 (tiled) and 5 (sorted) in the "
+        f"{TRAIN_STEPS} steps: {designs}")
+    for key, n in designs.items():
+        if n != by_name[key]["launches"]:
+            fail(f"{key}: {n} of {by_name[key]['launches']} launches in the "
+                 "train steps took the redesigned kernel")
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite training loss: {losses}")
     say(f"[train] losses {losses}; step ms {[round(t, 2) for t in step_ms]}"

@@ -1,8 +1,10 @@
 // LEG gap emission kernels: gap widths -> the PEG transition and noise
 // blocks, the chunk-major posterior-precision (K) system, and the K system
-// fused into its forward elimination.  All three share one body of math
-// (blockmath.cuh): structured Pade-7 (e, Q1), the Cholesky of Q1 with the
-// push-through precision terms, and (kernel 4) one elimination step.
+// fused into its forward elimination.  All three share one body of math:
+// structured Pade-7 (e, Q1), the Cholesky of Q1 with the push-through
+// precision terms (blockmath.cuh for kernels 2 and 3, its copy with the
+// generator in shared memory, gapsmem.cuh, for kernel 4), and (kernel 4)
+// one elimination step.
 //
 // Replaces (cyclic_gps_tpu/ops/expm_pallas.py):
 //   transition_and_noise_kernel  <- :297 transition_and_noise_pallas
@@ -15,21 +17,30 @@
 // costs ~25 small matrix products, two LU solves and a Cholesky, against 4
 // bytes of input), so none is bandwidth-bound.  transition_and_noise runs
 // one thread per gap and is bound by per-thread instruction latency and the
-// registers the Pade temporaries take (spills to local memory grow with R).
-// k_system and gap_mahal_sweep run one thread per chunk lane c, walking the
-// chunk's s gaps in order with the d_left neighbour carry (and, fused, the
-// elimination carry) in registers: with C = N/s lanes (7,813 at N = 1e6,
-// s = 128) they fill under half of the 132 SMs, so they are latency- and
-// occupancy-bound.
+// registers the Pade temporaries take.  k_system runs one thread per chunk
+// lane c, walking the chunk's s gaps in order with the d_left neighbour
+// carry in registers: with C = N/s lanes (7,813 at N = 1e6, s = 128) it
+// fills under half of the 132 SMs, so it is latency- and occupancy-bound.
+// Every gap is built where it is used, so device memory sees only dt (and
+// v) in and the outputs out; the lane axis is innermost so loads and stores
+// coalesce; the squaring loop runs each lane's own count; tn_math is
+// compiled once per rank and shared by kernels 2 and 3.
 //
-// What the simple design does about it: every gap is built where it is
-// used, so device memory sees only dt (and v) in and the outputs out --
-// the fused kernel never writes K at all; the lane axis is innermost so
-// loads and stores coalesce; the squaring loop runs each lane's own count
-// instead of a batch-wide masked maximum; and tn_math is compiled once per
-// rank and shared by the three kernels.  Splitting a chunk across threads
-// to fill the card is later work.
-#include "blockmath.cuh"
+// gap_mahal_sweep (kernel 4) first ran the same way, one thread per lane
+// doing the emission and the elimination of each of its s gaps in turn (61
+// thread blocks at N = 1e6).  Only the elimination carries state from gap to
+// gap, so it now takes the emission off that serial chain: a thread block
+// takes 32 chunk lanes and walks their gaps in tiles of K4_ROWS = 3 rows,
+// its warps specialised.  Warps 1-3 (the producers) each build one row of a
+// tile (32 gaps, one per thread) with gapsmem.cuh's copy of the emission
+// (the generator in shared memory, nothing on a stack) and park (d_left,
+// d_right, off, log|Q1|) in shared memory; warp 0 (the consumer), one
+// thread per lane, runs the previous tile's elimination steps in order
+// with the sweep state in its registers.  Two tile buffers let the two
+// overlap, with one barrier a tile.  At N = 1e6 that is 245 thread blocks
+// of 128 threads, and a chain of s elimination steps per lane instead of s
+// emissions and eliminations.
+#include "gapsmem.cuh"
 
 namespace {
 
@@ -93,12 +104,97 @@ k_system_kernel(const float* __restrict__ g, const float* __restrict__ boost_p,
   }
 }
 
-// Kernel 3 fused into the forward sweep: iteration j = -1 builds gap 0
-// (the chunk-boundary row 0, streamed OUT as k0, and the left coupling);
-// iteration j >= 0 builds gap j+1 and eliminates row j+1 in place.  K never
-// reaches device memory.
+// Kernel 3 fused into the forward sweep: gap 0 gives the chunk-boundary row
+// 0 (streamed OUT as k0) and the left coupling; gap g >= 1 gives row g,
+// eliminated in place.  K never reaches device memory.
+#define K4_LANES 32    // chunk lanes per thread block
+#define K4_ROWS 3      // gaps per lane in a tile = producer warps
+#define K4_THREADS 128  // warp 0 eliminates, warps 1-3 build the tiles
+
 template <int R>
-__global__ void __launch_bounds__(CGT_THREADS)
+struct K4 {
+  static constexpr int E = 3 * R * R + 1;  // d_left, d_right, off, log|Q1|
+  // two tiles of K4_ROWS gap records, then the consumer's d_left of the
+  // previous gap and the left coupling, per lane
+  static constexpr int DLP = 2 * K4_ROWS * E, OL = DLP + R * R,
+                       N = OL + R * R;
+  static constexpr size_t SMEM = size_t(N) * K4_LANES * 4;
+};
+
+// a lane's R x R block at element offset o of a [n][K4_LANES] area
+template <int R>
+__device__ __forceinline__ void lane_get(const float* p, int o,
+                                         float (&m)[R][R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < R; ++k) m[i][k] = p[(o + i * R + k) * K4_LANES];
+}
+
+template <int R>
+__device__ __forceinline__ void lane_put(float* p, int o,
+                                         const float (&m)[R][R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < R; ++k) p[(o + i * R + k) * K4_LANES] = m[i][k];
+}
+
+// The block's barrier between the producer warps and the consumer warp,
+// which reach it from their own loops (a named barrier over all threads).
+__device__ __forceinline__ void tile_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"r"(K4_THREADS) : "memory");
+}
+
+// The consumer: one lane's elimination steps over tile t's gaps, in order.
+template <int R>
+__device__ __forceinline__ void eliminate_tile(
+    int t, int s, int C, int c, const float* tile, float* lane,
+    const float* boost, const float* __restrict__ real,
+    const float* __restrict__ wrap, const float* __restrict__ ym,
+    float* k0_out, float* olast_out, cgt::SweepCarry<float, R>& st,
+    float& lq_sum) {
+  using K = K4<R>;
+#pragma unroll 1
+  for (int r = 0; r < K4_ROWS; ++r) {
+    const int gi = t * K4_ROWS + r;
+    if (gi >= s) break;
+    const float* rec = tile + r * K::E * K4_LANES;
+    lq_sum += rec[3 * R * R * K4_LANES];
+    const size_t ij = size_t(gi) * C + c;
+    const float re = real[ij];
+    // K row gi = I + d_left(gap gi-1) + d_right(gap gi) + boost * is_real;
+    // row 0's d_left comes from the previous chunk's last gap (wrap)
+    float k[R][R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int b = 0; b < R; ++b) {
+        const float dlp = gi == 0 ? wrap[cgt::mat_at<R>(0, i, b, C, c)]
+                                  : lane[(K::DLP + i * R + b) * K4_LANES];
+        k[i][b] = ((i == b) ? 1.f : 0.f) + dlp +
+                  rec[(R * R + i * R + b) * K4_LANES] + boost[i * R + b] * re;
+      }
+    float off[R][R];
+    lane_get<R>(rec, 2 * R * R, off);
+    if (gi == 0) {
+      cgt::store_mat<float, R>(k0_out, 0, C, c, k);
+      lane_put<R>(lane, K::OL, off);
+    } else {
+      float y_j[R], o_left[R][R];
+      cgt::load_vec<float, R>(ym, gi, C, c, y_j);
+      if (gi == 1) lane_get<R>(lane, K::OL, o_left);
+      cgt::elim_step<float, R>(gi == 1, k, off, y_j, o_left, st);
+      if (gi == s - 1) cgt::store_mat<float, R>(olast_out, 0, C, c, off);
+    }
+#pragma unroll
+    for (int e = 0; e < R * R; ++e)
+      lane[(K::DLP + e) * K4_LANES] = rec[e * K4_LANES];
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(K4_THREADS)
 gap_mahal_sweep_kernel(const float* __restrict__ g,
                        const float* __restrict__ boost_p,
                        const float* __restrict__ dt,
@@ -109,42 +205,74 @@ gap_mahal_sweep_kernel(const float* __restrict__ g,
                        float* acc00, float* accy0, float* w0l, float* wl,
                        float* dl, float* invdl, float* mh, float* ld,
                        float* lq_out, float* k0_out, float* olast_out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  Generator<R> gen;
-  cgt::load_generator<R>(g, gen);
-  float boost[R][R], d_left[R][R], o_left[R][R];
-  cgt::load_dense<float, R>(boost_p, boost);
-  cgt::SweepCarry<float, R> st;
-  float lq_sum = 0.f;
-  for (int j = -1; j < s - 1; ++j) {
-    const size_t ij = size_t(j + 1) * C + c;  // gap j+1
-    float dl_n[R][R], dr[R][R], off[R][R], k[R][R];
-    lq_sum += cgt::gap_row_terms<R>(gen, dt[ij], gv[ij], dl_n, dr, off);
-    if (j < 0) {
-      float wr[R][R];
-      cgt::load_mat<float, R>(wrap, 0, C, c, wr);
-      k_row<R>(wr, dr, boost, real[ij], k);
-      cgt::store_mat<float, R>(k0_out, 0, C, c, k);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int b = 0; b < R; ++b) o_left[i][b] = off[i][b];
-    } else {
-      float y_j[R];
-      k_row<R>(d_left, dr, boost, real[ij], k);
-      cgt::load_vec<float, R>(ym, j + 1, C, c, y_j);
-      cgt::elim_step<float, R>(j == 0, k, off, y_j, o_left, st);
-      if (j == s - 2) cgt::store_mat<float, R>(olast_out, 0, C, c, off);
+  using K = K4<R>;
+  extern __shared__ __align__(16) float cgt_smem[];
+  __shared__ gsm::GenS<R> gs;
+  __shared__ float boost[R * R];
+  const int lane = threadIdx.x % K4_LANES;
+  const int warp = threadIdx.x / K4_LANES;
+  const int c = blockIdx.x * K4_LANES + lane;
+  gsm::load_gen<R>(g, gs);
+  if (threadIdx.x < R * R) boost[threadIdx.x] = boost_p[threadIdx.x];
+  __syncthreads();
+  // tile t in buffer t % 2: [K4_ROWS][E][K4_LANES]
+  float* area = cgt_smem + lane;
+  const int ntiles = (s + K4_ROWS - 1) / K4_ROWS;
+  // step u: the producers build tile u while the consumer eliminates tile
+  // u - 1; one barrier a step
+  if (warp == 0) {
+    cgt::SweepCarry<float, R> st;
+    float lq_sum = 0.f;
+#pragma unroll 1
+    for (int u = 0; u <= ntiles; ++u) {
+      if (u > 0 && c < C)
+        eliminate_tile<R>(u - 1, s, C, c,
+                          area + ((u - 1) % 2) * K4_ROWS * K::E * K4_LANES,
+                          area, boost, real, wrap, ym, k0_out, olast_out, st,
+                          lq_sum);
+      tile_barrier();
     }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int b = 0; b < R; ++b) d_left[i][b] = dl_n[i][b];
+    if (c < C) {
+      cgt::store_sweep_state<float, R>(st, C, c, acc00, accy0, w0l, wl, dl,
+                                       invdl, mh, ld);
+      lq_out[c] = lq_sum;
+    }
+  } else {
+#pragma unroll 1
+    for (int u = 0; u <= ntiles; ++u) {
+      const int gi = u * K4_ROWS + warp - 1;
+      if (u < ntiles && gi < s && c < C) {
+        const size_t ij = size_t(gi) * C + c;
+        float d_left[R][R], d_right[R][R], off[R][R];
+        const float lq =
+            gsm::row_terms<R>(gs, dt[ij], gv[ij], d_left, d_right, off);
+        float* rec =
+            area + ((u % 2) * K4_ROWS + warp - 1) * K::E * K4_LANES;
+        lane_put<R>(rec, 0, d_left);
+        lane_put<R>(rec, R * R, d_right);
+        lane_put<R>(rec, 2 * R * R, off);
+        rec[3 * R * R * K4_LANES] = lq;
+      }
+      tile_barrier();
+    }
   }
-  cgt::store_sweep_state<float, R>(st, C, c, acc00, accy0, w0l, wl, dl, invdl,
-                                   mh, ld);
-  lq_out[c] = lq_sum;
+}
+
+template <int R>
+inline int launch_gap_sweep(const float* g, const float* boost,
+                            const float* dt, const float* gv,
+                            const float* real, const float* wrap,
+                            const float* y, int s, int C, float* const* o,
+                            cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gap_mahal_sweep_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(K4<R>::SMEM));
+  if (err != cudaSuccess) return int(err);
+  const int blocks = (C + K4_LANES - 1) / K4_LANES;
+  gap_mahal_sweep_kernel<R><<<blocks, K4_THREADS, K4<R>::SMEM, st>>>(
+      g, boost, dt, gv, real, wrap, y, s, C, o[0], o[1], o[2], o[3], o[4],
+      o[5], o[6], o[7], o[8], o[9], o[10]);
+  return int(cudaGetLastError());
 }
 
 inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
@@ -185,13 +313,19 @@ int cgt_gap_mahal_sweep_f32(const float* g, const float* boost,
                             float* invdl, float* mh, float* ld, float* lq,
                             float* k0, float* olast, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define CGT_LAUNCH(RR)                                                      \
-  gap_mahal_sweep_kernel<RR><<<blocks_for(C), CGT_THREADS, 0, st>>>(        \
-      g, boost, dt, gv, real, wrap, y, s, C, acc00, accy0, w0l, wl, dl,     \
-      invdl, mh, ld, lq, k0, olast)
+  float* const outs[11] = {acc00, accy0, w0l, wl, dl, invdl,
+                           mh, ld, lq, k0, olast};
+#define CGT_LAUNCH(RR) \
+  return launch_gap_sweep<RR>(g, boost, dt, gv, real, wrap, y, s, C, outs, st)
   CGT_RANK_SWITCH(r, CGT_LAUNCH)
 #undef CGT_LAUNCH
-  return int(cudaGetLastError());
+}
+
+// dynamic shared bytes per thread block of kernel 4's rank-r instance
+int cgt_gap_mahal_sweep_smem_bytes(int r) {
+#define CGT_LAUNCH(RR) return int(K4<RR>::SMEM)
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
 }
 
 }  // extern "C"

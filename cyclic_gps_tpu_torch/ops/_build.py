@@ -34,7 +34,7 @@ _SOURCES = ("forward_sweep.cu", "gap_emission.cu", "backward_sweep.cu",
             "celerite_sweep.cu", "celerite_filter.cu",
             "celerite_adjoint.cu", "wide_sweep.cu", "wide_backward.cu",
             "rt_solve.cu", "rt_inverse.cu")
-_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtcoop.cuh")
+_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtcoop.cuh", "gapsmem.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,6 +118,11 @@ _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_forward_sweep_warp_smem_bytes",
     "cgt_solveinv_warp_smem_bytes", "cgt_backsolve_warp_smem_bytes")})
 _SIGNATURES["cgt_celerite_sweep_smem_bytes"] = [_I]
+# the dynamic shared bytes per thread block of the fused emission sweep
+# (kernel 4) and of the emission adjoint (kernel 5) at rank r
+for _name in ("cgt_gap_mahal_sweep_smem_bytes",
+              "cgt_k_system_adjoint_smem_bytes"):
+    _SIGNATURES[_name] = [_I]
 # the runtime-d kernels of the likelihood's sweep, the solve and the
 # selected inversion (d = 9..15) take the arguments of their
 # rank-templated counterparts

@@ -56,6 +56,7 @@ _MAXSQ = 40  # cap on the per-lane squaring count
 # so it needs at most ceil(log2((2 + r) / theta_7)) rounds -- 8 for every
 # r up to ~1000 (expm_pallas.py:360-392, :886-888)
 _NSQ_VL = 8
+_ADJOINT_GAPS = 128  # gaps per thread block of the adjoint (K5_GAPS)
 
 
 def _lu_solve_k(a: Tensor, b: Tensor) -> Tensor:
@@ -549,8 +550,11 @@ def gap_mahal_sweep_cuda(g: Tensor, boost: Tensor, dt_cm: Tensor,
     right coupling (gap s-1) for the reduced system, and the valid-masked
     total log|Q1|.  float32.
 
-    CUDA tensors launch ``csrc/gap_emission.cu``
-    (``gap_mahal_sweep_cuda.launches``); CPU tensors run
+    CUDA tensors launch ``csrc/gap_emission.cu``'s tiled kernel (32
+    chunk lanes a thread block: three warps build the gaps' emission
+    terms three rows a tile while one warp eliminates the previous tile;
+    ``gap_mahal_sweep_cuda.launches`` counts the launches and
+    ``.launches_tiled`` those of that design); CPU tensors run
     `gap_mahal_sweep_plain`.
     """
     name = "gap_mahal_sweep_cuda"
@@ -582,12 +586,14 @@ def gap_mahal_sweep_cuda(g: Tensor, boost: Tensor, dt_cm: Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, name)
     gap_mahal_sweep_cuda.launches += 1
+    gap_mahal_sweep_cuda.launches_tiled += 1
     acc00, accy0, w0l, wl, dl, invdl, mh, ld, lq, k0, olast = outs
     return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
             torch.sum(lq), k0, olast)
 
 
 gap_mahal_sweep_cuda.launches = 0
+gap_mahal_sweep_cuda.launches_tiled = 0
 
 
 def k_system_adjoint_cuda(g: Tensor, dt_cm: Tensor, gv_cm: Tensor,
@@ -602,10 +608,12 @@ def k_system_adjoint_cuda(g: Tensor, dt_cm: Tensor, gv_cm: Tensor,
     forms the generator gradient c_g + sym(c_sym) and pulls c_dt through
     the gap geometry.  float32.
 
-    CUDA tensors launch ``csrc/gap_adjoint.cu``
-    (``k_system_adjoint_cuda.launches``); the kernel writes one partial
-    sum of c_g and c_sym per thread block, summed here (no atomics, so
-    the result is deterministic).  CPU tensors run
+    CUDA tensors launch ``csrc/gap_adjoint.cu`` (one thread per gap, each
+    thread block's 128 gaps sorted by branch and squaring rounds first;
+    ``k_system_adjoint_cuda.launches`` counts the launches and
+    ``.launches_sorted`` those of that design); the kernel writes one
+    partial sum of c_g and c_sym per thread block, summed here (no
+    atomics, so the result is deterministic).  CPU tensors run
     `k_system_adjoint_plain`.
     """
     name = "k_system_adjoint_cuda"
@@ -621,7 +629,7 @@ def k_system_adjoint_cuda(g: Tensor, dt_cm: Tensor, gv_cm: Tensor,
     for key, t in zip(keys[2:], args[2:]):
         _build.check_shape(name, key, t,
                            (s, c) if t.dim() == 2 else (s, r, r, c))
-    nblocks = -(-(s * c) // _build.THREADS)
+    nblocks = -(-(s * c) // _ADJOINT_GAPS)
     c_dt = dt_cm.new_empty((s, c))
     c_g = dt_cm.new_empty((nblocks, r, r))
     c_sym = dt_cm.new_empty((nblocks, r, r))
@@ -633,10 +641,12 @@ def k_system_adjoint_cuda(g: Tensor, dt_cm: Tensor, gv_cm: Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, name)
     k_system_adjoint_cuda.launches += 1
+    k_system_adjoint_cuda.launches_sorted += 1
     return torch.sum(c_g, dim=0), torch.sum(c_sym, dim=0), c_dt
 
 
 k_system_adjoint_cuda.launches = 0
+k_system_adjoint_cuda.launches_sorted = 0
 
 
 class _TnDiff(torch.autograd.Function):
