@@ -33,7 +33,12 @@ Phases, one line of output each (or more):
               thread block's gaps sorted by branch and rounds; the fused
               emission sweep in tiles of 3 rows, producer and consumer
               warps) at every rank with their shared bytes, failing if
-              kernel 5's rank-5 instance uses any stack or spill.
+              kernel 5's rank-5 instance uses any stack or spill; kernel 3
+              (one thread per gap, tiles of 32 lanes by 7 rows and a halo
+              row) at every rank and kernel 7's split design (a chain
+              warp and three output warps) at every rank and dtype, with
+              their shared bytes, failing if kernel 7's float32 rank-5
+              instance uses any stack or spill.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -41,10 +46,14 @@ Phases, one line of output each (or more):
               card's least time for the same work (its bound).  The three
               backward kernels get the inputs the two-kernel route's
               backward hands them.  Kernel 5 gives the same bits on a
-              second run; then kernels 5 and 4 at their edge shapes
+              second run; then kernels 5, 4 and 3 at their edge shapes
               ([emission]: ranks 1, 5 and 8; gaps of 0-9 squaring rounds
               and both branches in every warp, padded gaps; C = 35 and 45
-              lanes, s = 6 and 7 rows) against their twins.
+              lanes, s = 6 and 7 rows) against their twins, 5 and 3 also
+              giving the same bits on a second run; and kernel 7 at its
+              edge shapes ([walk]: ranks 1, 5 and 8, s = 2, 3 and 7, C =
+              1, 35 and 45, float32 and float64, the same bits on a second
+              run, every launch on the split design).
   4. path     the likelihood through the user entry points with
               backend="auto" (the kernels), launch counts reset just
               before and read just after, then each value against
@@ -55,7 +64,7 @@ Phases, one line of output each (or more):
               case against autograd through the dense oracle.
   6. train    three Adam train steps on the fused N = 1e6 route, launch
               counts reset just before and read just after, every launch
-              of kernels 4 and 5 on their redesigned kernels; then one
+              of kernels 4, 5, 3 and 7 on their redesigned kernels; then one
               step under torch.profiler; then the float32 default on this
               grid, the residual loss: log_likelihood_residual's value and
               gradient with backend="auto" against "torch", and two steps
@@ -66,7 +75,8 @@ Phases, one line of output each (or more):
               at N = 1e6; the solve of bench.py's system (N = 1e6, d = 5)
               with backend="auto" and "torch"; the posterior path
               (float32 irregular with launch counts reset just before and
-              read just after, float32 regular, float64 method="auto")
+              read just after, every launch of kernel 3 tiled, float32
+              regular, float64 method="auto")
               and make_predictions (P = 1e6 targets, and a dense P = 4096
               grid on N = 1024), each against backend="torch"; a float64
               N = 48 predictive against the dense GP oracle; one profiled
@@ -1582,9 +1592,10 @@ def run_sweep_edges(dev, check_kernel, celerite, celerite_cuda, ts_c, xs_c):
           f"N {N_BIG}, the bench grid", REPS)
 
 
-# kernels 4 and 5 at their edge shapes: (rank, s, C); C = 35 and 45 are no
-# multiple of kernel 4's 32 lanes a block, s = 7 none of its 3-row tile;
-# 315 gaps fill two of kernel 5's 128-gap blocks and part of a third
+# kernels 3, 4 and 5 at their edge shapes: (rank, s, C); C = 35 and 45 are
+# no multiple of kernels 3's and 4's 32 lanes a block, s = 7 none of
+# kernel 4's 3-row tile, s = 6 none of kernel 3's 7-row one (s = 7 fills
+# it); 315 gaps fill two of kernel 5's 128-gap blocks and part of a third
 EMISSION_EDGES = ((1, 6, 35), (5, 6, 35), (5, 7, 45), (8, 6, 35), (8, 7, 45))
 EMISSION_ROUNDS = (0, 1, 2, 3, 5, 7, 9)  # squaring rounds of the edge gaps
 
@@ -1613,11 +1624,12 @@ def mixed_gaps(expm_cuda, g, s, c, seed, dev):
 
 def run_emission_edges(dev, check_kernel, leg, expm_cuda):
     """Kernels 5 (the emission adjoint, each block's gaps sorted by branch
-    and rounds, rounds past the 4 stored ones recomputed) and 4 (the fused
-    emission sweep, 32 lanes a block in tiles of 3 rows) against their
-    twins on `mixed_gaps` at EMISSION_EDGES, with seeded cotangents (5)
-    and a seeded point mask and right-hand side (4); kernel 5 also gives
-    the same bits on a second run."""
+    and rounds, rounds past the 4 stored ones recomputed), 4 (the fused
+    emission sweep, 32 lanes a block in tiles of 3 rows) and 3 (the K
+    system, one thread per gap in tiles of 32 lanes by 7 rows and a halo
+    row) against their twins on `mixed_gaps` at EMISSION_EDGES, with
+    seeded cotangents (5) and a seeded point mask (3, 4) and right-hand
+    side (4); kernels 5 and 3 also give the same bits on a second run."""
     import numpy as np
 
     for r, s, c in EMISSION_EDGES:
@@ -1659,9 +1671,82 @@ def run_emission_edges(dev, check_kernel, leg, expm_cuda):
             (g, boost, dt, gv, real, wrap, y), 1e-3, 1e-4,
             f"{where}; atol 1e-4 of each output's scale", atol_of_scale=True,
             gaps_of=dt, record=False, phase="emission", reps=1)
-    say(f"[emission] kernels 5 and 4 agree with their twins at "
-        f"{len(EMISSION_EDGES)} edge shapes; kernel 5 gives the same bits "
-        "on a second run at each")
+        args3 = (g, boost, dt, gv, real, wrap)
+        check_kernel(
+            "k_system", "", "", expm_cuda.k_system_cuda,
+            expm_cuda.k_system_plain, args3, 1e-3, 1e-4,
+            f"{where}; atol 1e-4 of each output's scale", atol_of_scale=True,
+            gaps_of=dt, record=False, phase="emission", reps=1)
+        with torch.no_grad():
+            once = expm_cuda.k_system_cuda(*args3)
+            twice = expm_cuda.k_system_cuda(*args3)
+            torch.cuda.synchronize()
+        if not all(bool(torch.equal(a, b)) for a, b in zip(once, twice)):
+            fail(f"k_system at rank {r}: two runs differ")
+    say(f"[emission] kernels 5, 4 and 3 agree with their twins at "
+        f"{len(EMISSION_EDGES)} edge shapes; kernels 5 and 3 give the same "
+        "bits on a second run at each")
+
+
+# kernel 7 at ranks 1-8 (32 chunk lanes a block, or 16 / 8 where shared
+# memory is short; a chain warp and three output warps, tiles of 3 rows):
+# s = 2 is the seed row alone, s = 3 the seed and one row of the chain, s =
+# 7 two tiles (a tile boundary inside the chain, then a ragged tile); C = 1
+# a lone lane, 35 and 45 a ragged second block
+WALK_EDGES = tuple((r, s, c) for r in (1, 5, 8) for s in (2, 3, 7)
+                   for c in (1, 35, 45))
+
+
+def run_walk_edges(dev, check_kernel, sweep_cuda, pt):
+    """Kernel 7's split design against its twin at WALK_EDGES, float32
+    and float64, on kernel 6's four hat stacks (its twin, pivot jitter
+    1e-3) for a block-tridiagonal system diagonally dominant at every
+    block size (q q^T / d + 4 I, off-diagonal blocks randn / 2d, seeded),
+    with hat_W1, x_b, x_b_next and p00..p11 drawn from a numpy seed (scale
+    0.3); each gives the same bits on a second run, and every launch
+    takes the split design."""
+    import numpy as np
+
+    k7 = sweep_cuda.backward_solve_takahashi_cuda
+    n0, n_split = k7.launches, k7.launches_split
+    for r, s, c in WALK_EDGES:
+        rng = np.random.RandomState(100 * r + 10 * s + c)
+        n = s * c
+        q = rng.randn(n, r, r)
+        system = (q @ q.transpose(0, 2, 1) / r + 4 * np.eye(r),
+                  rng.randn(n - 1, r, r) / (2 * r), rng.randn(n, r))
+        extra = [rng.randn(*shape) * 0.3 for shape in
+                 [(r, r, c), (r, c), (r, c)] + [(r, r, c)] * 4]
+        for dtype, (rtol, atol) in ((torch.float32, (1e-3, 1e-4)),
+                                    (torch.float64, (1e-9, 1e-10))):
+            R_cm, O_cm, y_cm, _ = pt._chunk_layout(
+                *(torch.as_tensor(a, dtype=dtype, device=dev)
+                  for a in system), s)
+            with torch.no_grad():
+                stacks = sweep_cuda.forward_sweep_solveinv_plain(
+                    R_cm.contiguous(), O_cm.contiguous(), y_cm.contiguous(),
+                    1e-3)[8:12]
+            args = [t.contiguous() for t in stacks] + [
+                torch.as_tensor(a, dtype=dtype, device=dev) for a in extra]
+            check_kernel(
+                "backward_solve_takahashi", "", "", k7,
+                sweep_cuda.backward_solve_takahashi_plain, args, rtol, atol,
+                f"edge: rank {r}, s = {s}, C = {c}, {dtype}; atol {atol:g} "
+                "of each output's scale", atol_of_scale=True, record=False,
+                phase="walk", reps=1)
+            with torch.no_grad():
+                once = k7(*args)
+                twice = k7(*args)
+                torch.cuda.synchronize()
+            if not all(bool(torch.equal(a, b)) for a, b in zip(once, twice)):
+                fail(f"backward_solve_takahashi at rank {r}, s = {s}, C = "
+                     f"{c}, {dtype}: two runs differ")
+    if k7.launches_split - n_split != k7.launches - n0:
+        fail("backward_solve_takahashi: a launch at ranks 1-8 did not take "
+             "the split design")
+    say(f"[walk] kernel 7 (split design) agrees with its twin at "
+        f"{len(WALK_EDGES)} edge shapes, float32 and float64, and gives the "
+        "same bits on a second run at each")
 
 
 def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
@@ -1911,6 +1996,36 @@ def main():
             if num == 5 and r == RANK and (stack or spill):
                 fail(f"{kname}<{r}> uses local memory (stack {stack} B, "
                      f"spill stores {spill} B)")
+    # kernel 3 (one thread per gap, 32 lanes by 7 rows and a halo row a
+    # block) at every rank, and kernel 7's split design (a chain warp and
+    # three output warps on 32, 16 or 8 lanes) at every rank and dtype; the
+    # split design's float32 rank-5 instance must not touch local memory
+    for r in _build.RANKS:
+        kname = "k_system_tiled_kernel"
+        rep = [v for k, v in _build.ptxas_report(r).items()
+               if f"{len(kname)}{kname}I" in k and v[0] is not None]
+        if len(rep) != 1:
+            fail(f"{kname}<{r}>: no single entry in the compiler's report")
+        regs, stack, spill = rep[0]
+        say(f"[build] {kname}<{r}> (kernel 3): registers {regs}, stack "
+            f"{stack} B, spill stores {spill} B, dynamic shared bytes per "
+            f"block {lib.cgt_k_system_smem_bytes(r)}")
+    for r in _build.RANKS:
+        kname = "backsolve_split_kernel"
+        for code, f64 in (("f", 0), ("d", 1)):
+            rep = [v for k, v in _build.ptxas_report(r).items()
+                   if f"{kname}I{code}Li{r}E" in k and v[0] is not None]
+            if len(rep) != 1:
+                fail(f"{kname}<{code}, {r}>: no single entry in the "
+                     "compiler's report")
+            regs, stack, spill = rep[0]
+            say(f"[build] {kname}<{'double' if f64 else 'float'}, {r}> "
+                f"(kernel 7): registers {regs}, stack {stack} B, spill "
+                f"stores {spill} B, dynamic shared bytes per block "
+                f"{lib.cgt_backsolve_split_smem_bytes(r, f64)}")
+            if r == RANK and not f64 and (stack or spill):
+                fail(f"{kname}<float, {r}> uses local memory (stack {stack} "
+                     f"B, spill stores {spill} B)")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -2097,6 +2212,7 @@ def main():
     say("[kernels] k_system_adjoint: the same bits on a second run")
     del once, twice
     run_emission_edges(dev, check_kernel, leg, expm_cuda)
+    run_walk_edges(dev, check_kernel, sweep_cuda, pt)
     by_name = {r["name"]: r for r in rows}
 
     # ---- 4. the main path through the user entry points -------------------
@@ -2233,6 +2349,8 @@ def main():
         r["kernel"].launches = 0
     expm_cuda.gap_mahal_sweep_cuda.launches_tiled = 0
     expm_cuda.k_system_adjoint_cuda.launches_sorted = 0
+    expm_cuda.k_system_cuda.launches_tiled = 0
+    sweep_cuda.backward_solve_takahashi_cuda.launches_split = 0
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2250,9 +2368,12 @@ def main():
             fail(f"kernel {r['name']} was not launched by the train step")
     designs = {"gap_mahal_sweep": expm_cuda.gap_mahal_sweep_cuda.launches_tiled,
                "k_system_adjoint":
-               expm_cuda.k_system_adjoint_cuda.launches_sorted}
-    say(f"[train] launches of kernels 4 (tiled) and 5 (sorted) in the "
-        f"{TRAIN_STEPS} steps: {designs}")
+               expm_cuda.k_system_adjoint_cuda.launches_sorted,
+               "k_system": expm_cuda.k_system_cuda.launches_tiled,
+               "backward_solve_takahashi":
+               sweep_cuda.backward_solve_takahashi_cuda.launches_split}
+    say(f"[train] launches of kernels 4 (tiled), 5 (sorted), 3 (tiled) and "
+        f"7 (split) in the {TRAIN_STEPS} steps: {designs}")
     for key, n in designs.items():
         if n != by_name[key]["launches"]:
             fail(f"{key}: {n} of {by_name[key]['launches']} launches in the "
@@ -2359,13 +2480,18 @@ def main():
     # the posterior path: counts reset just before and read just after
     for r in rows:
         r["kernel"].launches = 0
+    expm_cuda.k_system_cuda.launches_tiled = 0
     with torch.no_grad():
         post_auto = leg.insample_posterior(params, ts, xs,
                                            method="precision")
         torch.cuda.synchronize()
     post_launches = {r["name"]: r["kernel"].launches for r in rows}
     say(f"[posterior] launches in one insample_posterior(method="
-        f"'precision') call, N={N_BIG} irregular float32: {post_launches}")
+        f"'precision') call, N={N_BIG} irregular float32: {post_launches}; "
+        f"kernel 3 tiled {expm_cuda.k_system_cuda.launches_tiled}")
+    if expm_cuda.k_system_cuda.launches_tiled != post_launches["k_system"]:
+        fail("k_system: a launch in the posterior call did not take the "
+             "tiled design")
     for key in ("transition_and_noise", "k_system") + post_kernels:
         if post_launches[key] <= 0:
             fail(f"kernel {key} was not launched by the posterior path")

@@ -6,7 +6,7 @@
 //   forward_sweep_solveinv_kernel,  <- :772 forward_sweep_solveinv_pallas
 //   solveinv_warp_kernel               (kernel body _sweep_solveinv_kernel,
 //                                      :699)
-//   backward_solve_takahashi_kernel, <- :918 backward_solve_takahashi_pallas
+//   backsolve_split_kernel,          <- :918 backward_solve_takahashi_pallas
 //   backsolve_warp_kernel               (_backsolve_takahashi_kernel, :845)
 //
 // What bounds them on the H100: both are streaming passes over stacks of
@@ -15,17 +15,21 @@
 // reads 2 R^2 + R floats and writes 3 R^2 + R; the walk reads the same
 // 3 R^2 + R and writes 2 R^2 + R -- so in bytes they sit at about the
 // card's memory rate for ~540 MB each at rank 5, N = 1e6 (~0.16 ms).  But
-// with C = N/s lanes (7,813 at s = 128: ~61 blocks of 128 for 132 SMs)
-// each lane runs a dependent chain of ~15 R x R products per row, so like
-// the forward sweep they are latency- and occupancy-bound, not
-// bandwidth-bound.
+// with C = N/s lanes (7,813 at s = 128) each lane runs a dependent chain
+// of R x R products per row, so they are latency- and occupancy-bound,
+// not bandwidth-bound.
 //
-// Two designs, routed by block size in the launchers:
-// * R = 1..8: ONE THREAD PER CHUNK LANE.  Everything carried between rows
-//   (the elimination state; phi, u0, u1 and x_{j+1} of the walk) stays in
-//   registers, each stack row is read or written exactly once, and the lane
-//   axis is innermost so every access coalesces.  The descending walk
-//   indexes its rows backwards with plain strides -- no reversed copy.
+// Three designs, routed by block size in the launchers:
+// * The sweep at R = 1..8: ONE THREAD PER CHUNK LANE (~61 blocks of 128
+//   at N = 1e6).  The elimination state stays in registers, each stack row
+//   is read or written exactly once, and the lane axis is innermost so
+//   every access coalesces.
+// * The walk at R = 1..8: THE CHAIN SPLIT FROM THE OUTPUTS
+//   (backsolve_split_kernel, below): 32 lanes a block (245 blocks at
+//   N = 1e6), one warp running the rows' serial chain (x, phi, u0, u1)
+//   while three warps form the selected-inverse blocks of the rows before
+//   it from what the chain parks in shared memory.  It indexes its rows
+//   backwards with plain strides -- no reversed copy.
 // * R = 16 (the celerite family's boundary chain at nblocks = 8: C = 245
 //   lanes of s = 32 at N = 1e6, then 8): ONE WARP PER CHUNK LANE on
 //   rtcoop.cuh, as the kernels of block sizes 9-15.  Held per thread, a
@@ -39,7 +43,7 @@
 //   by Sweep::hats, the hats from di = D^{-1} as wide_sweep.cu's
 //   collecting sweep (kernel 21) builds them; the walk is wide_backward.cu's
 //   recursion (kernel 22) on chunk-major tiles.  Both sum as the thread
-//   kernels do, so the two designs agree to rounding.
+//   kernels do, so the designs agree to rounding.
 #include "blockmath.cuh"
 #include "rtcoop.cuh"
 
@@ -93,45 +97,262 @@ forward_sweep_solveinv_kernel(const T* __restrict__ Rm,
                                mh, ld);
 }
 
+// Kernel 7 at ranks 1-8: the descending pass with the outputs taken off
+// its serial chain.  Of what a row carries to the next only phi, u0, u1
+// and x depend on the row before; a0, a1, Sigma_jj and Sigma_{j+1,j} read
+// the chain but feed nothing back into it.  So a thread block takes 32
+// chunk lanes (K7::LANES) and walks their rows in tiles of K7_ROWS = 3,
+// its warps specialised: warp 0 (the chain), one thread per lane, runs
+// the rows of tile u in descending order with phi, u0, u1 and x in its
+// registers (x_j, and per row four products: hat_C phi, (hat_C phi)
+// hat_C^T, hat_C u0 and hat_C u1; nine stay with the outputs), stores
+// x_j and parks each row's (phi_j, u0_j, u1_j) in shared memory;
+// warps 1-3 (the outputs) each take one row of tile u - 1 and form
+//   a0, a1        = Sigma_bb U_j^T (p00..p11, read from device memory)
+//   Sigma_jj      = phi_j + u0_j a0 + u1_j a1
+//   Sigma_{j+1,j} = -phi_{j+1} hat_C_j^T + u0_{j+1} a0 + u1_{j+1} a1
+// from the parked states of rows j and j + 1.  Two tile buffers let the
+// two overlap, with one named barrier a tile.  Every sum is the
+// thread-per-lane kernel's, in its order.
+#define K7_ROWS 3       // rows in a tile = output warps
+#define K7_THREADS 128  // warp 0 runs the chain, warps 1-3 the outputs
+#define K7_STAGES 3     // rows of the chain's inputs in shared memory
+
+// A thread block's shared memory, lane innermost: two tile buffers of
+// K7_ROWS + 1 slots of (phi, u0, u1) -- slot 0 the state the tile starts
+// from (its row j + 1 is the previous tile's last row), slot i + 1 the
+// state after the tile's row i -- then a ring of K7_STAGES rows of the
+// chain's inputs (hat_W0, hat_C, pinv, hat_w), copied in asynchronously
+// two rows ahead of the chain.  32 lanes a block, or 16 or 8 where 32
+// would not fit the 227 KB of shared memory a block may take.
 template <typename T, int R>
-__device__ __forceinline__ void add_(T (&a)[R][R], const T (&b)[R][R]) {
+struct K7 {
+  static constexpr int E = 3 * R * R;            // phi, u0, u1 of one row
+  static constexpr int BUF = (K7_ROWS + 1) * E;  // one tile buffer
+  static constexpr int IN = 3 * R * R + R;       // one row's inputs
+  static constexpr int N = 2 * BUF + K7_STAGES * IN;  // per lane
+  static constexpr int LANES = size_t(N) * 32 * sizeof(T) <= 232448   ? 32
+                               : size_t(N) * 16 * sizeof(T) <= 232448 ? 16
+                                                                      : 8;
+  static constexpr size_t SMEM = size_t(N) * LANES * sizeof(T);
+};
+
+// a lane's R x R block at element offset o of a [n][L] area
+template <typename T, int R, int L>
+__device__ __forceinline__ void park_get(const T* p, int o, T (&m)[R][R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int k = 0; k < R; ++k) a[i][k] += b[i][k];
+    for (int k = 0; k < R; ++k) m[i][k] = p[(o + i * R + k) * L];
 }
 
-// a0 = p00 u0^T + p01 u1^T,  a1 = p10 u0^T + p11 u1^T  (Sigma_bb U^T)
-template <typename T, int R>
-__device__ __forceinline__ void sig_ut(const T (&p00)[R][R],
-                                       const T (&p01)[R][R],
-                                       const T (&p10)[R][R],
-                                       const T (&p11)[R][R],
-                                       const T (&u0)[R][R],
-                                       const T (&u1)[R][R], T (&a0)[R][R],
-                                       T (&a1)[R][R]) {
-  T t[R][R];
-  cgt::mm_tb<T, R>(p00, u0, a0);
-  cgt::mm_tb<T, R>(p01, u1, t);
-  add_<T, R>(a0, t);
-  cgt::mm_tb<T, R>(p10, u0, a1);
-  cgt::mm_tb<T, R>(p11, u1, t);
-  add_<T, R>(a1, t);
+template <typename T, int R, int L>
+__device__ __forceinline__ void park_put(T* p, int o, const T (&m)[R][R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < R; ++k) p[(o + i * R + k) * L] = m[i][k];
 }
 
-// One descending pass per chunk lane over stack rows s-2 .. 0 (steps s-1 ..
-// 1).  Row s-2 is the Takahashi seed (phi = pinv, u0 = hat_w0, u1 = hat_w1)
-// and the last interior row of the solve (it carries the W1 term); every
-// later row is
-//   x_j     = hat_w_j - hat_W0_j x_b - hat_C_j x_{j+1}
-//   phi_off = -phi_{j+1} hat_C_j^T
-//   phi_j   = pinv_j + hat_C_j phi_{j+1} hat_C_j^T
-//   u0_j    = hat_W0_j - hat_C_j u0_{j+1},   u1_j = -hat_C_j u1_{j+1}
-//   Sigma_jj      = phi_j + u0_j a0_j + u1_j a1_j
-//   Sigma_{j+1,j} = phi_off + u0_{j+1} a0_j + u1_{j+1} a1_j
+// The block's barrier between the chain warp and the output warps, which
+// reach it from their own loops (a named barrier over all threads).
+__device__ __forceinline__ void k7_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"r"(K7_THREADS) : "memory");
+}
+
+// One element copied from device to shared memory without passing
+// through registers (cp.async); a group of them is committed, and waited
+// for by the thread that issued it.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   unsigned(__cvta_generic_to_shared(dst))),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+
+__device__ __forceinline__ void stage_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most K7_STAGES - 1 groups of this thread are in flight
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(K7_STAGES - 1) : "memory");
+}
+
+// Start copying row t's chain inputs into a ring slot (one group; an
+// empty group past the last row keeps the count of groups per row).
 template <typename T, int R>
-__global__ void __launch_bounds__(CGT_THREADS)
-backward_solve_takahashi_kernel(
+__device__ __forceinline__ void stage_row(int t, int C, int c, T* slot,
+                                          const T* __restrict__ hc,
+                                          const T* __restrict__ hw0,
+                                          const T* __restrict__ hw,
+                                          const T* __restrict__ pinv) {
+  constexpr int L = K7<T, R>::LANES;
+  if (t >= 0) {
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < R; ++b) {
+        const size_t g = cgt::mat_at<R>(t, a, b, C, c);
+        stage(slot + (a * R + b) * L, hw0 + g);
+        stage(slot + (R * R + a * R + b) * L, hc + g);
+        stage(slot + (2 * R * R + a * R + b) * L, pinv + g);
+      }
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+      stage(slot + (3 * R * R + a) * L, hw + cgt::vec_at<R>(t, a, C, c));
+  }
+  stage_commit();
+}
+
+// The chain: one lane's rows of tile u, descending.  Row s-2 is the
+// Takahashi seed (phi = pinv, u0 = hat_W0, u1 = hat_W1) and the last
+// interior row of the solve (it carries the W1 term); every later row is
+//   x_j  = hat_w_j - hat_W0_j x_b - hat_C_j x_{j+1}
+//   phi_j = pinv_j + hat_C_j phi_{j+1} hat_C_j^T
+//   u0_j = hat_W0_j - hat_C_j u0_{j+1},   u1_j = -hat_C_j u1_{j+1}
+// Row q of the chain (t = s-2-q) reads its inputs from ring slot
+// q % K7_STAGES and first starts the copy of row q + K7_STAGES - 1.
+template <typename T, int R>
+__device__ __forceinline__ void chain_tile(
+    int u, int s, int C, int c, T* buf, T* ring, const T* __restrict__ hc,
+    const T* __restrict__ hw0, const T* __restrict__ hw,
+    const T* __restrict__ pinv, const T* __restrict__ hw1_p,
+    const T* __restrict__ xbn_p, const T (&xb)[R], T (&phi)[R][R],
+    T (&u0)[R][R], T (&u1)[R][R], T (&x)[R], T* x_out) {
+  using K = K7<T, R>;
+  constexpr int L = K::LANES;
+  if (u > 0) {
+    park_put<T, R, L>(buf, 0, phi);
+    park_put<T, R, L>(buf, R * R, u0);
+    park_put<T, R, L>(buf, 2 * R * R, u1);
+  }
+#pragma unroll 1
+  for (int i = 0; i < K7_ROWS; ++i) {
+    const int q = u * K7_ROWS + i;
+    const int t = s - 2 - q;
+    if (t < 0) break;
+    stage_row<T, R>(t - (K7_STAGES - 1), C, c,
+                    ring + ((q + K7_STAGES - 1) % K7_STAGES) * K::IN * L, hc,
+                    hw0, hw, pinv);
+    stage_wait();
+    const T* in = ring + (q % K7_STAGES) * K::IN * L;
+    T hw0_j[R][R], common[R], tv[R];
+    park_get<T, R, L>(in, 0, hw0_j);
+#pragma unroll
+    for (int a = 0; a < R; ++a) common[a] = in[(3 * R * R + a) * L];
+    cgt::mv<T, R>(hw0_j, xb, tv);
+#pragma unroll
+    for (int a = 0; a < R; ++a) common[a] -= tv[a];
+    if (t == s - 2) {
+      T xbn[R];
+      cgt::load_mat<T, R>(hw1_p, 0, C, c, u1);
+      cgt::load_vec<T, R>(xbn_p, 0, C, c, xbn);
+      cgt::mv<T, R>(u1, xbn, tv);
+#pragma unroll
+      for (int a = 0; a < R; ++a) x[a] = common[a] - tv[a];
+      park_get<T, R, L>(in, 2 * R * R, phi);
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+#pragma unroll
+        for (int b = 0; b < R; ++b) u0[a][b] = hw0_j[a][b];
+    } else {
+      T hc_j[R][R], tm[R][R];
+      park_get<T, R, L>(in, R * R, hc_j);
+      cgt::mv<T, R>(hc_j, x, tv);
+#pragma unroll
+      for (int a = 0; a < R; ++a) x[a] = common[a] - tv[a];
+      cgt::mm<T, R>(hc_j, phi, tm);
+      cgt::mm_tb<T, R>(tm, hc_j, phi);
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+#pragma unroll
+        for (int b = 0; b < R; ++b)
+          phi[a][b] += in[(2 * R * R + a * R + b) * L];
+      cgt::mm<T, R>(hc_j, u0, tm);
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+#pragma unroll
+        for (int b = 0; b < R; ++b) u0[a][b] = hw0_j[a][b] - tm[a][b];
+      cgt::mm<T, R>(hc_j, u1, tm);
+#pragma unroll
+      for (int a = 0; a < R; ++a)
+#pragma unroll
+        for (int b = 0; b < R; ++b) u1[a][b] = -tm[a][b];
+    }
+    cgt::store_vec<T, R>(x_out, t, C, c, x);
+    park_put<T, R, L>(buf, (i + 1) * K::E, phi);
+    park_put<T, R, L>(buf, (i + 1) * K::E + R * R, u0);
+    park_put<T, R, L>(buf, (i + 1) * K::E + 2 * R * R, u1);
+  }
+}
+
+// out = a b^T + c d^T, the two products summed as sig_ut sums them
+template <typename T, int R>
+__device__ __forceinline__ void mm_tb2(const T* __restrict__ a_p,
+                                       const T* __restrict__ c_p, int C,
+                                       int c, const T (&b)[R][R],
+                                       const T (&d)[R][R], T (&out)[R][R]) {
+  T m[R][R], t[R][R];
+  cgt::load_mat<T, R>(a_p, 0, C, c, m);
+  cgt::mm_tb<T, R>(m, b, out);
+  cgt::load_mat<T, R>(c_p, 0, C, c, m);
+  cgt::mm_tb<T, R>(m, d, t);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < R; ++k) out[i][k] += t[i][k];
+}
+
+// An output warp: row t's Sigma_jj and Sigma_{j+1,j} from the states
+// parked after it (cur) and after row t + 1 (prev; not read at the seed
+// row, whose Sigma_{j+1,j} is -a1).
+template <typename T, int R>
+__device__ __forceinline__ void output_row(
+    int t, int s, int C, int c, const T* cur, const T* prev,
+    const T* __restrict__ hc, const T* __restrict__ p00_p,
+    const T* __restrict__ p01_p, const T* __restrict__ p10_p,
+    const T* __restrict__ p11_p, T* diag_out, T* off_out) {
+  constexpr int L = K7<T, R>::LANES;
+  T u0[R][R], u1[R][R], a0[R][R], a1[R][R], m[R][R], tm[R][R];
+  park_get<T, R, L>(cur, R * R, u0);
+  park_get<T, R, L>(cur, 2 * R * R, u1);
+  mm_tb2<T, R>(p00_p, p01_p, C, c, u0, u1, a0);  // Sigma_bb U^T
+  mm_tb2<T, R>(p10_p, p11_p, C, c, u0, u1, a1);
+  cgt::mm<T, R>(u0, a0, m);
+  cgt::mm<T, R>(u1, a1, tm);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < R; ++k) m[i][k] = cur[(i * R + k) * L] + m[i][k] +
+                                          tm[i][k];
+  cgt::store_mat<T, R>(diag_out, t, C, c, m);
+  if (t == s - 2) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int k = 0; k < R; ++k) m[i][k] = -a1[i][k];
+  } else {
+    T hc_j[R][R];
+    cgt::load_mat<T, R>(hc, t, C, c, hc_j);
+    park_get<T, R, L>(prev, 0, m);  // phi_{j+1}
+    cgt::mm_tb<T, R>(m, hc_j, tm);  // -phi_off
+    park_get<T, R, L>(prev, R * R, u0);
+    park_get<T, R, L>(prev, 2 * R * R, u1);
+    cgt::mm<T, R>(u0, a0, m);
+    cgt::mm<T, R>(u1, a1, hc_j);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int k = 0; k < R; ++k) m[i][k] = -tm[i][k] + m[i][k] + hc_j[i][k];
+  }
+  cgt::store_mat<T, R>(off_out, t, C, c, m);
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(K7_THREADS)
+backsolve_split_kernel(
     const T* __restrict__ hc, const T* __restrict__ hw0,
     const T* __restrict__ hw, const T* __restrict__ pinv,
     const T* __restrict__ hw1_p, const T* __restrict__ xb_p,
@@ -139,96 +360,53 @@ backward_solve_takahashi_kernel(
     const T* __restrict__ p01_p, const T* __restrict__ p10_p,
     const T* __restrict__ p11_p, int s, int C, T* x_out, T* diag_out,
     T* off_out, T* u0f, T* u1f) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  T p00[R][R], p01[R][R], p10[R][R], p11[R][R];
-  cgt::load_mat<T, R>(p00_p, 0, C, c, p00);
-  cgt::load_mat<T, R>(p01_p, 0, C, c, p01);
-  cgt::load_mat<T, R>(p10_p, 0, C, c, p10);
-  cgt::load_mat<T, R>(p11_p, 0, C, c, p11);
-  T xb[R];
-  cgt::load_vec<T, R>(xb_p, 0, C, c, xb);
-  T phi[R][R], u0[R][R], u1[R][R], x[R];
-  for (int t = s - 2; t >= 0; --t) {
-    T hc_j[R][R], hw0_j[R][R], pinv_j[R][R], common[R], tv[R];
-    cgt::load_mat<T, R>(hc, t, C, c, hc_j);
-    cgt::load_mat<T, R>(hw0, t, C, c, hw0_j);
-    cgt::load_mat<T, R>(pinv, t, C, c, pinv_j);
-    cgt::load_vec<T, R>(hw, t, C, c, common);
-    cgt::mv<T, R>(hw0_j, xb, tv);
+  using K = K7<T, R>;
+  constexpr int L = K::LANES;
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int c = blockIdx.x * L + lane;
+  const bool live = lane < L && c < C;
+  T* area = reinterpret_cast<T*>(cgt_smem) + lane;
+  const int ntiles = (s + 1) / K7_ROWS;  // s - 1 rows
+  // step u: the chain runs tile u while the outputs form tile u - 1; one
+  // barrier a step
+  if (warp == 0) {
+    T xb[R], x[R], phi[R][R], u0[R][R], u1[R][R];
+    T* ring = area + 2 * K::BUF * L;
+    if (live) {
+      cgt::load_vec<T, R>(xb_p, 0, C, c, xb);
 #pragma unroll
-    for (int i = 0; i < R; ++i) common[i] -= tv[i];
-    T a0[R][R], a1[R][R], dg[R][R], of[R][R], tm[R][R];
-    if (t == s - 2) {
-      T hw1[R][R], xbn[R];
-      cgt::load_mat<T, R>(hw1_p, 0, C, c, hw1);
-      cgt::load_vec<T, R>(xbn_p, 0, C, c, xbn);
-      cgt::mv<T, R>(hw1, xbn, tv);
-#pragma unroll
-      for (int i = 0; i < R; ++i) x[i] = common[i] - tv[i];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          phi[i][k] = pinv_j[i][k];
-          u0[i][k] = hw0_j[i][k];
-          u1[i][k] = hw1[i][k];
-        }
-      sig_ut<T, R>(p00, p01, p10, p11, u0, u1, a0, a1);
-      cgt::mm<T, R>(u0, a0, dg);
-      cgt::mm<T, R>(u1, a1, tm);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          dg[i][k] = phi[i][k] + dg[i][k] + tm[i][k];
-          of[i][k] = -a1[i][k];
-        }
-    } else {
-      cgt::mv<T, R>(hc_j, x, tv);
-#pragma unroll
-      for (int i = 0; i < R; ++i) x[i] = common[i] - tv[i];
-      T phi_off[R][R], phi_j[R][R], u0_j[R][R], u1_j[R][R];
-      cgt::mm_tb<T, R>(phi, hc_j, phi_off);
-      cgt::mm<T, R>(hc_j, phi, tm);
-      cgt::mm_tb<T, R>(tm, hc_j, phi_j);
-      cgt::mm<T, R>(hc_j, u0, tm);
-      cgt::mm<T, R>(hc_j, u1, u1_j);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          phi_off[i][k] = -phi_off[i][k];
-          phi_j[i][k] += pinv_j[i][k];
-          u0_j[i][k] = hw0_j[i][k] - tm[i][k];
-          u1_j[i][k] = -u1_j[i][k];
-        }
-      sig_ut<T, R>(p00, p01, p10, p11, u0_j, u1_j, a0, a1);
-      cgt::mm<T, R>(u0_j, a0, dg);
-      cgt::mm<T, R>(u1_j, a1, tm);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int k = 0; k < R; ++k)
-          dg[i][k] = phi_j[i][k] + dg[i][k] + tm[i][k];
-      cgt::mm<T, R>(u0, a0, of);
-      cgt::mm<T, R>(u1, a1, tm);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          of[i][k] = phi_off[i][k] + of[i][k] + tm[i][k];
-          phi[i][k] = phi_j[i][k];
-          u0[i][k] = u0_j[i][k];
-          u1[i][k] = u1_j[i][k];
-        }
+      for (int q = 0; q < K7_STAGES - 1; ++q)
+        stage_row<T, R>(s - 2 - q, C, c, ring + q * K::IN * L, hc, hw0, hw,
+                        pinv);
     }
-    cgt::store_vec<T, R>(x_out, t, C, c, x);
-    cgt::store_mat<T, R>(diag_out, t, C, c, dg);
-    cgt::store_mat<T, R>(off_out, t, C, c, of);
+#pragma unroll 1
+    for (int u = 0; u <= ntiles; ++u) {
+      if (u < ntiles && live)
+        chain_tile<T, R>(u, s, C, c, area + (u % 2) * K::BUF * L, ring, hc,
+                         hw0, hw, pinv, hw1_p, xbn_p, xb, phi, u0, u1, x,
+                         x_out);
+      k7_barrier();
+    }
+    if (live) {
+      cgt::store_mat<T, R>(u0f, 0, C, c, u0);
+      cgt::store_mat<T, R>(u1f, 0, C, c, u1);
+    }
+  } else {
+    const int i = warp - 1;  // this warp's row of a tile
+#pragma unroll 1
+    for (int u = 0; u <= ntiles; ++u) {
+      const int t = s - 2 - ((u - 1) * K7_ROWS + i);
+      if (u > 0 && t >= 0 && live) {
+        const T* buf = area + ((u - 1) % 2) * K::BUF * L;
+        output_row<T, R>(t, s, C, c, buf + (i + 1) * K::E * L,
+                         buf + i * K::E * L, hc, p00_p, p01_p, p10_p, p11_p,
+                         diag_out, off_out);
+      }
+      k7_barrier();
+    }
   }
-  cgt::store_mat<T, R>(u0f, 0, C, c, u0);
-  cgt::store_mat<T, R>(u1f, 0, C, c, u1);
 }
 
 namespace co = cgt::coop;
@@ -319,7 +497,7 @@ __device__ __forceinline__ void back_row(const co::Warp& w, const T* hw,
   xn[i] = common - b;
 }
 
-// backward_solve_takahashi_kernel<T, 16> as one warp per chunk lane: the
+// kernel 7 at block size 16 as one warp per chunk lane: the
 // rows of wide_backward.cu's kernel 22 on chunk-major tiles.  (Not shared
 // with kernel 22 through a helper: with nvcc 12.8 for sm_90a that moved
 // kernel 22's register allocation, 166 / 80 registers at float64 /
@@ -466,6 +644,22 @@ int launch_solveinv(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
   return int(cudaGetLastError());
 }
 
+template <typename T, int R>
+int launch_split(const T* hc, const T* hw0, const T* hw, const T* pinv,
+                 const T* hw1, const T* xb, const T* xbn, const T* p00,
+                 const T* p01, const T* p10, const T* p11, int s, int C,
+                 T* x, T* diag, T* off, T* u0f, T* u1f,
+                 cudaStream_t stream) {
+  using K = K7<T, R>;
+  const cudaError_t err = co::prepare(backsolve_split_kernel<T, R>, K::SMEM);
+  if (err != cudaSuccess) return int(err);
+  backsolve_split_kernel<T, R>
+      <<<(C + K::LANES - 1) / K::LANES, K7_THREADS, K::SMEM, stream>>>(
+          hc, hw0, hw, pinv, hw1, xb, xbn, p00, p01, p10, p11, s, C, x, diag,
+          off, u0f, u1f);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int launch_backsolve(const T* hc, const T* hw0, const T* hw, const T* pinv,
                      const T* hw1, const T* xb, const T* xbn, const T* p00,
@@ -482,14 +676,12 @@ int launch_backsolve(const T* hc, const T* hw0, const T* hw, const T* pinv,
         off, u0f, u1f);
     return int(cudaGetLastError());
   }
-#define CGT_LAUNCH(RR)                                                      \
-  backward_solve_takahashi_kernel<T, RR>                                    \
-      <<<blocks_for(C), CGT_THREADS, 0, stream>>>(                          \
-          hc, hw0, hw, pinv, hw1, xb, xbn, p00, p01, p10, p11, s, C, x,     \
-          diag, off, u0f, u1f)
+#define CGT_LAUNCH(RR)                                                   \
+  return launch_split<T, RR>(hc, hw0, hw, pinv, hw1, xb, xbn, p00, p01,  \
+                             p10, p11, s, C, x, diag, off, u0f, u1f,     \
+                             stream)
   CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
-  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -555,6 +747,15 @@ int cgt_backsolve_warp_smem_bytes(int d, int f64) {
   if (d != WARP_D) return -1;
   return int(f64 ? backsolve_warp_smem<double>()
                  : backsolve_warp_smem<float>());
+}
+
+// dynamic shared bytes per thread block of kernel 7's split design at rank
+// r (1..8; the second argument 1 for float64)
+int cgt_backsolve_split_smem_bytes(int r, int f64) {
+#define CGT_LAUNCH(RR)                                                  \
+  return int(f64 ? K7<double, RR>::SMEM : K7<float, RR>::SMEM)
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
 }
 
 }  // extern "C"

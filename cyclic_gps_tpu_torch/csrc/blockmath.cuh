@@ -13,7 +13,6 @@
 //   lu_solve       expm_pallas._lu_solve_k (unpivoted)
 //   pade7_vanloan  expm_pallas._pade7_vanloan
 //   tn_math        expm_pallas._tn_math (per-lane squaring count)
-//   gap_row_terms  expm_pallas._gap_row_terms (push-through Q1 terms)
 //   elim_step      pallas_sweep._sweep_kernel / expm_pallas._fused_elim_cell
 //
 // Layouts: chunk-major matrices [s, R, R, L] and vectors [s, R, L] with the
@@ -527,45 +526,6 @@ __device__ __noinline__ void tn_math(const Generator<R>& gen, float dt,
       q[i][c] = 0.5f * (qq[i][c] + qq[c][i]);
       e[i][c] = f1[i][c];
     }
-}
-
-// One gap's precision ingredients from Q1 alone (push-through identity,
-// leg._q1_terms), valid-masked by gv:
-//   off     = -Q1^{-1} e
-//   d_left  = Q1^{-1} - I
-//   d_right = e^T Q1^{-1} e
-//   returns the gap's log|Q1| (times gv)
-template <int R>
-__device__ __forceinline__ float gap_row_terms(const Generator<R>& gen,
-                                               float dt, float gv,
-                                               float (&d_left)[R][R],
-                                               float (&d_right)[R][R],
-                                               float (&off)[R][R]) {
-  float e[R][R], q[R][R];
-  tn_math<R>(gen, dt, e, q);
-  float L[R][R], invd[R];
-  const float ldl = chol<float, R>(q, L, invd);
-  float t[R][R], qie[R][R];
-  solve_lower<float, R, R>(L, invd, e, t);
-  solve_lower_t<float, R, R>(L, invd, t, qie);  // Q1^{-1} e
-  float eye[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) eye[i][k] = (i == k) ? 1.f : 0.f;
-  solve_lower<float, R, R>(L, invd, eye, t);  // L^{-1}
-  float li2[R][R];
-  mm_ta<float, R>(t, t, li2);
-  mm_ta<float, R>(e, qie, d_right);
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      d_left[i][k] = (li2[i][k] - eye[i][k]) * gv;
-      d_right[i][k] = d_right[i][k] * gv;
-      off[i][k] = -qie[i][k] * gv;
-    }
-  return 2.f * ldl * gv;
 }
 
 // ---------------------------------------------------------------------------

@@ -52,7 +52,7 @@
 namespace {
 
 // Gap terms of one row from its gap width, valid-masked by gv (the
-// closed-form twin of cgt::gap_row_terms):
+// closed-form twin of gapsmem.cuh's gsm::row_terms):
 //   off     = -Q1^{-1} e
 //   d_left  = Q1^{-1} - I
 //   d_right = e^T Q1^{-1} e = -e^T off   (symmetrised)

@@ -1,6 +1,6 @@
 // Analytic adjoint of the LEG gap emission: per-gap cotangents of the
 // K-system ingredients -> the generator gradient and the per-gap dt
-// cotangent, the backward of k_system_kernel (gap_emission.cu).
+// cotangent, the backward of k_system_tiled_kernel (gap_emission.cu).
 //
 // Replaces: cyclic_gps_tpu/ops/expm_pallas.py:1046 k_system_adjoint_pallas
 // (kernel body _ksys_adj_kernel, :1007, and its cell _tn_adj_cell, :891).

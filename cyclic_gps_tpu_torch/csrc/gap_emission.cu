@@ -2,14 +2,14 @@
 // blocks, the chunk-major posterior-precision (K) system, and the K system
 // fused into its forward elimination.  All three share one body of math:
 // structured Pade-7 (e, Q1), the Cholesky of Q1 with the push-through
-// precision terms (blockmath.cuh for kernels 2 and 3, its copy with the
-// generator in shared memory, gapsmem.cuh, for kernel 4), and (kernel 4)
-// one elimination step.
+// precision terms (blockmath.cuh for kernel 2, its copy with the generator
+// in shared memory, gapsmem.cuh, for kernels 3 and 4), and (kernel 4) one
+// elimination step.
 //
 // Replaces (cyclic_gps_tpu/ops/expm_pallas.py):
 //   transition_and_noise_kernel  <- :297 transition_and_noise_pallas
 //                                   (kernel body _tn_kernel, :279)
-//   k_system_kernel              <- :530 k_system_pallas (_ksys_kernel, :482)
+//   k_system_tiled_kernel        <- :530 k_system_pallas (_ksys_kernel, :482)
 //   gap_mahal_sweep_kernel       <- :769 gap_mahal_sweep_pallas
 //                                   (_gap_sweep_kernel, :708)
 //
@@ -17,29 +17,28 @@
 // costs ~25 small matrix products, two LU solves and a Cholesky, against 4
 // bytes of input), so none is bandwidth-bound.  transition_and_noise runs
 // one thread per gap and is bound by per-thread instruction latency and the
-// registers the Pade temporaries take.  k_system runs one thread per chunk
-// lane c, walking the chunk's s gaps in order with the d_left neighbour
-// carry in registers: with C = N/s lanes (7,813 at N = 1e6, s = 128) it
-// fills under half of the 132 SMs, so it is latency- and occupancy-bound.
-// Every gap is built where it is used, so device memory sees only dt (and
-// v) in and the outputs out; the lane axis is innermost so loads and stores
-// coalesce; the squaring loop runs each lane's own count; tn_math is
-// compiled once per rank and shared by kernels 2 and 3.
+// registers the Pade temporaries take.  Every gap is built where it is
+// used, so device memory sees only dt (and v) in and the outputs out; the
+// lane axis is innermost so loads and stores coalesce; the squaring loop
+// runs each lane's own count.
 //
-// gap_mahal_sweep (kernel 4) first ran the same way, one thread per lane
-// doing the emission and the elimination of each of its s gaps in turn (61
-// thread blocks at N = 1e6).  Only the elimination carries state from gap to
-// gap, so it now takes the emission off that serial chain: a thread block
-// takes 32 chunk lanes and walks their gaps in tiles of K4_ROWS = 3 rows,
-// its warps specialised.  Warps 1-3 (the producers) each build one row of a
-// tile (32 gaps, one per thread) with gapsmem.cuh's copy of the emission
-// (the generator in shared memory, nothing on a stack) and park (d_left,
-// d_right, off, log|Q1|) in shared memory; warp 0 (the consumer), one
-// thread per lane, runs the previous tile's elimination steps in order
-// with the sweep state in its registers.  Two tile buffers let the two
-// overlap, with one barrier a tile.  At N = 1e6 that is 245 thread blocks
-// of 128 threads, and a chain of s elimination steps per lane instead of s
-// emissions and eliminations.
+// k_system (kernel 3) and gap_mahal_sweep (kernel 4) first ran one thread
+// per chunk lane, walking the lane's s gaps in order (61 thread blocks at
+// N = 1e6, C = 7,813 lanes of s = 128, for 132 SMs).  Neither needs that
+// chain for the emission: kernel 3 carries only d_left from a gap to the
+// next, so it now builds every gap in a thread of its own, in tiles of
+// 32 lanes by K3_ROWS rows with one halo gap a tile (below).  Kernel 4's
+// elimination does carry state from gap to gap, so it takes the emission
+// off that serial chain: a thread block takes 32 chunk lanes and walks
+// their gaps in tiles of K4_ROWS = 3 rows, its warps specialised.  Warps
+// 1-3 (the producers) each build one row of a tile (32 gaps, one per
+// thread) with gapsmem.cuh's copy of the emission (the generator in shared
+// memory, nothing on a stack) and park (d_left, d_right, off, log|Q1|) in
+// shared memory; warp 0 (the consumer), one thread per lane, runs the
+// previous tile's elimination steps in order with the sweep state in its
+// registers.  Two tile buffers let the two overlap, with one barrier a
+// tile.  At N = 1e6 that is 245 thread blocks of 128 threads, and a chain
+// of s elimination steps per lane instead of s emissions and eliminations.
 #include "gapsmem.cuh"
 
 namespace {
@@ -59,49 +58,6 @@ transition_and_noise_kernel(const float* __restrict__ g,
   cgt::tn_math<R>(gen, diffs[m], e, q);
   cgt::store_mat<float, R>(e_out, 0, M, m, e);
   cgt::store_mat<float, R>(q_out, 0, M, m, q);
-}
-
-// K row j = I + d_left(gap j-1) + d_right(gap j) + boost * is_real(j);
-// row 0's d_left comes from the previous chunk's last gap (``wrap``).
-template <int R>
-__device__ __forceinline__ void k_row(const float (&d_left_prev)[R][R],
-                                      const float (&d_right)[R][R],
-                                      const float (&boost)[R][R], float real,
-                                      float (&k)[R][R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < R; ++c)
-      k[i][c] = ((i == c) ? 1.f : 0.f) + d_left_prev[i][c] + d_right[i][c] +
-                boost[i][c] * real;
-}
-
-template <int R>
-__global__ void __launch_bounds__(CGT_THREADS)
-k_system_kernel(const float* __restrict__ g, const float* __restrict__ boost_p,
-                const float* __restrict__ dt, const float* __restrict__ gv,
-                const float* __restrict__ real, const float* __restrict__ wrap,
-                int s, int C, float* k_out, float* off_out, float* lq_out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  Generator<R> gen;
-  cgt::load_generator<R>(g, gen);
-  float boost[R][R], d_left[R][R];
-  cgt::load_dense<float, R>(boost_p, boost);
-  cgt::load_mat<float, R>(wrap, 0, C, c, d_left);
-  for (int j = 0; j < s; ++j) {
-    const size_t ij = size_t(j) * C + c;
-    float dl_n[R][R], dr[R][R], off[R][R], k[R][R];
-    const float lq = cgt::gap_row_terms<R>(gen, dt[ij], gv[ij], dl_n, dr, off);
-    k_row<R>(d_left, dr, boost, real[ij], k);
-    cgt::store_mat<float, R>(k_out, j, C, c, k);
-    cgt::store_mat<float, R>(off_out, j, C, c, off);
-    lq_out[ij] = lq;
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int b = 0; b < R; ++b) d_left[i][b] = dl_n[i][b];
-  }
 }
 
 // Kernel 3 fused into the forward sweep: gap 0 gives the chunk-boundary row
@@ -138,6 +94,87 @@ __device__ __forceinline__ void lane_put(float* p, int o,
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int k = 0; k < R; ++k) p[(o + i * R + k) * K4_LANES] = m[i][k];
+}
+
+// K row j = I + d_left(gap j-1) + d_right(gap j) + boost * is_real(j);
+// row 0's d_left comes from the previous chunk's last gap (``wrap``).
+//
+// Nothing but d_left crosses from one gap to the next, so every gap is
+// built by a thread of its own: a thread block takes K3_LANES (32) chunk
+// lanes by K3_ROWS rows (gaps j0 .. j0 + K3_ROWS - 1), its thread row
+// r = 1..K3_ROWS building gap j0 - 1 + r with gapsmem.cuh's emission (the
+// generator in shared memory), writing its off and log|Q1| and parking
+// its d_left in shared memory; thread row 0 builds the halo gap j0 - 1
+// (or, at j0 = 0, parks the lane's wrap), whose d_left the tile's first K
+// row needs.  After one barrier each thread of rows 1..K3_ROWS writes its
+// K row from the d_left parked by the row above.  At N = 1e6 that is
+// 245 x 19 thread blocks of 256 threads, and 1/K3_ROWS more emissions
+// than gaps.
+#define K3_LANES 32                            // chunk lanes per block
+#define K3_ROWS 7                              // K rows per block
+#define K3_THREADS (K3_LANES * (K3_ROWS + 1))  // row 0 builds the halo gap
+
+// dynamic shared bytes: the d_left of thread rows 0..K3_ROWS-1, per lane
+template <int R>
+constexpr size_t k3_smem() {
+  return size_t(K3_ROWS) * R * R * K3_LANES * sizeof(float);
+}
+
+// Two thread blocks an SM up to rank 5: the compiler holds the emission in
+// 128 registers, at the cost of a small spill, and the SM gets 16 warps
+// instead of 8 (at rank 5 on the H100 faster than one block an SM at 184
+// registers; at ranks 6-8 the emission alone needs 254-255).
+template <int R>
+__global__ void __launch_bounds__(K3_THREADS, R <= 5 ? 2 : 1)
+k_system_tiled_kernel(const float* __restrict__ g,
+                      const float* __restrict__ boost_p,
+                      const float* __restrict__ dt,
+                      const float* __restrict__ gv,
+                      const float* __restrict__ real,
+                      const float* __restrict__ wrap, int s, int C,
+                      float* k_out, float* off_out, float* lq_out) {
+  extern __shared__ __align__(16) float cgt_smem[];
+  __shared__ gsm::GenS<R> gs;
+  __shared__ float boost[R * R];
+  const int lane = threadIdx.x % K3_LANES;
+  const int row = threadIdx.x / K3_LANES;
+  const int c = blockIdx.x * K3_LANES + lane;
+  const int j = blockIdx.y * K3_ROWS - 1 + row;  // this thread's gap
+  gsm::load_gen<R>(g, gs);
+  if (threadIdx.x < R * R) boost[threadIdx.x] = boost_p[threadIdx.x];
+  __syncthreads();
+  // [K3_ROWS][R * R][K3_LANES]: thread row r's d_left in slot r
+  float* park = cgt_smem + lane;
+  const bool live = c < C && j < s;
+  float d_right[R][R];
+  if (live && j < 0) {  // the halo of the first tile: wrap
+#pragma unroll
+    for (int e = 0; e < R * R; ++e)
+      park[e * K3_LANES] = wrap[size_t(e) * C + c];
+  } else if (live) {
+    const size_t ij = size_t(j) * C + c;
+    float d_left[R][R], off[R][R];
+    const float lq =
+        gsm::row_terms<R>(gs, dt[ij], gv[ij], d_left, d_right, off);
+    if (row > 0) {
+      cgt::store_mat<float, R>(off_out, j, C, c, off);
+      lq_out[ij] = lq;
+    }
+    if (row < K3_ROWS) lane_put<R>(park, row * R * R, d_left);
+  }
+  __syncthreads();
+  if (live && row > 0) {
+    const float re = real[size_t(j) * C + c];
+    const float* dlp = park + (row - 1) * R * R * K3_LANES;
+    float k[R][R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int b = 0; b < R; ++b)
+        k[i][b] = ((i == b) ? 1.f : 0.f) + dlp[(i * R + b) * K3_LANES] +
+                  d_right[i][b] + boost[i * R + b] * re;
+    cgt::store_mat<float, R>(k_out, j, C, c, k);
+  }
 }
 
 // The block's barrier between the producer warps and the consumer warp,
@@ -275,6 +312,23 @@ inline int launch_gap_sweep(const float* g, const float* boost,
   return int(cudaGetLastError());
 }
 
+template <int R>
+inline int launch_k_system(const float* g, const float* boost,
+                           const float* dt, const float* gv,
+                           const float* real, const float* wrap, int s,
+                           int C, float* k, float* off, float* lq,
+                           cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      k_system_tiled_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(k3_smem<R>()));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((C + K3_LANES - 1) / K3_LANES,
+                  (s + K3_ROWS - 1) / K3_ROWS);
+  k_system_tiled_kernel<R><<<grid, K3_THREADS, k3_smem<R>(), st>>>(
+      g, boost, dt, gv, real, wrap, s, C, k, off, lq);
+  return int(cudaGetLastError());
+}
+
 inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
 
 }  // namespace
@@ -297,12 +351,11 @@ int cgt_k_system_f32(const float* g, const float* boost, const float* dt,
                      int r, int s, int C, float* k, float* off, float* lq,
                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define CGT_LAUNCH(RR)                                                   \
-  k_system_kernel<RR><<<blocks_for(C), CGT_THREADS, 0, st>>>(            \
-      g, boost, dt, gv, real, wrap, s, C, k, off, lq)
+#define CGT_LAUNCH(RR)                                                    \
+  return launch_k_system<RR>(g, boost, dt, gv, real, wrap, s, C, k, off, \
+                             lq, st)
   CGT_RANK_SWITCH(r, CGT_LAUNCH)
 #undef CGT_LAUNCH
-  return int(cudaGetLastError());
 }
 
 int cgt_gap_mahal_sweep_f32(const float* g, const float* boost,
@@ -317,6 +370,13 @@ int cgt_gap_mahal_sweep_f32(const float* g, const float* boost,
                            mh, ld, lq, k0, olast};
 #define CGT_LAUNCH(RR) \
   return launch_gap_sweep<RR>(g, boost, dt, gv, real, wrap, y, s, C, outs, st)
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
+}
+
+// dynamic shared bytes per thread block of kernel 3's rank-r instance
+int cgt_k_system_smem_bytes(int r) {
+#define CGT_LAUNCH(RR) return int(k3_smem<RR>())
   CGT_RANK_SWITCH(r, CGT_LAUNCH)
 #undef CGT_LAUNCH
 }

@@ -1,18 +1,18 @@
 // The LEG gap emission with the generator in shared memory: the helpers of
-// the redesigned fused emission sweep (kernel 4, gap_emission.cu) and of
-// the emission adjoint (kernel 5, gap_adjoint.cu).
+// the K-system emission (kernel 3) and the fused emission sweep (kernel 4),
+// both in gap_emission.cu, and of the emission adjoint (kernel 5,
+// gap_adjoint.cu).
 //
-// blockmath.cuh's tn_math and gap_row_terms hold the generator in each
-// thread's registers (2 R^2 + 2 floats: 52 at rank 5) and compute the
-// emission in a __noinline__ function that takes its matrices by reference,
-// so every kernel that calls them keeps a stack frame.  Kernels 2 and 3
-// keep those helpers as they are; the two redesigned kernels take these
-// copies instead: the scaled generator blocks a = -G/2 * scale and
+// blockmath.cuh's tn_math holds the generator in each thread's registers
+// (2 R^2 + 2 floats: 52 at rank 5) and computes the emission in a
+// __noinline__ function that takes its matrices by reference, so a kernel
+// that calls it keeps a stack frame.  Kernel 2 keeps that helper as it is;
+// kernels 3-5 take these copies instead: the scaled generator blocks a = -G/2 * scale and
 // sm = sym * scale are read from the thread block's shared copy of -G/2
 // and (G + G^T)/2 when a product needs them (all threads read the same
 // address: a broadcast), and everything is inlined, so no frame remains.
-// The operations, and their order, are those of blockmath.cuh's pade7_vanloan,
-// tn_math and gap_row_terms.
+// The operations, and their order, are those of blockmath.cuh's pade7_vanloan
+// and tn_math, and of expm_pallas._gap_row_terms (row_terms).
 #pragma once
 
 #include "blockmath.cuh"
@@ -297,7 +297,7 @@ __device__ __forceinline__ void q_of(bool vl, const float (&f1)[R][R],
     for (int c = 0; c < R; ++c) q[i][c] = 0.5f * (qq[i][c] + qq[c][i]);
 }
 
-// One gap's precision ingredients (cgt::gap_row_terms on cgt::tn_math):
+// One gap's precision ingredients (expm_pallas._gap_row_terms on tn_math):
 // off = -Q1^{-1} e, d_left = Q1^{-1} - I, d_right = e^T Q1^{-1} e, valid-
 // masked by gv; returns log|Q1| (times gv).
 template <int R>

@@ -5,7 +5,7 @@
 // Replaces: cyclic_gps_tpu/ops/pallas_wide.py:1199
 // backward_solve_takahashi_wide_pallas (kernel body
 // _wide_backsolve_takahashi_kernel, :1093), the wide twin of
-// backward_sweep.cu's backward_solve_takahashi_kernel
+// backward_sweep.cu's backsolve_split_kernel
 // (pallas_sweep.py:918).
 //
 // Inputs: the stacks of wide_sweep.cu's collect instance (hat_C, hat_W0,

@@ -107,7 +107,8 @@ _SIGNATURES.update({
 # obs_dim, of the celerite likelihood sweep at nblocks, of the celerite
 # collecting filter and filter sweep at nblocks and obs_dim, and of
 # kernels 1, 6 and 7 at block size 16 (forward_sweep.cu's
-# and backward_sweep.cu's warp-per-lane sweeps and walk)
+# and backward_sweep.cu's warp-per-lane sweeps and walk), and of kernel 7's
+# split design at ranks 1..8
 _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes",
     "cgt_rt_collect_smem_bytes", "cgt_rt_backsub_smem_bytes",
@@ -116,11 +117,13 @@ _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_rt_inverse_sweep_smem_bytes", "cgt_celerite_adjoint_smem_bytes",
     "cgt_celerite_collect_smem_bytes", "cgt_celerite_filter_smem_bytes",
     "cgt_forward_sweep_warp_smem_bytes",
-    "cgt_solveinv_warp_smem_bytes", "cgt_backsolve_warp_smem_bytes")})
+    "cgt_solveinv_warp_smem_bytes", "cgt_backsolve_warp_smem_bytes",
+    "cgt_backsolve_split_smem_bytes")})
 _SIGNATURES["cgt_celerite_sweep_smem_bytes"] = [_I]
-# the dynamic shared bytes per thread block of the fused emission sweep
-# (kernel 4) and of the emission adjoint (kernel 5) at rank r
-for _name in ("cgt_gap_mahal_sweep_smem_bytes",
+# the dynamic shared bytes per thread block of the K-system emission
+# (kernel 3), the fused emission sweep (kernel 4) and the emission adjoint
+# (kernel 5) at rank r
+for _name in ("cgt_k_system_smem_bytes", "cgt_gap_mahal_sweep_smem_bytes",
               "cgt_k_system_adjoint_smem_bytes"):
     _SIGNATURES[_name] = [_I]
 # the runtime-d kernels of the likelihood's sweep, the solve and the

@@ -505,8 +505,11 @@ def k_system_cuda(g: Tensor, boost: Tensor, dt_cm: Tensor, gv_cm: Tensor,
     off-diagonal blocks and the valid-masked per-gap log|Q1| (the prior
     log-determinant is -sum(lq_cm)).  float32.
 
-    CUDA tensors launch ``csrc/gap_emission.cu``
-    (``k_system_cuda.launches``); CPU tensors run `k_system_plain`.
+    CUDA tensors launch ``csrc/gap_emission.cu``'s tiled kernel (one
+    thread per gap, thread blocks of 32 chunk lanes by 7 rows plus a row
+    that builds the gap above the tile; ``k_system_cuda.launches`` counts
+    the launches and ``.launches_tiled`` those of that design); CPU
+    tensors run `k_system_plain`.
     """
     name = "k_system_cuda"
     _build.check_no_grad(name, g, boost, dt_cm, gv_cm, real_cm, wrap_em)
@@ -532,10 +535,12 @@ def k_system_cuda(g: Tensor, boost: Tensor, dt_cm: Tensor, gv_cm: Tensor,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, name)
     k_system_cuda.launches += 1
+    k_system_cuda.launches_tiled += 1
     return k_cm, off_cm, lq_cm
 
 
 k_system_cuda.launches = 0
+k_system_cuda.launches_tiled = 0
 
 
 def gap_mahal_sweep_cuda(g: Tensor, boost: Tensor, dt_cm: Tensor,

@@ -331,11 +331,13 @@ def backward_solve_takahashi_cuda(hat_cs: Tensor, hat_w0s: Tensor,
     (the last is the right-edge block), u0_final, u1_final [d, d, C]).
     float32 or float64, d in 1..8 or 16.
 
-    CUDA tensors launch ``csrc/backward_sweep.cu``: one thread per chunk
-    lane at d = 1..8, one warp per chunk lane at d = 16
+    CUDA tensors launch ``csrc/backward_sweep.cu``: at d = 1..8 32 chunk
+    lanes a thread block, one warp running the rows' serial chain (x, phi,
+    u0, u1) while three warps form Sigma_jj and Sigma_{j+1,j} from what it
+    parks in shared memory; one warp per chunk lane at d = 16
     (``backward_solve_takahashi_cuda.launches`` counts every launch,
-    ``.launches_warp`` those at 16); CPU tensors run
-    `backward_solve_takahashi_plain`.
+    ``.launches_split`` those at 1..8, ``.launches_warp`` those at 16);
+    CPU tensors run `backward_solve_takahashi_plain`.
     """
     name = "backward_solve_takahashi_cuda"
     args = (hat_cs, hat_w0s, hat_ws, pinvs, hat_w1, xb, xb_next, p00, p01,
@@ -361,10 +363,13 @@ def backward_solve_takahashi_cuda(hat_cs: Tensor, hat_w0s: Tensor,
     backward_solve_takahashi_cuda.launches += 1
     if d == 16:
         backward_solve_takahashi_cuda.launches_warp += 1
+    else:
+        backward_solve_takahashi_cuda.launches_split += 1
     return tuple(outs)
 
 
 backward_solve_takahashi_cuda.launches = 0
+backward_solve_takahashi_cuda.launches_split = 0
 backward_solve_takahashi_cuda.launches_warp = 0
 
 
