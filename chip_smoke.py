@@ -38,7 +38,9 @@ Phases, one line of output each (or more):
               row) at every rank and kernel 7's split design (a chain
               warp and three output warps) at every rank and dtype, with
               their shared bytes, failing if kernel 7's float32 rank-5
-              instance uses any stack or spill.
+              instance uses any stack or spill; kernels 9 and 11's split
+              designs (a chain warp and three warps that stage rows) at
+              every rank and dtype with their shared bytes.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -69,14 +71,20 @@ Phases, one line of output each (or more):
               grid, the residual loss: log_likelihood_residual's value and
               gradient with backend="auto" against "torch", and two steps
               of fit(loss=None), which must pick "cr_residual", with the
-              launch counts of kernels 2, 3, 5-9.
+              launch counts of kernels 2, 3, 5-9 (every launch of 9 on its
+              split design).
   7. posterior the four posterior kernels against their twins on the inputs
               one insample_posterior(method="precision") call hands them
-              at N = 1e6; the solve of bench.py's system (N = 1e6, d = 5)
-              with backend="auto" and "torch"; the posterior path
-              (float32 irregular with launch counts reset just before and
-              read just after, every launch of kernel 3 tiled, float32
-              regular, float64 method="auto")
+              at N = 1e6; kernels 9 and 11 at their edge shapes
+              ([post-walk]: ranks 1, 5 and 8, s = 2, 4 and 15 (9) or 3, 5
+              and 12 (11), C = 1, 35 and 45, float32 and float64, the same
+              bits on a second run, every launch on the split design);
+              the solve of bench.py's system (N = 1e6, d = 5) with
+              backend="auto" and "torch", every launch of kernel 9 split;
+              the posterior path (float32 irregular with launch counts
+              reset just before and read just after, every launch of
+              kernel 3 tiled and of 9 and 11 split, float32 regular,
+              float64 method="auto")
               and make_predictions (P = 1e6 targets, and a dense P = 4096
               grid on N = 1024), each against backend="torch"; a float64
               N = 48 predictive against the dense GP oracle; one profiled
@@ -1697,6 +1705,17 @@ WALK_EDGES = tuple((r, s, c) for r in (1, 5, 8) for s in (2, 3, 7)
                    for c in (1, 35, 45))
 
 
+def dominant_system(rng, r, n):
+    """(diag, off, y) of a block-tridiagonal system diagonally dominant at
+    every block size r (q q^T / r + 4 I on the diagonal, off-diagonal
+    blocks randn / 2r) on n rows, drawn from the numpy generator rng."""
+    import numpy as np
+
+    q = rng.randn(n, r, r)
+    return (q @ q.transpose(0, 2, 1) / r + 4 * np.eye(r),
+            rng.randn(n - 1, r, r) / (2 * r), rng.randn(n, r))
+
+
 def run_walk_edges(dev, check_kernel, sweep_cuda, pt):
     """Kernel 7's split design against its twin at WALK_EDGES, float32
     and float64, on kernel 6's four hat stacks (its twin, pivot jitter
@@ -1711,10 +1730,7 @@ def run_walk_edges(dev, check_kernel, sweep_cuda, pt):
     n0, n_split = k7.launches, k7.launches_split
     for r, s, c in WALK_EDGES:
         rng = np.random.RandomState(100 * r + 10 * s + c)
-        n = s * c
-        q = rng.randn(n, r, r)
-        system = (q @ q.transpose(0, 2, 1) / r + 4 * np.eye(r),
-                  rng.randn(n - 1, r, r) / (2 * r), rng.randn(n, r))
+        system = dominant_system(rng, r, s * c)
         extra = [rng.randn(*shape) * 0.3 for shape in
                  [(r, r, c), (r, c), (r, c)] + [(r, r, c)] * 4]
         for dtype, (rtol, atol) in ((torch.float32, (1e-3, 1e-4)),
@@ -1747,6 +1763,80 @@ def run_walk_edges(dev, check_kernel, sweep_cuda, pt):
     say(f"[walk] kernel 7 (split design) agrees with its twin at "
         f"{len(WALK_EDGES)} edge shapes, float32 and float64, and gives the "
         "same bits on a second run at each")
+
+
+# kernels 9 and 11 at ranks 1-8 (32 chunk lanes a block, or fewer where
+# shared memory is short; a chain warp and three warps that stage rows):
+# kernel 9 walks s - 1 rows in tiles of 3 through a ring of 4 (s = 2 the
+# seed row alone, 4 one tile, 15 the ring wrapping and a ragged fifth
+# tile), kernel 11 s - 2 rows in tiles of 3 through rings of 2 and 3 (s = 3
+# one row, 5 one tile, 12 the rings wrapping and a ragged fourth tile); C =
+# 1 a lone lane, 35 and 45 a ragged second block
+POST_WALK_EDGES = {
+    "backward_substitute": tuple((r, s, c) for r in (1, 5, 8)
+                                 for s in (2, 4, 15) for c in (1, 35, 45)),
+    "takahashi_backward": tuple((r, s, c) for r in (1, 5, 8)
+                                for s in (3, 5, 12) for c in (1, 35, 45))}
+
+
+def run_post_walk_edges(dev, check_kernel, sweep_cuda, pt):
+    """Kernels 9 and 11 (split designs) against their twins at
+    POST_WALK_EDGES, float32 and float64, on the stacks of kernel 8's or
+    kernel 10's twin (pivot jitter 1e-3) for a block-tridiagonal system
+    diagonally dominant at every block size (q q^T / d + 4 I, off-diagonal
+    blocks randn / 2d, seeded), with the other inputs drawn from a numpy
+    seed (scale 0.3); each gives the same bits on a second run, and every
+    launch takes the split design."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    for key, edges in POST_WALK_EDGES.items():
+        kern = getattr(sweep_cuda, f"{key}_cuda")
+        n0, n_split = kern.launches, kern.launches_split
+        for r, s, c in edges:
+            rng = np.random.RandomState(100 * r + 10 * s + c)
+            system = dominant_system(rng, r, s * c)
+            shapes = ([(r, r, c), (r, c), (r, c)] if key ==
+                      "backward_substitute" else [(r, r, c)] * 9)
+            extra = [rng.randn(*shape) * 0.3 for shape in shapes]
+            for dtype, (rtol, atol) in ((torch.float32, (1e-3, 1e-4)),
+                                        (torch.float64, (1e-9, 1e-10))):
+                R_cm, O_cm, y_cm, _ = pt._chunk_layout(
+                    *(torch.as_tensor(a, dtype=dtype, device=dev)
+                      for a in system), s)
+                R_cm, O_cm, y_cm = (t.contiguous() for t in (R_cm, O_cm, y_cm))
+                with torch.no_grad():
+                    if key == "backward_substitute":
+                        stacks = sweep_cuda.forward_sweep_collect_plain(
+                            R_cm, O_cm, y_cm, 1e-3)[8:11]
+                    else:
+                        stacks = sweep_cuda.forward_sweep_inverse_plain(
+                            R_cm, O_cm, 1e-3)[4:8]
+                args = [t.contiguous() for t in stacks] + [
+                    torch.as_tensor(a, dtype=dtype, device=dev)
+                    for a in extra]
+                check_kernel(
+                    key, "", "", kern,
+                    getattr(sweep_cuda, f"{key}_plain"), args, rtol, atol,
+                    f"edge: rank {r}, s = {s}, C = {c}, {dtype}; atol "
+                    f"{atol:g} of each output's scale", atol_of_scale=True,
+                    record=False, phase="post-walk", reps=1)
+                with torch.no_grad():
+                    once, twice = kern(*args), kern(*args)
+                    torch.cuda.synchronize()
+                if isinstance(once, torch.Tensor):
+                    once, twice = (once,), (twice,)
+                if not all(bool(torch.equal(a, b))
+                           for a, b in zip(once, twice)):
+                    fail(f"{key} at rank {r}, s = {s}, C = {c}, {dtype}: "
+                         "two runs differ")
+        if kern.launches_split - n_split != kern.launches - n0:
+            fail(f"{key}: a launch at ranks 1-8 did not take the split "
+                 "design")
+        say(f"[post-walk] {key} (split design) agrees with its twin at "
+            f"{len(edges)} edge shapes, float32 and float64, and gives the "
+            "same bits on a second run at each")
+    say(f"[post-walk] phase took {time.perf_counter() - t0:.1f} s")
 
 
 def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
@@ -1794,6 +1884,7 @@ def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
         "backward_solve_takahashi": sweep_cuda.backward_solve_takahashi_cuda}
     for w in wrappers.values():
         w.launches = 0
+    sweep_cuda.backward_substitute_cuda.launches_split = 0
     stamps = []
 
     def stamp(step, loss):
@@ -1814,6 +1905,12 @@ def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
     for k, n in counts.items():
         if n <= 0:
             fail(f"kernel {k} was not launched by the residual train step")
+    n_split = sweep_cuda.backward_substitute_cuda.launches_split
+    say(f"[train] residual steps: kernel 9 split launches {n_split} of "
+        f"{counts['backward_substitute']}")
+    if n_split != counts["backward_substitute"]:
+        fail("backward_substitute: a launch in the residual train steps did "
+             "not take the split design")
 
 
 def main():
@@ -2026,6 +2123,24 @@ def main():
             if r == RANK and not f64 and (stack or spill):
                 fail(f"{kname}<float, {r}> uses local memory (stack {stack} "
                      f"B, spill stores {spill} B)")
+    # kernels 9 and 11's split designs (a chain warp and three warps that
+    # stage rows, on 32 lanes or fewer) at every rank and dtype
+    for kname, num, query in (
+            ("backsub_split_kernel", 9, lib.cgt_backsub_split_smem_bytes),
+            ("takahashi_split_kernel", 11,
+             lib.cgt_takahashi_split_smem_bytes)):
+        for r in _build.RANKS:
+            for code, f64 in (("f", 0), ("d", 1)):
+                rep = [v for k, v in _build.ptxas_report(r).items()
+                       if f"{kname}I{code}Li{r}E" in k and v[0] is not None]
+                if len(rep) != 1:
+                    fail(f"{kname}<{code}, {r}>: no single entry in the "
+                         "compiler's report")
+                regs, stack, spill = rep[0]
+                say(f"[build] {kname}<{'double' if f64 else 'float'}, {r}> "
+                    f"(kernel {num}): registers {regs}, stack {stack} B, "
+                    f"spill stores {spill} B, dynamic shared bytes per block "
+                    f"{query(r, f64)}")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -2447,8 +2562,9 @@ def main():
              "kernel 1's 127 dependent elimination steps; atol is 1e-4 of "
              "each output's scale"),
             ("takahashi_backward", 648,
-             "126 dependent steps of ~15 products each; atol is 1e-4 of "
-             "each output's scale")):
+             "126 dependent steps, four products a row on the chain in "
+             "the hat form, which sums u0 and u1 in another order than the "
+             "twin; atol is 1e-4 of each output's scale")):
         args_k, kw_k = captured[f"{key}_cuda"]
         source = ("solve_sweep.cu" if key in post_kernels[:2]
                   else "inverse_sweep.cu")
@@ -2459,8 +2575,12 @@ def main():
             getattr(sweep_cuda, f"{key}_plain"), args_k, 1e-3, 1e-4, why,
             kw=kw_k, atol_of_scale=True)
 
+    run_post_walk_edges(dev, check_kernel, sweep_cuda, pt)
+
     # bench.py's headline op: solve + logdet of its system at N = 1e6, d = 5
     R_b, O_b, y_b = make_system_cm(N_BIG, 5, dev)
+    k9 = sweep_cuda.backward_substitute_cuda
+    n9, n9_split = k9.launches, k9.launches_split
     with torch.no_grad():
         x_a, ld_a = pt.solve_cm(R_b, O_b, y_b, backend="auto")
         x_t, ld_t = pt.solve_cm(R_b, O_b, y_b, backend="torch")
@@ -2475,23 +2595,39 @@ def main():
         f"1e6 rows in other orders) {'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail("solve_cm: backend='auto' disagrees with 'torch'")
+    say(f"[posterior] solve_cm: kernel 9 launches {k9.launches - n9}, "
+        f"split {k9.launches_split - n9_split}")
+    if k9.launches == n9 or (k9.launches_split - n9_split
+                             != k9.launches - n9):
+        fail("solve_cm: kernel 9 was not launched, or a launch did not "
+             "take the split design")
     del R_b, O_b, y_b, x_a, x_t
 
     # the posterior path: counts reset just before and read just after
     for r in rows:
         r["kernel"].launches = 0
     expm_cuda.k_system_cuda.launches_tiled = 0
+    split_walks = {key: getattr(sweep_cuda, f"{key}_cuda") for key in
+                   ("backward_substitute", "takahashi_backward")}
+    for w in split_walks.values():
+        w.launches_split = 0
     with torch.no_grad():
         post_auto = leg.insample_posterior(params, ts, xs,
                                            method="precision")
         torch.cuda.synchronize()
     post_launches = {r["name"]: r["kernel"].launches for r in rows}
+    post_split = {k: w.launches_split for k, w in split_walks.items()}
     say(f"[posterior] launches in one insample_posterior(method="
         f"'precision') call, N={N_BIG} irregular float32: {post_launches}; "
-        f"kernel 3 tiled {expm_cuda.k_system_cuda.launches_tiled}")
+        f"kernel 3 tiled {expm_cuda.k_system_cuda.launches_tiled}; kernels "
+        f"9 and 11 split {post_split}")
     if expm_cuda.k_system_cuda.launches_tiled != post_launches["k_system"]:
         fail("k_system: a launch in the posterior call did not take the "
              "tiled design")
+    for key, n in post_split.items():
+        if n != post_launches[key]:
+            fail(f"{key}: {n} of {post_launches[key]} launches in the "
+                 "posterior call took the split design")
     for key in ("transition_and_noise", "k_system") + post_kernels:
         if post_launches[key] <= 0:
             fail(f"kernel {key} was not launched by the posterior path")

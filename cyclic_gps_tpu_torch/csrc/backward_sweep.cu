@@ -45,9 +45,12 @@
 //   recursion (kernel 22) on chunk-major tiles.  Both sum as the thread
 //   kernels do, so the designs agree to rounding.
 #include "blockmath.cuh"
+#include "pipeline.cuh"
 #include "rtcoop.cuh"
 
 namespace {
+
+namespace pp = cgt::pipe;
 
 // Forward sweep that also writes, for every interior step j = 1..s-1
 // (stack row j-1): hat_C = D^{-T} C^T, hat_W0 = D^{-T} W0, hat_w = D^{-T} w
@@ -131,54 +134,9 @@ struct K7 {
   static constexpr int BUF = (K7_ROWS + 1) * E;  // one tile buffer
   static constexpr int IN = 3 * R * R + R;       // one row's inputs
   static constexpr int N = 2 * BUF + K7_STAGES * IN;  // per lane
-  static constexpr int LANES = size_t(N) * 32 * sizeof(T) <= 232448   ? 32
-                               : size_t(N) * 16 * sizeof(T) <= 232448 ? 16
-                                                                      : 8;
+  static constexpr int LANES = pp::lanes_for(size_t(N) * sizeof(T));
   static constexpr size_t SMEM = size_t(N) * LANES * sizeof(T);
 };
-
-// a lane's R x R block at element offset o of a [n][L] area
-template <typename T, int R, int L>
-__device__ __forceinline__ void park_get(const T* p, int o, T (&m)[R][R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) m[i][k] = p[(o + i * R + k) * L];
-}
-
-template <typename T, int R, int L>
-__device__ __forceinline__ void park_put(T* p, int o, const T (&m)[R][R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) p[(o + i * R + k) * L] = m[i][k];
-}
-
-// The block's barrier between the chain warp and the output warps, which
-// reach it from their own loops (a named barrier over all threads).
-__device__ __forceinline__ void k7_barrier() {
-  asm volatile("bar.sync 1, %0;" ::"r"(K7_THREADS) : "memory");
-}
-
-// One element copied from device to shared memory without passing
-// through registers (cp.async); a group of them is committed, and waited
-// for by the thread that issued it.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, const T* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
-                   unsigned(__cvta_generic_to_shared(dst))),
-               "l"(src), "n"(sizeof(T))
-               : "memory");
-}
-
-__device__ __forceinline__ void stage_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// wait until at most K7_STAGES - 1 groups of this thread are in flight
-__device__ __forceinline__ void stage_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(K7_STAGES - 1) : "memory");
-}
 
 // Start copying row t's chain inputs into a ring slot (one group; an
 // empty group past the last row keeps the count of groups per row).
@@ -195,15 +153,16 @@ __device__ __forceinline__ void stage_row(int t, int C, int c, T* slot,
 #pragma unroll
       for (int b = 0; b < R; ++b) {
         const size_t g = cgt::mat_at<R>(t, a, b, C, c);
-        stage(slot + (a * R + b) * L, hw0 + g);
-        stage(slot + (R * R + a * R + b) * L, hc + g);
-        stage(slot + (2 * R * R + a * R + b) * L, pinv + g);
+        pp::stage(slot + (a * R + b) * L, hw0 + g);
+        pp::stage(slot + (R * R + a * R + b) * L, hc + g);
+        pp::stage(slot + (2 * R * R + a * R + b) * L, pinv + g);
       }
 #pragma unroll
     for (int a = 0; a < R; ++a)
-      stage(slot + (3 * R * R + a) * L, hw + cgt::vec_at<R>(t, a, C, c));
+      pp::stage(slot + (3 * R * R + a) * L,
+                hw + cgt::vec_at<R>(t, a, C, c));
   }
-  stage_commit();
+  pp::stage_commit();
 }
 
 // The chain: one lane's rows of tile u, descending.  Row s-2 is the
@@ -224,9 +183,9 @@ __device__ __forceinline__ void chain_tile(
   using K = K7<T, R>;
   constexpr int L = K::LANES;
   if (u > 0) {
-    park_put<T, R, L>(buf, 0, phi);
-    park_put<T, R, L>(buf, R * R, u0);
-    park_put<T, R, L>(buf, 2 * R * R, u1);
+    pp::park_put<T, R, L>(buf, 0, phi);
+    pp::park_put<T, R, L>(buf, R * R, u0);
+    pp::park_put<T, R, L>(buf, 2 * R * R, u1);
   }
 #pragma unroll 1
   for (int i = 0; i < K7_ROWS; ++i) {
@@ -236,10 +195,10 @@ __device__ __forceinline__ void chain_tile(
     stage_row<T, R>(t - (K7_STAGES - 1), C, c,
                     ring + ((q + K7_STAGES - 1) % K7_STAGES) * K::IN * L, hc,
                     hw0, hw, pinv);
-    stage_wait();
+    pp::stage_wait<K7_STAGES - 1>();
     const T* in = ring + (q % K7_STAGES) * K::IN * L;
     T hw0_j[R][R], common[R], tv[R];
-    park_get<T, R, L>(in, 0, hw0_j);
+    pp::park_get<T, R, L>(in, 0, hw0_j);
 #pragma unroll
     for (int a = 0; a < R; ++a) common[a] = in[(3 * R * R + a) * L];
     cgt::mv<T, R>(hw0_j, xb, tv);
@@ -252,14 +211,14 @@ __device__ __forceinline__ void chain_tile(
       cgt::mv<T, R>(u1, xbn, tv);
 #pragma unroll
       for (int a = 0; a < R; ++a) x[a] = common[a] - tv[a];
-      park_get<T, R, L>(in, 2 * R * R, phi);
+      pp::park_get<T, R, L>(in, 2 * R * R, phi);
 #pragma unroll
       for (int a = 0; a < R; ++a)
 #pragma unroll
         for (int b = 0; b < R; ++b) u0[a][b] = hw0_j[a][b];
     } else {
       T hc_j[R][R], tm[R][R];
-      park_get<T, R, L>(in, R * R, hc_j);
+      pp::park_get<T, R, L>(in, R * R, hc_j);
       cgt::mv<T, R>(hc_j, x, tv);
 #pragma unroll
       for (int a = 0; a < R; ++a) x[a] = common[a] - tv[a];
@@ -282,9 +241,9 @@ __device__ __forceinline__ void chain_tile(
         for (int b = 0; b < R; ++b) u1[a][b] = -tm[a][b];
     }
     cgt::store_vec<T, R>(x_out, t, C, c, x);
-    park_put<T, R, L>(buf, (i + 1) * K::E, phi);
-    park_put<T, R, L>(buf, (i + 1) * K::E + R * R, u0);
-    park_put<T, R, L>(buf, (i + 1) * K::E + 2 * R * R, u1);
+    pp::park_put<T, R, L>(buf, (i + 1) * K::E, phi);
+    pp::park_put<T, R, L>(buf, (i + 1) * K::E + R * R, u0);
+    pp::park_put<T, R, L>(buf, (i + 1) * K::E + 2 * R * R, u1);
   }
 }
 
@@ -316,8 +275,8 @@ __device__ __forceinline__ void output_row(
     const T* __restrict__ p11_p, T* diag_out, T* off_out) {
   constexpr int L = K7<T, R>::LANES;
   T u0[R][R], u1[R][R], a0[R][R], a1[R][R], m[R][R], tm[R][R];
-  park_get<T, R, L>(cur, R * R, u0);
-  park_get<T, R, L>(cur, 2 * R * R, u1);
+  pp::park_get<T, R, L>(cur, R * R, u0);
+  pp::park_get<T, R, L>(cur, 2 * R * R, u1);
   mm_tb2<T, R>(p00_p, p01_p, C, c, u0, u1, a0);  // Sigma_bb U^T
   mm_tb2<T, R>(p10_p, p11_p, C, c, u0, u1, a1);
   cgt::mm<T, R>(u0, a0, m);
@@ -336,10 +295,10 @@ __device__ __forceinline__ void output_row(
   } else {
     T hc_j[R][R];
     cgt::load_mat<T, R>(hc, t, C, c, hc_j);
-    park_get<T, R, L>(prev, 0, m);  // phi_{j+1}
+    pp::park_get<T, R, L>(prev, 0, m);  // phi_{j+1}
     cgt::mm_tb<T, R>(m, hc_j, tm);  // -phi_off
-    park_get<T, R, L>(prev, R * R, u0);
-    park_get<T, R, L>(prev, 2 * R * R, u1);
+    pp::park_get<T, R, L>(prev, R * R, u0);
+    pp::park_get<T, R, L>(prev, 2 * R * R, u1);
     cgt::mm<T, R>(u0, a0, m);
     cgt::mm<T, R>(u1, a1, hc_j);
 #pragma unroll
@@ -387,7 +346,7 @@ backsolve_split_kernel(
         chain_tile<T, R>(u, s, C, c, area + (u % 2) * K::BUF * L, ring, hc,
                          hw0, hw, pinv, hw1_p, xbn_p, xb, phi, u0, u1, x,
                          x_out);
-      k7_barrier();
+      pp::bar<K7_THREADS>();
     }
     if (live) {
       cgt::store_mat<T, R>(u0f, 0, C, c, u0);
@@ -404,7 +363,7 @@ backsolve_split_kernel(
                          buf + i * K::E * L, hc, p00_p, p01_p, p10_p, p11_p,
                          diag_out, off_out);
       }
-      k7_barrier();
+      pp::bar<K7_THREADS>();
     }
   }
 }

@@ -5,28 +5,33 @@
 // Replaces (cyclic_gps_tpu/ops/pallas_sweep.py):
 //   forward_sweep_inverse_kernel <- :534 forward_sweep_inverse_pallas
 //                                   (_sweep_inverse_collect_kernel, :483)
-//   takahashi_backward_kernel    <- :648 takahashi_backward_pallas
+//   takahashi_split_kernel       <- :648 takahashi_backward_pallas
 //                                   (_takahashi_kernel, :585)
 //
-// What bounds them on the H100: both stream stacks of R x R blocks, one
-// thread per chunk lane c.  Per row the sweep reads 2 R^2 values and writes
-// 3 R^2 + R (D, invd, C, W0); the recursion reads those 3 R^2 + R and
-// writes 2 R^2 (Sigma_jj, Sigma_{j+1,j}).  In bytes that is ~520 MB and
-// ~510 MB at rank 5, N = 1e6, float32 (bounds of ~0.15 ms each).  The
-// recursion does ~25 dependent R x R products per row, so with C = N/s
-// lanes (~61 blocks of 128 for 132 SMs at s = 128) it is latency- and
-// register-bound rather than bandwidth-bound.
+// What bounds them on the H100: both stream stacks of R x R blocks, each
+// chunk lane c walking that chunk's rows.  Per row the sweep reads 2 R^2
+// values and writes 3 R^2 + R (D, invd, C, W0); the recursion reads those
+// 3 R^2 + R and writes 2 R^2 (Sigma_jj, Sigma_{j+1,j}).  In bytes that is
+// ~520 MB and ~510 MB at rank 5, N = 1e6, float32 (bounds of ~0.15 ms
+// each).  The recursion does ~25 R x R products per row, with C = N/s
+// lanes (7,813 at s = 128).
 //
-// What the simple design does about it: the carried state stays in
-// registers, each stack row is read or written once, and the lane axis is
-// innermost so every access coalesces.  The TPU kernel also carries a0 and
-// a1 from step to step (its scratch), but no step reads the carried values:
-// the off-diagonal block uses this step's a0/a1 and the previous step's
-// u0/u1.  So the recursion carries only phi, u0 and u1, besides the four
-// Sigma_BB blocks of the chunk's boundaries.
+// The sweep runs ONE THREAD PER CHUNK LANE (~61 blocks of 128 for 132 SMs
+// at s = 128): the carried state stays in registers, each stack row is
+// read or written once, and the lane axis is innermost so every access
+// coalesces.  The recursion takes 32 lanes a block (245 blocks) and splits
+// each lane's rows between warps (takahashi_split_kernel, below): of its
+// ~25 products only four a row cross rows.  The TPU kernel also carries a0
+// and a1 from step to step (its scratch), but no step reads the carried
+// values: the off-diagonal block uses this step's a0/a1 and the previous
+// step's u0/u1.  So the recursion carries only phi, u0 and u1.
 #include "blockmath.cuh"
+#include "pipeline.cuh"
+#include "rtcoop.cuh"
 
 namespace {
+
+namespace pp = cgt::pipe;
 
 // Forward elimination without a right-hand side (forward_sweep.cu's step
 // with no w, accy0 or mh), writing the raw factors of every interior step
@@ -89,41 +94,218 @@ forward_sweep_inverse_kernel(const T* __restrict__ Rm,
   cgt::store_vec<T, R>(invdl, 0, C, c, invd);
 }
 
-// a0 = p00 u0^T + p01 u1^T,  a1 = p10 u0^T + p11 u1^T  (Sigma_BB U^T)
+// Kernel 11 at ranks 1-8: the Takahashi recursion with the outputs and
+// the per-row factors taken off its serial chain.  Per row (steps s-2 .. 1
+// descending, stack rows t = s-3 .. 0) it computes
+//   di = D^{-1},  cd = C di,  pinv = di^T di,  hw0 = di^T W0
+//   phi_j = pinv + cd^T phi_{j+1} cd
+//   u0_j  = hw0 - cd^T u0_{j+1},   u1_j = -cd^T u1_{j+1}
+//   a0, a1        = Sigma_BB U_j^T (p00 u0_j^T + p01 u1_j^T, ...)
+//   Sigma_jj      = phi_j + u0_j a0 + u1_j a1
+//   Sigma_{j+1,j} = -phi_{j+1} cd + u0_{j+1} a0 + u1_{j+1} a1
+// Only phi, u0 and u1 cross rows, at four products a row; the hats (di,
+// cd, pinv, hw0) depend on the row's own factors and the outputs feed
+// nothing back.  So a thread block takes 32 chunk lanes (K11::LANES; 16,
+// 8 or 4 where shared memory is short) and walks their rows in tiles of
+// K11_ROWS = 3, its warps specialised:
+// * warp 0 (the chain), one thread per lane, runs the rows of tile u with
+//   phi, u0 and u1 in its registers, reading each row's (cd, pinv, hw0)
+//   from rings of hat tiles in shared memory, and parks each row's
+//   (phi_j, u0_j, u1_j) in one of two tile buffers;
+// * warps 1-3 each take one row of a tile: they copy the raw factors
+//   (D, 1/diag D, C, W0) of their row of tile u + 2 into shared memory with
+//   cp.async, build the hats of tile u + 1 from the copy that has landed,
+//   and form Sigma_jj and Sigma_{j+1,j} of tile u - 1 from the parked states
+//   (cd from the hat ring, p00..p11 copied into shared memory once).
+// One named barrier a tile.  The hat form reorders u0's and u1's sums:
+// D^{-T} (W0 - C^T u0) becomes D^{-T} W0 - (C D^{-1})^T u0, so u0, u1 and
+// the Sigma blocks differ from the thread-per-lane recursion of earlier
+// versions by rounding (phi and every other sum keep that kernel's order).
+#define K11_ROWS 3       // rows in a tile = output warps
+#define K11_THREADS 128  // warp 0 runs the chain, warps 1-3 the rest
+#define K11_CDS 3        // tiles of cd in its ring: built, chained, output
+
+// A thread block's shared memory per lane, lane innermost: two tile
+// buffers of K11_ROWS + 1 slots of (phi, u0, u1) -- slot 0 the state the
+// tile starts from (the seed at the first tile, else the previous tile's
+// last row), slot i + 1 the state after the tile's row i; the rows' hats,
+// cd in a ring of K11_CDS tiles (the outputs read it a tile after the
+// chain) and (pinv, hw0) in a ring of two; per output warp two slots of
+// its row's raw factors (D, C, W0, 1/diag D); and p00, p01, p10, p11.
 template <typename T, int R>
-__device__ __forceinline__ void sig_ut(const T (&p00)[R][R],
-                                       const T (&p01)[R][R],
-                                       const T (&p10)[R][R],
-                                       const T (&p11)[R][R],
-                                       const T (&u0)[R][R],
-                                       const T (&u1)[R][R], T (&a0)[R][R],
-                                       T (&a1)[R][R]) {
-  T t[R][R];
-  cgt::mm_tb<T, R>(p00, u0, a0);
-  cgt::mm_tb<T, R>(p01, u1, t);
+struct K11 {
+  static constexpr int E = 3 * R * R;              // phi, u0, u1 of one row
+  static constexpr int BUF = (K11_ROWS + 1) * E;   // one tile buffer
+  static constexpr int CDS = K11_CDS * K11_ROWS * R * R;
+  static constexpr int PW = 2 * R * R;             // pinv, hw0 of one row
+  static constexpr int PWS = 2 * K11_ROWS * PW;
+  static constexpr int RAW = 3 * R * R + R;        // D, C, W0, invd
+  static constexpr int RAWS = 2 * K11_ROWS * RAW;
+  static constexpr int PS = 4 * R * R;             // p00, p01, p10, p11
+  static constexpr int N = 2 * BUF + CDS + PWS + RAWS + PS;  // per lane
+  static constexpr int LANES = pp::lanes_for(size_t(N) * sizeof(T));
+  static constexpr size_t SMEM = size_t(N) * LANES * sizeof(T);
+};
+
+// Start copying stack row t's raw factors into a raw slot (one group; an
+// empty group where the row does not exist keeps the count of groups).
+template <typename T, int R>
+__device__ __forceinline__ void stage_raw(int t, int C, int c, T* slot,
+                                          const T* __restrict__ ds,
+                                          const T* __restrict__ invds,
+                                          const T* __restrict__ cs,
+                                          const T* __restrict__ w0s) {
+  constexpr int L = K11<T, R>::LANES;
+  if (t >= 0) {
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+    for (int a = 0; a < R; ++a)
 #pragma unroll
-    for (int k = 0; k < R; ++k) a0[i][k] += t[i][k];
-  cgt::mm_tb<T, R>(p10, u0, a1);
-  cgt::mm_tb<T, R>(p11, u1, t);
+      for (int b = 0; b < R; ++b) {
+        const size_t g = cgt::mat_at<R>(t, a, b, C, c);
+        pp::stage(slot + (a * R + b) * L, ds + g);
+        pp::stage(slot + (R * R + a * R + b) * L, cs + g);
+        pp::stage(slot + (2 * R * R + a * R + b) * L, w0s + g);
+      }
 #pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) a1[i][k] += t[i][k];
+    for (int a = 0; a < R; ++a)
+      pp::stage(slot + (3 * R * R + a) * L,
+                invds + cgt::vec_at<R>(t, a, C, c));
+  }
+  pp::stage_commit();
 }
 
-// One descending pass per chunk lane over stack rows s-3 .. 0 (steps s-2 ..
-// 1), seeded with the step s-1 values (phi, u0, u1) computed by the caller:
-//   di = D^{-1},  cd = C di
-//   phi_off = -phi_{j+1} cd
-//   phi_j   = di^T di + cd^T phi_{j+1} cd
-//   u0_j    = D^{-T} (W0_j - C^T u0_{j+1}),   u1_j = -D^{-T} C^T u1_{j+1}
-//   Sigma_jj      = phi_j + u0_j a0_j + u1_j a1_j
-//   Sigma_{j+1,j} = phi_off + u0_{j+1} a0_j + u1_{j+1} a1_j
+// A row's hats from its raw factors: cd = C D^{-1}, pinv = D^{-T} D^{-1},
+// hw0 = D^{-T} W0 (into pw), as the thread-per-lane recursion formed di
+// and cd.
 template <typename T, int R>
-__global__ void __launch_bounds__(CGT_THREADS)
-takahashi_backward_kernel(
+__device__ __forceinline__ void build_hats(const T* raw, T* cd, T* pw) {
+  constexpr int L = K11<T, R>::LANES;
+  T D[R][R], invd[R], m[R][R], di[R][R], t[R][R];
+  pp::park_get<T, R, L>(raw, 0, D);
+#pragma unroll
+  for (int a = 0; a < R; ++a) invd[a] = raw[(3 * R * R + a) * L];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < R; ++k) m[i][k] = (i == k) ? T(1) : T(0);
+  cgt::solve_lower<T, R, R>(D, invd, m, di);
+  pp::park_get<T, R, L>(raw, R * R, m);
+  cgt::mm<T, R>(m, di, t);
+  pp::park_put<T, R, L>(cd, 0, t);
+  cgt::mm_ta<T, R>(di, di, t);
+  pp::park_put<T, R, L>(pw, 0, t);  // pinv
+  pp::park_get<T, R, L>(raw, 2 * R * R, m);
+  cgt::mm_ta<T, R>(di, m, t);
+  pp::park_put<T, R, L>(pw, R * R, t);  // hw0
+}
+
+// The chain: one lane's rows of tile u, descending (row q of the walk is
+// stack row t = s-3-q), each from its hats in the rings' tiles of u (cds,
+// pws).
+template <typename T, int R>
+__device__ __forceinline__ void takahashi_chain_tile(int u, int s, T* buf,
+                                                     const T* cds,
+                                                     const T* pws,
+                                                     T (&phi)[R][R],
+                                                     T (&u0)[R][R],
+                                                     T (&u1)[R][R]) {
+  using K = K11<T, R>;
+  constexpr int L = K::LANES;
+  pp::park_put<T, R, L>(buf, 0, phi);
+  pp::park_put<T, R, L>(buf, R * R, u0);
+  pp::park_put<T, R, L>(buf, 2 * R * R, u1);
+#pragma unroll 1
+  for (int i = 0; i < K11_ROWS; ++i) {
+    const int t = s - 3 - (u * K11_ROWS + i);
+    if (t < 0) break;
+    const T* pw = pws + i * K::PW * L;
+    T cd[R][R], tm[R][R];
+    pp::park_get<T, R, L>(cds + i * R * R * L, 0, cd);
+    cgt::mm_ta<T, R>(cd, phi, tm);
+    cgt::mm<T, R>(tm, cd, phi);
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < R; ++b) phi[a][b] += pw[(a * R + b) * L];
+    cgt::mm_ta<T, R>(cd, u0, tm);
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < R; ++b)
+        u0[a][b] = pw[(R * R + a * R + b) * L] - tm[a][b];
+    cgt::mm_ta<T, R>(cd, u1, tm);
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < R; ++b) u1[a][b] = -tm[a][b];
+    pp::park_put<T, R, L>(buf, (i + 1) * K::E, phi);
+    pp::park_put<T, R, L>(buf, (i + 1) * K::E + R * R, u0);
+    pp::park_put<T, R, L>(buf, (i + 1) * K::E + 2 * R * R, u1);
+  }
+}
+
+// out = a b^T + c d^T with a, c a lane's blocks in shared memory, the two
+// products summed as the thread-per-lane kernel's sig_ut summed them
+template <typename T, int R>
+__device__ __forceinline__ void mm_tb2_park(const T* a_p, const T* c_p,
+                                            const T (&b)[R][R],
+                                            const T (&d)[R][R],
+                                            T (&out)[R][R]) {
+  constexpr int L = K11<T, R>::LANES;
+  T m[R][R], t[R][R];
+  pp::park_get<T, R, L>(a_p, 0, m);
+  cgt::mm_tb<T, R>(m, b, out);
+  pp::park_get<T, R, L>(c_p, 0, m);
+  cgt::mm_tb<T, R>(m, d, t);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < R; ++k) out[i][k] += t[i][k];
+}
+
+// An output warp: stack row t's Sigma_jj and Sigma_{j+1,j} from the states
+// parked after it (cur) and after the row before it in the walk (prev),
+// with the row's cd from the ring and p00..p11 from shared memory (ps).
+template <typename T, int R>
+__device__ __forceinline__ void takahashi_output_row(int t, int C, int c,
+                                                     const T* cur,
+                                                     const T* prev,
+                                                     const T* cd,
+                                                     const T* ps,
+                                                     T* diag_out,
+                                                     T* off_out) {
+  constexpr int L = K11<T, R>::LANES;
+  T u0[R][R], u1[R][R], a0[R][R], a1[R][R], m[R][R], tm[R][R];
+  pp::park_get<T, R, L>(cur, R * R, u0);
+  pp::park_get<T, R, L>(cur, 2 * R * R, u1);
+  constexpr int RR = R * R * L;
+  mm_tb2_park<T, R>(ps, ps + RR, u0, u1, a0);  // Sigma_BB U^T
+  mm_tb2_park<T, R>(ps + 2 * RR, ps + 3 * RR, u0, u1, a1);
+  cgt::mm<T, R>(u0, a0, m);
+  cgt::mm<T, R>(u1, a1, tm);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < R; ++k) m[i][k] = cur[(i * R + k) * L] + m[i][k] +
+                                          tm[i][k];
+  cgt::store_mat<T, R>(diag_out, t, C, c, m);
+  pp::park_get<T, R, L>(cd, 0, u0);
+  pp::park_get<T, R, L>(prev, 0, m);   // phi_{j+1}
+  cgt::mm<T, R>(m, u0, tm);            // -phi_off
+  pp::park_get<T, R, L>(prev, R * R, u0);
+  pp::park_get<T, R, L>(prev, 2 * R * R, u1);
+  cgt::mm<T, R>(u0, a0, m);
+  cgt::mm<T, R>(u1, a1, u0);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int k = 0; k < R; ++k) m[i][k] = -tm[i][k] + m[i][k] + u0[i][k];
+  cgt::store_mat<T, R>(off_out, t, C, c, m);
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(K11_THREADS)
+takahashi_split_kernel(
     const T* __restrict__ ds, const T* __restrict__ invds,
     const T* __restrict__ cs, const T* __restrict__ w0s,
     const T* __restrict__ p00_p, const T* __restrict__ p01_p,
@@ -131,84 +313,89 @@ takahashi_backward_kernel(
     const T* __restrict__ phi_p, const T* __restrict__ u0_p,
     const T* __restrict__ u1_p, int s, int C, T* diag_out, T* off_out,
     T* u0f, T* u1f) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  T p00[R][R], p01[R][R], p10[R][R], p11[R][R], phi[R][R], u0[R][R],
-      u1[R][R];
-  cgt::load_mat<T, R>(p00_p, 0, C, c, p00);
-  cgt::load_mat<T, R>(p01_p, 0, C, c, p01);
-  cgt::load_mat<T, R>(p10_p, 0, C, c, p10);
-  cgt::load_mat<T, R>(p11_p, 0, C, c, p11);
-  cgt::load_mat<T, R>(phi_p, 0, C, c, phi);
-  cgt::load_mat<T, R>(u0_p, 0, C, c, u0);
-  cgt::load_mat<T, R>(u1_p, 0, C, c, u1);
-  T eye[R][R];
+  using K = K11<T, R>;
+  constexpr int L = K::LANES;
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int c = blockIdx.x * L + lane;
+  const bool live = lane < L && c < C;
+  T* area = reinterpret_cast<T*>(cgt_smem) + lane;
+  T* cds = area + 2 * K::BUF * L;
+  T* pws = cds + K::CDS * L;
+  T* ps = pws + K::PWS * L + K::RAWS * L;
+  const int ntiles = s / K11_ROWS;  // s - 2 rows
+  // step u: the chain runs tile u while the other warps build the hats of
+  // tile u + 1 and form the outputs of tile u - 1; one barrier a step,
+  // and one before the first for the hats of tile 0
+  if (warp == 0) {
+    T phi[R][R], u0[R][R], u1[R][R];
+    if (live) {
+      cgt::load_mat<T, R>(phi_p, 0, C, c, phi);
+      cgt::load_mat<T, R>(u0_p, 0, C, c, u0);
+      cgt::load_mat<T, R>(u1_p, 0, C, c, u1);
+    }
+    pp::bar<K11_THREADS>();
+#pragma unroll 1
+    for (int u = 0; u < ntiles; ++u) {
+      if (live)
+        takahashi_chain_tile<T, R>(
+            u, s, area + (u % 2) * K::BUF * L,
+            cds + (u % K11_CDS) * K11_ROWS * R * R * L,
+            pws + (u % 2) * K11_ROWS * K::PW * L, phi, u0, u1);
+      pp::bar<K11_THREADS>();
+    }
+    if (live) {
+      cgt::store_mat<T, R>(u0f, 0, C, c, u0);
+      cgt::store_mat<T, R>(u1f, 0, C, c, u1);
+    }
+  } else {
+    const int i = warp - 1;  // this warp's row of a tile
+    T* raw = pws + K::PWS * L + i * 2 * K::RAW * L;  // two slots
+    // stack row of this warp's row of tile v, and where its hats go
+    auto row = [&](int v) { return s - 3 - (v * K11_ROWS + i); };
+    auto cd_of = [&](int v) {
+      return cds + ((v % K11_CDS) * K11_ROWS + i) * R * R * L;
+    };
+    auto pw_of = [&](int v) {
+      return pws + ((v % 2) * K11_ROWS + i) * K::PW * L;
+    };
+    if (live) {
+      if (i == 0) {  // p00..p11, for all three output warps
+        const T* srcs[4] = {p00_p, p01_p, p10_p, p11_p};
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+        for (int q = 0; q < 4; ++q)
 #pragma unroll
-    for (int k = 0; k < R; ++k) eye[i][k] = (i == k) ? T(1) : T(0);
-  for (int t = s - 3; t >= 0; --t) {
-    T D[R][R], invd[R], cm[R][R], di[R][R], cd[R][R], tm[R][R], tn[R][R];
-    cgt::load_mat<T, R>(ds, t, C, c, D);
-    cgt::load_vec<T, R>(invds, t, C, c, invd);
-    cgt::load_mat<T, R>(cs, t, C, c, cm);
-    cgt::solve_lower<T, R, R>(D, invd, eye, di);
-    cgt::mm<T, R>(cm, di, cd);
-
-    T phi_off[R][R], phi_j[R][R];
-    cgt::mm<T, R>(phi, cd, phi_off);
-    cgt::mm_ta<T, R>(di, di, phi_j);
-    cgt::mm_ta<T, R>(cd, phi, tm);
-    cgt::mm<T, R>(tm, cd, tn);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        phi_off[i][k] = -phi_off[i][k];
-        phi_j[i][k] += tn[i][k];
+          for (int a = 0; a < R * R; ++a)
+            pp::stage(ps + (q * R * R + a) * L,
+                      srcs[q] + size_t(a) * C + c);
       }
-
-    T u0_j[R][R], u1_j[R][R];
-    cgt::load_mat<T, R>(w0s, t, C, c, tn);
-    cgt::mm_ta<T, R>(cm, u0, tm);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int k = 0; k < R; ++k) tm[i][k] = tn[i][k] - tm[i][k];
-    cgt::solve_lower_t<T, R, R>(D, invd, tm, u0_j);
-    cgt::mm_ta<T, R>(cm, u1, tm);
-    cgt::solve_lower_t<T, R, R>(D, invd, tm, u1_j);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int k = 0; k < R; ++k) u1_j[i][k] = -u1_j[i][k];
-
-    T a0[R][R], a1[R][R];
-    sig_ut<T, R>(p00, p01, p10, p11, u0_j, u1_j, a0, a1);
-    // Sigma_jj
-    cgt::mm<T, R>(u0_j, a0, tm);
-    cgt::mm<T, R>(u1_j, a1, tn);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int k = 0; k < R; ++k) tm[i][k] = phi_j[i][k] + tm[i][k] + tn[i][k];
-    cgt::store_mat<T, R>(diag_out, t, C, c, tm);
-    // Sigma_{j+1,j}, with the previous step's u0 / u1
-    cgt::mm<T, R>(u0, a0, tm);
-    cgt::mm<T, R>(u1, a1, tn);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        tm[i][k] = phi_off[i][k] + tm[i][k] + tn[i][k];
-        phi[i][k] = phi_j[i][k];
-        u0[i][k] = u0_j[i][k];
-        u1[i][k] = u1_j[i][k];
+      stage_raw<T, R>(row(0), C, c, raw, ds, invds, cs, w0s);
+      stage_raw<T, R>(row(1), C, c, raw + K::RAW * L, ds, invds, cs, w0s);
+      pp::stage_wait<1>();
+      if (row(0) >= 0) build_hats<T, R>(raw, cd_of(0), pw_of(0));
+    }
+    pp::bar<K11_THREADS>();
+#pragma unroll 1
+    for (int u = 0; u <= ntiles; ++u) {
+      if (live && u < ntiles) {
+        stage_raw<T, R>(row(u + 2), C, c, raw + (u % 2) * K::RAW * L, ds,
+                        invds, cs, w0s);
+        pp::stage_wait<1>();
+        if (row(u + 1) >= 0)
+          build_hats<T, R>(raw + ((u + 1) % 2) * K::RAW * L, cd_of(u + 1),
+                           pw_of(u + 1));
       }
-    cgt::store_mat<T, R>(off_out, t, C, c, tm);
+      const int t = row(u - 1);
+      if (live && u > 0 && t >= 0) {
+        const T* buf = area + ((u - 1) % 2) * K::BUF * L;
+        takahashi_output_row<T, R>(t, C, c, buf + (i + 1) * K::E * L,
+                                   buf + i * K::E * L, cd_of(u - 1), ps,
+                                   diag_out, off_out);
+      }
+      if (u < ntiles) pp::bar<K11_THREADS>();
+    }
   }
-  cgt::store_mat<T, R>(u0f, 0, C, c, u0);
-  cgt::store_mat<T, R>(u1f, 0, C, c, u1);
 }
 
 inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
@@ -228,20 +415,35 @@ int launch_inverse_sweep(const T* R_cm, const T* O_cm, T jitter, int s, int d,
   return int(cudaGetLastError());
 }
 
+template <typename T, int R>
+int launch_takahashi_split(const T* ds, const T* invds, const T* cs,
+                           const T* w0s, const T* p00, const T* p01,
+                           const T* p10, const T* p11, const T* phi,
+                           const T* u0, const T* u1, int s, int C, T* diag,
+                           T* off, T* u0f, T* u1f, cudaStream_t stream) {
+  using K = K11<T, R>;
+  const cudaError_t err =
+      cgt::coop::prepare(takahashi_split_kernel<T, R>, K::SMEM);
+  if (err != cudaSuccess) return int(err);
+  takahashi_split_kernel<T, R>
+      <<<(C + K::LANES - 1) / K::LANES, K11_THREADS, K::SMEM, stream>>>(
+          ds, invds, cs, w0s, p00, p01, p10, p11, phi, u0, u1, s, C, diag,
+          off, u0f, u1f);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int launch_takahashi(const T* ds, const T* invds, const T* cs, const T* w0s,
                      const T* p00, const T* p01, const T* p10, const T* p11,
                      const T* phi, const T* u0, const T* u1, int s, int d,
                      int C, T* diag, T* off, T* u0f, T* u1f,
                      cudaStream_t stream) {
-#define CGT_LAUNCH(RR)                                                     \
-  takahashi_backward_kernel<T, RR>                                         \
-      <<<blocks_for(C), CGT_THREADS, 0, stream>>>(                         \
-          ds, invds, cs, w0s, p00, p01, p10, p11, phi, u0, u1, s, C, diag, \
-          off, u0f, u1f)
+#define CGT_LAUNCH(RR)                                                    \
+  return launch_takahashi_split<T, RR>(ds, invds, cs, w0s, p00, p01, p10, \
+                                       p11, phi, u0, u1, s, C, diag, off, \
+                                       u0f, u1f, stream)
   CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
-  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -292,6 +494,15 @@ int cgt_takahashi_backward_f64(const double* ds, const double* invds,
   return launch_takahashi<double>(ds, invds, cs, w0s, p00, p01, p10, p11,
                                   phi, u0, u1, s, d, C, diag, off, u0f, u1f,
                                   (cudaStream_t)stream);
+}
+
+// dynamic shared bytes per thread block of kernel 11's split design at
+// rank r (1..8; the second argument 1 for float64)
+int cgt_takahashi_split_smem_bytes(int r, int f64) {
+#define CGT_LAUNCH(RR) \
+  return int(f64 ? K11<double, RR>::SMEM : K11<float, RR>::SMEM)
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
 }
 
 }  // extern "C"

@@ -5,27 +5,33 @@
 // Replaces (cyclic_gps_tpu/ops/pallas_sweep.py):
 //   forward_sweep_collect_kernel <- :400 forward_sweep_collect_pallas
 //                                   (kernel body _sweep_collect_kernel, :328)
-//   backward_substitute_kernel   <- :1006 backward_substitute_pallas
+//   backsub_split_kernel         <- :1006 backward_substitute_pallas
 //                                   (_backsub_kernel, :976)
 //
-// What bounds them on the H100: both stream stacks of R x R blocks, one
-// thread per chunk lane c walking that chunk's s-1 rows (ascending for the
-// sweep, descending for the back-substitution).  Per row the sweep reads
+// What bounds them on the H100: both stream stacks of R x R blocks, each
+// chunk lane c walking that chunk's s-1 rows (ascending for the sweep,
+// descending for the back-substitution).  Per row the sweep reads
 // 2 R^2 + R values and writes 2 R^2 + R + 1; the back-substitution reads
 // 2 R^2 + R and writes R.  In bytes that is ~440 MB and ~240 MB at rank 5,
 // N = 1e6, float32 (bounds of ~0.13 and ~0.07 ms).  With C = N/s lanes
-// (7,813 at s = 128: ~61 blocks of 128 for 132 SMs) and a dependent chain
-// of small products per row, the sweep is latency- and occupancy-bound like
-// the likelihood's sweep; the back-substitution is a pure multiply-add walk
-// whose loads dominate.
+// (7,813 at s = 128) and a dependent chain of small products per row, the
+// sweep is latency- and occupancy-bound like the likelihood's sweep; the
+// back-substitution is a multiply-add walk whose loads dominate.
 //
-// What the simple design does about it: the elimination state and the
-// carried x_{j+1} stay in registers, each stack row is read or written once,
-// and the lane axis is innermost so every access coalesces.  The descending
-// walk indexes its rows backwards with plain strides (no reversed copy).
+// The sweep runs ONE THREAD PER CHUNK LANE (~61 blocks of 128 for 132 SMs):
+// the elimination state stays in registers, each stack row is read or
+// written once, and the lane axis is innermost so every access coalesces.
+// The back-substitution takes 32 lanes a block (245 blocks) and keeps
+// several tiles of rows in flight with cp.async while one warp runs the
+// chain (backsub_split_kernel, below).  Both index their rows with plain
+// strides (no reversed copy).
 #include "blockmath.cuh"
+#include "pipeline.cuh"
+#include "rtcoop.cuh"
 
 namespace {
+
+namespace pp = cgt::pipe;
 
 // Forward sweep (the elimination of forward_sweep.cu) that also writes, for
 // every interior step j = 1..s-1 (stack row j-1), the hat factors of the
@@ -68,42 +74,143 @@ forward_sweep_collect_kernel(const T* __restrict__ Rm,
                                mh, ld);
 }
 
-// One descending pass per chunk lane over stack rows s-2 .. 0 (steps s-1 ..
-// 1), the whole stack included:
-//   x_{s-1} = hat_w - hat_W0 x_b - hat_W1 x_{b,next}
-//   x_j     = hat_w - hat_W0 x_b - hat_C x_{j+1}
+// Kernel 9 at ranks 1-8: the back-substitution with its loads taken off
+// the chain.  One descending pass per chunk lane over stack rows s-2 .. 0
+// (steps s-1 .. 1), the whole stack included:
+//   common_j = hat_w_j - hat_W0_j x_b
+//   x_{s-1}  = common - hat_W1 x_{b,next}
+//   x_j      = common_j - hat_C_j x_{j+1}
+// Only x crosses rows, at R^2 multiply-adds a row; common_j depends on
+// the row alone.  A thread block takes 32 chunk lanes (K9::LANES; 16, 8
+// or 4 where shared memory is short) and walks their rows in tiles of
+// K9_ROWS = 3 through a ring of K9_SLOTS = 4 tiles in shared memory:
+// * warps 1-3 each take one row of a tile: they copy its (hat_C, hat_W0,
+//   hat_w) in with cp.async K9_SLOTS - 1 tiles ahead of the chain, and
+//   once the copy of tile u + 1 has landed form its common_j in place of
+//   hat_w (x_b, each lane's own, loaded once);
+// * warp 0 (the chain), one thread per lane, runs x_j down tile u from
+//   the ring and stores it.
+// One named barrier a tile.  Every sum keeps the order of the
+// thread-per-lane kernel it replaces, so x is that kernel's to the bit.
+#define K9_ROWS 3        // rows in a tile (a multiple of the 3 stagers)
+#define K9_THREADS 128   // warp 0 runs the chain, warps 1-3 stage the rows
+#define K9_SLOTS 4       // tiles in the ring
+
+// A thread block's shared memory per lane, lane innermost: K9_SLOTS tiles
+// of K9_ROWS rows of (hat_C, hat_W0, hat_w -> common).
 template <typename T, int R>
-__global__ void __launch_bounds__(CGT_THREADS)
-backward_substitute_kernel(const T* __restrict__ hc,
-                           const T* __restrict__ hw0,
-                           const T* __restrict__ hw,
-                           const T* __restrict__ hw1_p,
-                           const T* __restrict__ xb_p,
-                           const T* __restrict__ xbn_p, int s, int C,
-                           T* x_out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  T xb[R], x[R];
-  cgt::load_vec<T, R>(xb_p, 0, C, c, xb);
-  for (int t = s - 2; t >= 0; --t) {
-    T m[R][R], common[R], tv[R];
-    cgt::load_vec<T, R>(hw, t, C, c, common);
-    cgt::load_mat<T, R>(hw0, t, C, c, m);
-    cgt::mv<T, R>(m, xb, tv);
+struct K9 {
+  static constexpr int IN = 2 * R * R + R;  // one row
+  static constexpr int N = K9_SLOTS * K9_ROWS * IN;
+  static constexpr int LANES = pp::lanes_for(size_t(N) * sizeof(T));
+  static constexpr size_t SMEM = size_t(N) * LANES * sizeof(T);
+};
+
+template <typename T, int R>
+__global__ void __launch_bounds__(K9_THREADS)
+backsub_split_kernel(const T* __restrict__ hc, const T* __restrict__ hw0,
+                     const T* __restrict__ hw, const T* __restrict__ hw1_p,
+                     const T* __restrict__ xb_p,
+                     const T* __restrict__ xbn_p, int s, int C,
+                     T* x_out) {
+  using K = K9<T, R>;
+  constexpr int L = K::LANES;
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int c = blockIdx.x * L + lane;
+  const bool live = lane < L && c < C;
+  T* ring = reinterpret_cast<T*>(cgt_smem) + lane;
+  const int ntiles = (s + K9_ROWS - 2) / K9_ROWS;  // s - 1 rows
+  // row i of tile v: stack row s-2-(v K9_ROWS + i), in ring slot v % K9_SLOTS
+  auto at = [&](int v, int i) {
+    return ring + ((v % K9_SLOTS) * K9_ROWS + i) * K::IN * L;
+  };
+  // step u: the chain runs tile u while warps 1-3 start copying tile
+  // u + K9_SLOTS - 1 and form the common terms of tile u + 1; one barrier
+  // a step, and one before the first for tile 0
+  if (warp == 0) {
+    T x[R];
+    pp::bar<K9_THREADS>();
+#pragma unroll 1
+    for (int u = 0; u < ntiles; ++u) {
+      if (live) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) common[i] -= tv[i];
-    if (t == s - 2) {
-      T xbn[R];
-      cgt::load_mat<T, R>(hw1_p, 0, C, c, m);
-      cgt::load_vec<T, R>(xbn_p, 0, C, c, xbn);
-      cgt::mv<T, R>(m, xbn, tv);
-    } else {
-      cgt::load_mat<T, R>(hc, t, C, c, m);
-      cgt::mv<T, R>(m, x, tv);
+        for (int i = 0; i < K9_ROWS; ++i) {
+          const int t = s - 2 - (u * K9_ROWS + i);
+          if (t < 0) break;
+          const T* in = at(u, i);
+          T m[R][R], tv[R];
+          if (t == s - 2) {
+            T xbn[R];
+            cgt::load_mat<T, R>(hw1_p, 0, C, c, m);
+            cgt::load_vec<T, R>(xbn_p, 0, C, c, xbn);
+            cgt::mv<T, R>(m, xbn, tv);
+          } else {
+            pp::park_get<T, R, L>(in, 0, m);
+            cgt::mv<T, R>(m, x, tv);
+          }
+#pragma unroll
+          for (int a = 0; a < R; ++a)
+            x[a] = in[(2 * R * R + a) * L] - tv[a];
+          cgt::store_vec<T, R>(x_out, t, C, c, x);
+        }
+      }
+      pp::bar<K9_THREADS>();
     }
+  } else {
+    T xb[R];
+    if (live) cgt::load_vec<T, R>(xb_p, 0, C, c, xb);
+    // copy this warp's rows of tile v (one group, empty past the stack)
+    auto stage_tile = [&](int v) {
+      for (int i = warp - 1; i < K9_ROWS; i += K9_THREADS / 32 - 1) {
+        const int t = s - 2 - (v * K9_ROWS + i);
+        if (t < 0) break;
+        T* in = at(v, i);
 #pragma unroll
-    for (int i = 0; i < R; ++i) x[i] = common[i] - tv[i];
-    cgt::store_vec<T, R>(x_out, t, C, c, x);
+        for (int a = 0; a < R; ++a)
+#pragma unroll
+          for (int b = 0; b < R; ++b) {
+            const size_t g = cgt::mat_at<R>(t, a, b, C, c);
+            if (t != s - 2) pp::stage(in + (a * R + b) * L, hc + g);
+            pp::stage(in + (R * R + a * R + b) * L, hw0 + g);
+          }
+#pragma unroll
+        for (int a = 0; a < R; ++a)
+          pp::stage(in + (2 * R * R + a) * L,
+                    hw + cgt::vec_at<R>(t, a, C, c));
+      }
+      pp::stage_commit();
+    };
+    // common_j = hat_w_j - hat_W0_j x_b for this warp's rows of tile v
+    auto form_common = [&](int v) {
+      for (int i = warp - 1; i < K9_ROWS; i += K9_THREADS / 32 - 1) {
+        const int t = s - 2 - (v * K9_ROWS + i);
+        if (t < 0) break;
+        T* in = at(v, i);
+        T m[R][R], tv[R];
+        pp::park_get<T, R, L>(in, R * R, m);
+        cgt::mv<T, R>(m, xb, tv);
+#pragma unroll
+        for (int a = 0; a < R; ++a) in[(2 * R * R + a) * L] -= tv[a];
+      }
+    };
+    if (live) {
+#pragma unroll 1
+      for (int v = 0; v < K9_SLOTS - 1; ++v) stage_tile(v);
+      pp::stage_wait<K9_SLOTS - 2>();
+      form_common(0);
+    }
+    pp::bar<K9_THREADS>();
+#pragma unroll 1
+    for (int u = 0; u < ntiles; ++u) {
+      if (live && u + 1 < ntiles) {
+        stage_tile(u + K9_SLOTS - 1);
+        pp::stage_wait<K9_SLOTS - 2>();
+        form_common(u + 1);
+      }
+      pp::bar<K9_THREADS>();
+    }
   }
 }
 
@@ -124,17 +231,29 @@ int launch_collect(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
   return int(cudaGetLastError());
 }
 
+template <typename T, int R>
+int launch_backsub_split(const T* hc, const T* hw0, const T* hw,
+                         const T* hw1, const T* xb, const T* xbn, int s,
+                         int C, T* x, cudaStream_t stream) {
+  using K = K9<T, R>;
+  const cudaError_t err =
+      cgt::coop::prepare(backsub_split_kernel<T, R>, K::SMEM);
+  if (err != cudaSuccess) return int(err);
+  backsub_split_kernel<T, R>
+      <<<(C + K::LANES - 1) / K::LANES, K9_THREADS, K::SMEM, stream>>>(
+          hc, hw0, hw, hw1, xb, xbn, s, C, x);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int launch_backsub(const T* hc, const T* hw0, const T* hw, const T* hw1,
                    const T* xb, const T* xbn, int s, int d, int C, T* x,
                    cudaStream_t stream) {
-#define CGT_LAUNCH(RR)                                                   \
-  backward_substitute_kernel<T, RR>                                      \
-      <<<blocks_for(C), CGT_THREADS, 0, stream>>>(hc, hw0, hw, hw1, xb, \
-                                                   xbn, s, C, x)
+#define CGT_LAUNCH(RR)                                                 \
+  return launch_backsub_split<T, RR>(hc, hw0, hw, hw1, xb, xbn, s, C, x, \
+                                     stream)
   CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
-  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -179,6 +298,15 @@ int cgt_backward_substitute_f64(const double* hc, const double* hw0,
                                 int d, int C, double* x, void* stream) {
   return launch_backsub<double>(hc, hw0, hw, hw1, xb, xbn, s, d, C, x,
                                 (cudaStream_t)stream);
+}
+
+// dynamic shared bytes per thread block of kernel 9's split design at
+// rank r (1..8; the second argument 1 for float64)
+int cgt_backsub_split_smem_bytes(int r, int f64) {
+#define CGT_LAUNCH(RR) \
+  return int(f64 ? K9<double, RR>::SMEM : K9<float, RR>::SMEM)
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
 }
 
 }  // extern "C"

@@ -34,7 +34,8 @@ _SOURCES = ("forward_sweep.cu", "gap_emission.cu", "backward_sweep.cu",
             "celerite_sweep.cu", "celerite_filter.cu",
             "celerite_adjoint.cu", "wide_sweep.cu", "wide_backward.cu",
             "rt_solve.cu", "rt_inverse.cu")
-_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtcoop.cuh", "gapsmem.cuh")
+_HEADERS = ("blockmath.cuh", "celerite.cuh", "rtcoop.cuh", "gapsmem.cuh",
+            "pipeline.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -107,8 +108,8 @@ _SIGNATURES.update({
 # obs_dim, of the celerite likelihood sweep at nblocks, of the celerite
 # collecting filter and filter sweep at nblocks and obs_dim, and of
 # kernels 1, 6 and 7 at block size 16 (forward_sweep.cu's
-# and backward_sweep.cu's warp-per-lane sweeps and walk), and of kernel 7's
-# split design at ranks 1..8
+# and backward_sweep.cu's warp-per-lane sweeps and walk), and of the split
+# designs of kernels 7, 9 and 11 at ranks 1..8
 _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes",
     "cgt_rt_collect_smem_bytes", "cgt_rt_backsub_smem_bytes",
@@ -118,7 +119,8 @@ _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_celerite_collect_smem_bytes", "cgt_celerite_filter_smem_bytes",
     "cgt_forward_sweep_warp_smem_bytes",
     "cgt_solveinv_warp_smem_bytes", "cgt_backsolve_warp_smem_bytes",
-    "cgt_backsolve_split_smem_bytes")})
+    "cgt_backsolve_split_smem_bytes", "cgt_backsub_split_smem_bytes",
+    "cgt_takahashi_split_smem_bytes")})
 _SIGNATURES["cgt_celerite_sweep_smem_bytes"] = [_I]
 # the dynamic shared bytes per thread block of the K-system emission
 # (kernel 3), the fused emission sweep (kernel 4) and the emission adjoint

@@ -30,7 +30,10 @@ instances (``csrc/rt_solve.cu``, ``csrc/rt_inverse.cu``), which replace
 forward_sweep_collect_wide_pallas, :496 backward_substitute_wide_pallas,
 :641 forward_sweep_inverse_wide_pallas and :812
 takahashi_backward_wide_pallas on the chunk-major layout; a wrapper counts
-the two apart (``launches`` and ``launches_rt``).  The first three take
+the two apart (``launches`` and ``launches_rt``); at 1..8 the
+back-substitution and the Takahashi recursion split each chunk lane's
+rows between a chain warp and warps that stage rows or form outputs,
+counted on ``launches_split`` as well.  The first three take
 block sizes 1..8 one thread per chunk lane and 16 (celerite's boundary
 chain at nblocks 8) one warp per chunk lane; ``launches`` counts both,
 ``launches_warp`` the second.
@@ -466,8 +469,10 @@ def backward_substitute_cuda(hat_cs: Tensor, hat_w0s: Tensor,
     solution and its next-chunk shift.  Returns x rows [s-1, d, C] for
     steps 1..s-1.  float32 or float64, d in 1..15.
 
-    CUDA tensors launch ``csrc/solve_sweep.cu`` at d <= 8, one thread per
-    chunk lane (``backward_substitute_cuda.launches``), and
+    CUDA tensors launch ``csrc/solve_sweep.cu`` at d <= 8: 32 chunk lanes
+    a thread block, one warp running the rows' chain x_j while three warps
+    copy the rows in ahead of it with cp.async and form hat_w - hat_W0
+    x_b (``backward_substitute_cuda.launches`` and ``.launches_split``);
     ``csrc/rt_solve.cu`` at d = 9..15, one warp per chunk lane
     (``.launches_rt``); CPU tensors run `backward_substitute_plain`.
     """
@@ -490,11 +495,14 @@ def backward_substitute_cuda(hat_cs: Tensor, hat_w0s: Tensor,
         _launch(name, _solve_symbol("backward_substitute", d),
                 hat_cs.dtype, *args, sm1 + 1, d, c, x)
     _count_solve(backward_substitute_cuda, d)
+    if not _build.runtime_d(d):
+        backward_substitute_cuda.launches_split += 1
     return x
 
 
 backward_substitute_cuda.launches = 0
 backward_substitute_cuda.launches_rt = 0
+backward_substitute_cuda.launches_split = 0
 
 
 def forward_sweep_inverse_plain(R_cm: Tensor, O_cm: Tensor,
@@ -604,10 +612,15 @@ def takahashi_backward_cuda(ds: Tensor, invds: Tensor, cs: Tensor,
     Sigma_{j+1,j}, u0_final, u1_final [d, d, C]).  float32 or float64, d
     in 1..15.
 
-    CUDA tensors launch ``csrc/inverse_sweep.cu`` at d <= 8
-    (``takahashi_backward_cuda.launches``) and ``csrc/rt_inverse.cu`` at
-    d = 9..15 (``.launches_rt``); CPU tensors run
-    `takahashi_backward_plain`.
+    CUDA tensors launch ``csrc/inverse_sweep.cu`` at d <= 8: 32 chunk
+    lanes a thread block, one warp running the chain (phi, u0, u1) in the
+    hat form (phi_j = pinv + cd^T phi cd, u0_j = D^{-T} W0 - cd^T u0, u1_j
+    = -cd^T u1) while three warps copy the rows' factors in with cp.async,
+    build their hats and form Sigma_jj and Sigma_{j+1,j}
+    (``takahashi_backward_cuda.launches`` and ``.launches_split``); the hat
+    form sums u0 and u1 in another order than the twin, so the two agree
+    to rounding.  ``csrc/rt_inverse.cu`` at d = 9..15
+    (``.launches_rt``); CPU tensors run `takahashi_backward_plain`.
     """
     name = "takahashi_backward_cuda"
     args = (ds, invds, cs, w0s, p00, p01, p10, p11, phi0, u00, u10, a00,
@@ -633,8 +646,11 @@ def takahashi_backward_cuda(ds: Tensor, invds: Tensor, cs: Tensor,
         _launch(name, _solve_symbol("takahashi_backward", d), ds.dtype,
                 *args[:11], sm1 + 1, d, c, *outs)
     _count_solve(takahashi_backward_cuda, d)
+    if not _build.runtime_d(d):
+        takahashi_backward_cuda.launches_split += 1
     return tuple(outs)
 
 
 takahashi_backward_cuda.launches = 0
 takahashi_backward_cuda.launches_rt = 0
+takahashi_backward_cuda.launches_split = 0
