@@ -40,7 +40,12 @@ Phases, one line of output each (or more):
               their shared bytes, failing if kernel 7's float32 rank-5
               instance uses any stack or spill; kernels 9 and 11's split
               designs (a chain warp and three warps that stage rows) at
-              every rank and dtype with their shared bytes.
+              every rank and dtype with their shared bytes; kernels 6 and
+              8's split designs (csrc/pipeline.cuh's elim_split: lane
+              groups of a chain warp and three output warps) at every rank
+              and dtype with their shared bytes and the thread blocks an
+              SM holds, failing if a float32 rank-5 instance uses any
+              stack or spill.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -55,7 +60,11 @@ Phases, one line of output each (or more):
               giving the same bits on a second run; and kernel 7 at its
               edge shapes ([walk]: ranks 1, 5 and 8, s = 2, 3 and 7, C =
               1, 35 and 45, float32 and float64, the same bits on a second
-              run, every launch on the split design).
+              run, every launch on the split design); and kernels 6 and 8
+              at theirs ([elim-edges]: ranks 1, 5 and 8; s = 2, 4, 15 and
+              128; C = 1, 35, 45 and 70; float32 and float64; every output
+              against the twin, the same bits on a second run, every
+              launch on the split design).
   4. path     the likelihood through the user entry points with
               backend="auto" (the kernels), launch counts reset just
               before and read just after, then each value against
@@ -66,13 +75,16 @@ Phases, one line of output each (or more):
               case against autograd through the dense oracle.
   6. train    three Adam train steps on the fused N = 1e6 route, launch
               counts reset just before and read just after, every launch
-              of kernels 4, 5, 3 and 7 on their redesigned kernels; then one
-              step under torch.profiler; then the float32 default on this
+              of kernels 4, 5, 3, 7 and 6 on their redesigned kernels; then
+              one step under torch.profiler (every launch of 6 split; its
+              busy share against the profiled wall and against the
+              unprofiled median; its ten largest device ops and every
+              split kernel below them); then the float32 default on this
               grid, the residual loss: log_likelihood_residual's value and
               gradient with backend="auto" against "torch", and two steps
               of fit(loss=None), which must pick "cr_residual", with the
-              launch counts of kernels 2, 3, 5-9 (every launch of 9 on its
-              split design).
+              launch counts of kernels 2, 3, 5-9 (every launch of 9, 8 and
+              6 on its split design).
   7. posterior the four posterior kernels against their twins on the inputs
               one insample_posterior(method="precision") call hands them
               at N = 1e6; kernels 9 and 11 at their edge shapes
@@ -80,15 +92,16 @@ Phases, one line of output each (or more):
               and 12 (11), C = 1, 35 and 45, float32 and float64, the same
               bits on a second run, every launch on the split design);
               the solve of bench.py's system (N = 1e6, d = 5) with
-              backend="auto" and "torch", every launch of kernel 9 split;
-              the posterior path (float32 irregular with launch counts
-              reset just before and read just after, every launch of
-              kernel 3 tiled and of 9 and 11 split, float32 regular,
+              backend="auto" and "torch", every launch of kernels 9 and 8
+              split; the posterior path (float32 irregular with launch
+              counts reset just before and read just after, every launch
+              of kernel 3 tiled and of 8, 9 and 11 split, float32 regular,
               float64 method="auto")
               and make_predictions (P = 1e6 targets, and a dense P = 4096
               grid on N = 1024), each against backend="torch"; a float64
               N = 48 predictive against the dense GP oracle; one profiled
-              insample_posterior call.
+              insample_posterior call (busy share against the profiled and
+              the unprofiled wall).
   8. celerite the celerite family at nblocks = 8 (rank 16), obs 1, N = 1e6
               on the bench grid (gaps randint(1, 5) * 0.125, float32): the
               four celerite kernels against their twins, and the engine's
@@ -206,9 +219,11 @@ def say(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps=REPS):
-    """Median CUDA-event time of fn() in ms, after one warm-up run."""
-    fn()
+def cuda_ms(fn, reps=REPS, warm=True):
+    """Median CUDA-event time of fn() in ms, after one warm-up run (none
+    with ``warm=False``, for a function that has just run)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -1839,6 +1854,77 @@ def run_post_walk_edges(dev, check_kernel, sweep_cuda, pt):
     say(f"[post-walk] phase took {time.perf_counter() - t0:.1f} s")
 
 
+# kernels 6 and 8 at ranks 1-8 (pipeline.cuh's split sweep: lane groups of
+# 32 chunk lanes, or fewer where shared memory is short, two a block where
+# they fit; a chain warp and three output warps a group, tiles of 3 rows, a
+# ring of 3 input tiles, or 2 where shared memory is short): s = 2 one row
+# (row 1's seeding from O_0 alone), 4 one tile, 15 five tiles (the ring
+# wrapping), 128 the main path's chunk length; C = 1 a lone lane, 35 and
+# 45 a ragged second block, 70 three blocks
+ELIM_EDGES = tuple((r, s, c) for r in (1, 5, 8)
+                   for s, c in ((2, 35), (4, 45), (15, 35), (2, 1), (4, 1),
+                                (15, 45), (128, 70)))
+
+
+def run_elim_edges(dev, sweep_cuda, pt):
+    """Kernels 6 and 8 (split designs) against their twins at ELIM_EDGES,
+    float32 and float64, every output (the last state, mh, ld, the hat
+    stacks, pinv, ld_rows), on a block-tridiagonal system diagonally
+    dominant at every block size (q q^T / d + 4 I, off-diagonal blocks
+    randn / 2d, seeded), pivot jitter 1e-3: each within 1e-3 (float32) or
+    1e-9 (float64) relative plus 1e-4 or 1e-10 of each output's scale, the
+    same bits on a second run, and every launch on the split design.  One
+    line a kernel (the worst err/tol of its shapes)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    for key in ("forward_sweep_solveinv", "forward_sweep_collect"):
+        kern = getattr(sweep_cuda, f"{key}_cuda")
+        twin = getattr(sweep_cuda, f"{key}_plain")
+        n0, n_split = kern.launches, kern.launches_split
+        worst = 0.0
+        for r, s, c in ELIM_EDGES:
+            system = dominant_system(
+                np.random.RandomState(100 * r + 10 * s + c), r, s * c)
+            for dtype, (rtol, atol) in ((torch.float32, (1e-3, 1e-4)),
+                                        (torch.float64, (1e-9, 1e-10))):
+                ins = [t.contiguous() for t in pt._chunk_layout(
+                    *(torch.as_tensor(a, dtype=dtype, device=dev)
+                      for a in system), s)[:3]]
+                with torch.no_grad():
+                    got = kern(*ins, 1e-3)
+                    again = kern(*ins, 1e-3)
+                    ref = twin(*ins, 1e-3)
+                    torch.cuda.synchronize()
+                label = f"{key} at rank {r}, s = {s}, C = {c}, {dtype}"
+                if not all(bool(torch.equal(a, b))
+                           for a, b in zip(got, again)):
+                    fail(f"{label}: two runs differ")
+                for i, (a, b) in enumerate(zip(got, ref)):
+                    a, b = a.double(), b.double()
+                    if a.shape != b.shape or not bool(
+                            torch.isfinite(a).all()):
+                        fail(f"{label} output {i}: shape {tuple(a.shape)} "
+                             f"vs {tuple(b.shape)}, or non-finite")
+                    tol = atol * float(b.abs().max()) + rtol * b.abs()
+                    diff = (a - b).abs()
+                    ratio = float(torch.where(diff == 0, 0.0,
+                                              diff / tol).max())
+                    worst = max(worst, ratio)
+                    if ratio > 1.0:
+                        fail(f"{label} output {i} disagrees with its twin: "
+                             f"err/tol {ratio:.3e}")
+        n_all = kern.launches - n0
+        if kern.launches_split - n_split != n_all:
+            fail(f"{key}: a launch at ranks 1-8 did not take the split "
+                 "design")
+        say(f"[elim-edges] {key} (split design) agrees with its twin at "
+            f"{len(ELIM_EDGES)} edge shapes, float32 and float64 (worst "
+            f"err/tol {worst:.3e}), gives the same bits on a second run at "
+            f"each; {n_all} launches, all split")
+    say(f"[elim-edges] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
                        grad_bar):
     """The float32 training default on a large irregular grid: fit(loss=
@@ -1884,7 +1970,10 @@ def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
         "backward_solve_takahashi": sweep_cuda.backward_solve_takahashi_cuda}
     for w in wrappers.values():
         w.launches = 0
-    sweep_cuda.backward_substitute_cuda.launches_split = 0
+    split = ("backward_substitute", "forward_sweep_collect",
+             "forward_sweep_solveinv")
+    for k in split:
+        wrappers[k].launches_split = 0
     stamps = []
 
     def stamp(step, loss):
@@ -1905,12 +1994,13 @@ def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
     for k, n in counts.items():
         if n <= 0:
             fail(f"kernel {k} was not launched by the residual train step")
-    n_split = sweep_cuda.backward_substitute_cuda.launches_split
-    say(f"[train] residual steps: kernel 9 split launches {n_split} of "
-        f"{counts['backward_substitute']}")
-    if n_split != counts["backward_substitute"]:
-        fail("backward_substitute: a launch in the residual train steps did "
-             "not take the split design")
+    n_split = {k: wrappers[k].launches_split for k in split}
+    say(f"[train] residual steps: split launches of kernels 9, 8 and 6 "
+        f"{n_split} (of {[counts[k] for k in split]})")
+    for k in split:
+        if n_split[k] != counts[k]:
+            fail(f"{k}: a launch in the residual train steps did not take "
+                 "the split design")
 
 
 def main():
@@ -2141,6 +2231,30 @@ def main():
                     f"(kernel {num}): registers {regs}, stack {stack} B, "
                     f"spill stores {spill} B, dynamic shared bytes per block "
                     f"{query(r, f64)}")
+    # kernels 6 and 8's split designs (pipeline.cuh's elim_split: lane
+    # groups of a chain warp and three output warps, one layout) at every
+    # rank and dtype, with the thread blocks an SM holds; the float32
+    # rank-5 instances must not touch local memory
+    for kname, num, blocks in (
+            ("solveinv_split_kernel", 6,
+             lib.cgt_solveinv_split_blocks_per_sm),
+            ("collect_split_kernel", 8, lib.cgt_collect_split_blocks_per_sm)):
+        for r in _build.RANKS:
+            for code, f64 in (("f", 0), ("d", 1)):
+                rep = [v for k, v in _build.ptxas_report(r).items()
+                       if f"{kname}I{code}Li{r}E" in k and v[0] is not None]
+                if len(rep) != 1:
+                    fail(f"{kname}<{code}, {r}>: no single entry in the "
+                         "compiler's report")
+                regs, stack, spill = rep[0]
+                say(f"[build] {kname}<{'double' if f64 else 'float'}, {r}> "
+                    f"(kernel {num}): registers {regs}, stack {stack} B, "
+                    f"spill stores {spill} B, dynamic shared bytes per block "
+                    f"{lib.cgt_elim_split_smem_bytes(r, f64)}, blocks an SM "
+                    f"{blocks(r, f64)}")
+                if r == RANK and not f64 and (stack or spill):
+                    fail(f"{kname}<float, {r}> uses local memory (stack "
+                         f"{stack} B, spill stores {spill} B)")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -2215,7 +2329,8 @@ def main():
         terms far larger than themselves).  ``record=False`` checks
         without adding a row to the kernels line (another block size of
         a kernel that has its row), printed under ``phase``; ``reps`` timed
-        runs of kernel and twin."""
+        runs of the kernel, and up to three of the twin (one for a check
+        without a row)."""
         kw = kw or {}
         def outputs(fn, *a):
             out = fn(*a, **kw)
@@ -2238,8 +2353,12 @@ def main():
                         f"{e_kern:.3e}, float32 twin {e_twin:.3e}")
             err = compare(key, got, ref, rtol, atol, atol_of_scale, atols)
             ms = cuda_ms(lambda: kernel(*args, **kw), reps)
-            # the twins take 0.03-3 s a call: three runs give their median
-            plain_ms = cuda_ms(lambda: twin(*args, **kw), min(reps, 3))
+            # the twins take 0.03-5 s a call: three runs give their median
+            # for a kernel's row, one run (the comparison's warmed it up)
+            # for a check that adds no row
+            plain_ms = (cuda_ms(lambda: twin(*args, **kw), min(reps, 3))
+                        if record else
+                        cuda_ms(lambda: twin(*args, **kw), 1, warm=False))
         # an emission kernel's generator is its first argument
         b_ms, b_by = bound(key, args, got,
                            g if gaps_of is None else args[0], gaps_of)
@@ -2306,7 +2425,8 @@ def main():
         sweep_cuda.forward_sweep_solveinv_cuda,
         sweep_cuda.forward_sweep_solveinv_plain, args6, 1e-3, 1e-4,
         "kernel 1's 127 dependent steps plus the triangular inverse behind "
-        "pinv = P^{-1}; atol is 1e-4 of each output's scale",
+        "pinv = P^{-1}; atol is 1e-4 of each output's scale; split design "
+        "(pipeline.cuh elim_split: a chain warp, three output warps)",
         kw=kw6, atol_of_scale=True)
     args7, _ = captured["backward_solve_takahashi_cuda"]
     check_kernel(
@@ -2328,6 +2448,7 @@ def main():
     del once, twice
     run_emission_edges(dev, check_kernel, leg, expm_cuda)
     run_walk_edges(dev, check_kernel, sweep_cuda, pt)
+    run_elim_edges(dev, sweep_cuda, pt)
     by_name = {r["name"]: r for r in rows}
 
     # ---- 4. the main path through the user entry points -------------------
@@ -2466,6 +2587,7 @@ def main():
     expm_cuda.k_system_adjoint_cuda.launches_sorted = 0
     expm_cuda.k_system_cuda.launches_tiled = 0
     sweep_cuda.backward_solve_takahashi_cuda.launches_split = 0
+    sweep_cuda.forward_sweep_solveinv_cuda.launches_split = 0
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2486,9 +2608,11 @@ def main():
                expm_cuda.k_system_adjoint_cuda.launches_sorted,
                "k_system": expm_cuda.k_system_cuda.launches_tiled,
                "backward_solve_takahashi":
-               sweep_cuda.backward_solve_takahashi_cuda.launches_split}
-    say(f"[train] launches of kernels 4 (tiled), 5 (sorted), 3 (tiled) and "
-        f"7 (split) in the {TRAIN_STEPS} steps: {designs}")
+               sweep_cuda.backward_solve_takahashi_cuda.launches_split,
+               "forward_sweep_solveinv":
+               sweep_cuda.forward_sweep_solveinv_cuda.launches_split}
+    say(f"[train] launches of kernels 4 (tiled), 5 (sorted), 3 (tiled), "
+        f"7 and 6 (split) in the {TRAIN_STEPS} steps: {designs}")
     for key, n in designs.items():
         if n != by_name[key]["launches"]:
             fail(f"{key}: {n} of {by_name[key]['launches']} launches in the "
@@ -2517,7 +2641,21 @@ def main():
                 by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
         return wall, by_name
 
+    k6 = sweep_cuda.forward_sweep_solveinv_cuda
+    n6, n6_split = k6.launches, k6.launches_split
+    def top_ops(by_kernel):
+        """The ten device ops with the most time, then every split-design
+        kernel of ranks 1-8 below them (the LEG kernels 6-9 and 11 that
+        earlier PRs and this one redesigned), as (name, (ms, calls))."""
+        ops = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+        return ops[:10] + [kv for kv in ops[10:] if "split_kernel" in kv[0]]
+
     wall, by_kernel = profiled(lambda: loop.train_step(p_train, opt, ts, xs))
+    n6, n6_split = k6.launches - n6, k6.launches_split - n6_split
+    say(f"[train] profiled step: kernel 6 launches {n6}, split {n6_split}")
+    if n6 <= 0 or n6_split != n6:
+        fail("forward_sweep_solveinv: not launched in the profiled step, or "
+             "a launch did not take the split design")
     _, by_fwd = profiled(lambda: loop.nll_loss(p_train, ts, xs))
     if not by_kernel:
         say("[train] profiled step: the profiler saw no device events; "
@@ -2526,13 +2664,15 @@ def main():
         dev_ms = sum(ms for ms, _ in by_kernel.values())
         fwd_ms = sum(ms for ms, _ in by_fwd.values())
         n_ops = sum(n for _, n in by_kernel.values())
+        med = statistics.median(step_ms[1:])
         say(f"[train] profiled step: wall {wall:.2f} ms (profiler on), "
             f"{n_ops} device ops, device {dev_ms:.2f} ms, busy share "
-            f"{dev_ms / wall:.3f}; the forward alone (loss with grad on) "
+            f"{dev_ms / wall:.3f}, against the unprofiled median wall "
+            f"{med:.2f} ms of the steps after the first {dev_ms / med:.3f}; "
+            "the forward alone (loss with grad on) "
             f"{fwd_ms:.2f} ms of device time, "
             f"{sum(n for _, n in by_fwd.values())} device ops")
-    for key, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
-            :10]:
+    for key, (ms, n) in top_ops(by_kernel):
         say(f"[train]   {key[:80]}: {ms:.3f} ms, {n} calls")
     # the float32 default on this grid: the residual loss
     run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
@@ -2554,7 +2694,9 @@ def main():
     for key, line, why in (
             ("forward_sweep_collect", 400,
              "kernel 1's 127 dependent elimination steps plus three back "
-             "substitutions per row; atol is 1e-4 of each output's scale"),
+             "substitutions per row; atol is 1e-4 of each output's scale; "
+             "split design (pipeline.cuh elim_split: a chain warp, three "
+             "output warps)"),
             ("backward_substitute", 1006,
              "127 dependent multiply-add steps; atol is 1e-4 of the "
              "output's scale"),
@@ -2580,7 +2722,9 @@ def main():
     # bench.py's headline op: solve + logdet of its system at N = 1e6, d = 5
     R_b, O_b, y_b = make_system_cm(N_BIG, 5, dev)
     k9 = sweep_cuda.backward_substitute_cuda
+    k8 = sweep_cuda.forward_sweep_collect_cuda
     n9, n9_split = k9.launches, k9.launches_split
+    n8, n8_split = k8.launches, k8.launches_split
     with torch.no_grad():
         x_a, ld_a = pt.solve_cm(R_b, O_b, y_b, backend="auto")
         x_t, ld_t = pt.solve_cm(R_b, O_b, y_b, backend="torch")
@@ -2596,11 +2740,12 @@ def main():
     if not ok:
         fail("solve_cm: backend='auto' disagrees with 'torch'")
     say(f"[posterior] solve_cm: kernel 9 launches {k9.launches - n9}, "
-        f"split {k9.launches_split - n9_split}")
-    if k9.launches == n9 or (k9.launches_split - n9_split
-                             != k9.launches - n9):
-        fail("solve_cm: kernel 9 was not launched, or a launch did not "
-             "take the split design")
+        f"split {k9.launches_split - n9_split}; kernel 8 launches "
+        f"{k8.launches - n8}, split {k8.launches_split - n8_split}")
+    for num, k, n, n_split in ((9, k9, n9, n9_split), (8, k8, n8, n8_split)):
+        if k.launches == n or k.launches_split - n_split != k.launches - n:
+            fail(f"solve_cm: kernel {num} was not launched, or a launch did "
+                 "not take the split design")
     del R_b, O_b, y_b, x_a, x_t
 
     # the posterior path: counts reset just before and read just after
@@ -2608,7 +2753,8 @@ def main():
         r["kernel"].launches = 0
     expm_cuda.k_system_cuda.launches_tiled = 0
     split_walks = {key: getattr(sweep_cuda, f"{key}_cuda") for key in
-                   ("backward_substitute", "takahashi_backward")}
+                   ("forward_sweep_collect", "backward_substitute",
+                    "takahashi_backward")}
     for w in split_walks.values():
         w.launches_split = 0
     with torch.no_grad():
@@ -2620,7 +2766,7 @@ def main():
     say(f"[posterior] launches in one insample_posterior(method="
         f"'precision') call, N={N_BIG} irregular float32: {post_launches}; "
         f"kernel 3 tiled {expm_cuda.k_system_cuda.launches_tiled}; kernels "
-        f"9 and 11 split {post_split}")
+        f"8, 9 and 11 split {post_split}")
     if expm_cuda.k_system_cuda.launches_tiled != post_launches["k_system"]:
         fail("k_system: a launch in the posterior call did not take the "
              "tiled design")
@@ -2657,10 +2803,12 @@ def main():
          1e-9, "float64: the same emission on both backends, eliminations "
          "in other orders; atol is 1e-9 of each output's scale"),
     ]
+    post_wall = None  # the unprofiled wall of the float32 irregular call
     for label, call, bar, why in post_cases:
         with torch.no_grad():
             ms_auto, got = host_ms(lambda: call("auto"), reps=1)
             ms_plain, ref = host_ms(lambda: call("torch"), reps=1)
+        post_wall = post_wall or ms_auto
         compare(label, got, ref, 0.0, bar, atol_of_scale=True)
         say(f"[posterior] {label}: auto {ms_auto:.2f} ms, torch "
             f"{ms_plain:.2f} ms (host clock); agree ({why})")
@@ -2728,9 +2876,10 @@ def main():
         n_ops = sum(n for _, n in by_kernel.values())
         say(f"[posterior] profiled insample_posterior N={N_BIG} irregular "
             f"float32: wall {wall:.2f} ms (profiler on), {n_ops} device "
-            f"ops, device {dev_ms:.2f} ms, busy share {dev_ms / wall:.3f}")
-    for key, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[
-            :10]:
+            f"ops, device {dev_ms:.2f} ms, busy share {dev_ms / wall:.3f}, "
+            f"against the unprofiled wall {post_wall:.2f} ms (host clock, "
+            f"one run after a warm-up) {dev_ms / post_wall:.3f}")
+    for key, (ms, n) in top_ops(by_kernel):
         say(f"[posterior]   {key[:80]}: {ms:.3f} ms, {n} calls")
 
     # ---- 8. celerite: nblocks 8 (rank 16), the bench grid ------------------

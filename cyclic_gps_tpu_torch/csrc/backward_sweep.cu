@@ -3,7 +3,7 @@
 // runs the back-substitution and the hat-form Takahashi recursion on them.
 //
 // Replaces (cyclic_gps_tpu/ops/pallas_sweep.py):
-//   forward_sweep_solveinv_kernel,  <- :772 forward_sweep_solveinv_pallas
+//   solveinv_split_kernel,          <- :772 forward_sweep_solveinv_pallas
 //   solveinv_warp_kernel               (kernel body _sweep_solveinv_kernel,
 //                                      :699)
 //   backsolve_split_kernel,          <- :918 backward_solve_takahashi_pallas
@@ -16,34 +16,23 @@
 // 3 R^2 + R and writes 2 R^2 + R -- so in bytes they sit at about the
 // card's memory rate for ~540 MB each at rank 5, N = 1e6 (~0.16 ms).  But
 // with C = N/s lanes (7,813 at s = 128) each lane runs a dependent chain
-// of R x R products per row, so they are latency- and occupancy-bound,
-// not bandwidth-bound.
+// of R x R products per row, so one thread per lane leaves them latency-
+// and occupancy-bound; with the chain split off, the sweep's time on the
+// H100 is mostly its stores of the four stacks.
 //
 // Three designs, routed by block size in the launchers:
-// * The sweep at R = 1..8: ONE THREAD PER CHUNK LANE (~61 blocks of 128
-//   at N = 1e6).  The elimination state stays in registers, each stack row
-//   is read or written exactly once, and the lane axis is innermost so
-//   every access coalesces.
-// * The walk at R = 1..8: THE CHAIN SPLIT FROM THE OUTPUTS
-//   (backsolve_split_kernel, below): 32 lanes a block (245 blocks at
-//   N = 1e6), one warp running the rows' serial chain (x, phi, u0, u1)
-//   while three warps form the selected-inverse blocks of the rows before
-//   it from what the chain parks in shared memory.  It indexes its rows
-//   backwards with plain strides -- no reversed copy.
-// * R = 16 (the celerite family's boundary chain at nblocks = 8: C = 245
-//   lanes of s = 32 at N = 1e6, then 8): ONE WARP PER CHUNK LANE on
-//   rtcoop.cuh, as the kernels of block sizes 9-15.  Held per thread, a
-//   16 x 16 row is ~14 blocks of local memory and 245 threads fill two of
-//   the card's 132 SMs, so one lane's chain of dependent products ran from
-//   memory at one thread's pace.  Here the lane's blocks sit in shared
-//   memory and its 32 threads share every product, the Cholesky's trailing
-//   updates and the triangular solves; the 8 (float32) or 4 (float64)
-//   lanes of a thread block load and store their rows as whole 32-byte
-//   spans.  The sweep is Sweep::step on the d = 16 triangle Tri16 followed
-//   by Sweep::hats, the hats from di = D^{-1} as wide_sweep.cu's
-//   collecting sweep (kernel 21) builds them; the walk is wide_backward.cu's
-//   recursion (kernel 22) on chunk-major tiles.  Both sum as the thread
-//   kernels do, so the designs agree to rounding.
+// * The sweep at R = 1..8: THE CHAIN SPLIT FROM THE OUTPUTS
+//   (solveinv_split_kernel, below, on pipeline.cuh's elim_split): lane
+//   groups of 32 lanes, two a block at rank 5 float32 (123 blocks at
+//   N = 1e6), in each one warp running the elimination's carried part
+//   while three warps copy the rows in ahead of it with cp.async and
+//   form each row's hats, pinv, log-det and its terms of the sums from
+//   what the chain parks in shared memory.
+// * The walk at R = 1..8: the same split (backsolve_split_kernel, below):
+//   32 lanes a block, one warp running the rows' serial chain (x, phi,
+//   u0, u1) while three warps form the selected-inverse blocks of the rows
+//   before it.  It indexes its rows backwards with plain strides -- no
+//   reversed copy.
 #include "blockmath.cuh"
 #include "pipeline.cuh"
 #include "rtcoop.cuh"
@@ -52,52 +41,55 @@ namespace {
 
 namespace pp = cgt::pipe;
 
-// Forward sweep that also writes, for every interior step j = 1..s-1
-// (stack row j-1): hat_C = D^{-T} C^T, hat_W0 = D^{-T} W0, hat_w = D^{-T} w
-// and pinv = P^{-1} = D^{-T} D^{-1}, all from the triangular inverse
-// di = D^{-1} (one inversion and four products, as the TPU kernel's emit).
+// Kernel 6's outputs of stack row t (elim_split's emit): the triangular
+// inverse di = D^{-1}, then hat_C = di^T C^T, hat_W0 = di^T W0, hat_w =
+// di^T w and pinv = di^T di.
 template <typename T, int R>
-__global__ void __launch_bounds__(CGT_THREADS)
-forward_sweep_solveinv_kernel(const T* __restrict__ Rm,
-                              const T* __restrict__ Om,
-                              const T* __restrict__ ym, T jitter, int s,
-                              int C, T* acc00, T* accy0, T* w0l, T* wl, T* dl,
-                              T* invdl, T* mh, T* ld, T* hc, T* hw0, T* hw,
-                              T* pinv, T* ld_rows) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  cgt::SweepCarry<T, R> st;
-  T o_left[R][R];
-  cgt::load_mat<T, R>(Om, 0, C, c, o_left);
-  T eye[R][R];
+struct SolveinvHats {
+  T *hc, *hw0, *hw, *pinv;
+  int C;
+  __device__ __forceinline__ void operator()(int t, int c, const T (&D)[R][R],
+                                             const T (&invd)[R],
+                                             const T (&cprev)[R][R],
+                                             const T (&w0)[R][R],
+                                             const T (&w)[R]) const {
+    T eye[R][R], di[R][R], m[R][R], ct[R][R], v[R];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int k = 0; k < R; ++k) eye[i][k] = (i == k) ? T(1) : T(0);
-  for (int j = 1; j < s; ++j) {
-    T P[R][R], o_j[R][R], y_j[R];
-    cgt::load_mat<T, R>(Rm, j, C, c, P);
-#pragma unroll
-    for (int i = 0; i < R; ++i) P[i][i] += jitter;
-    cgt::load_mat<T, R>(Om, j, C, c, o_j);
-    cgt::load_vec<T, R>(ym, j, C, c, y_j);
-    const T ldl = cgt::elim_step<T, R>(j == 1, P, o_j, y_j, o_left, st);
-    ld_rows[size_t(j - 1) * C + c] = T(2) * ldl;
-
-    T di[R][R], t[R][R], ct[R][R], v[R];
-    cgt::solve_lower<T, R, R>(st.D, st.invd, eye, di);
-    cgt::transpose<T, R>(st.cprev, ct);
-    cgt::mm_ta<T, R>(di, ct, t);  // di^T C^T
-    cgt::store_mat<T, R>(hc, j - 1, C, c, t);
-    cgt::mm_ta<T, R>(di, st.w0, t);
-    cgt::store_mat<T, R>(hw0, j - 1, C, c, t);
-    cgt::mv_ta<T, R>(di, st.w, v);
-    cgt::store_vec<T, R>(hw, j - 1, C, c, v);
-    cgt::mm_ta<T, R>(di, di, t);
-    cgt::store_mat<T, R>(pinv, j - 1, C, c, t);
+      for (int k = 0; k < R; ++k) eye[i][k] = (i == k) ? T(1) : T(0);
+    cgt::solve_lower<T, R, R>(D, invd, eye, di);
+    cgt::transpose<T, R>(cprev, ct);
+    cgt::mm_ta<T, R>(di, ct, m);  // di^T C^T
+    cgt::store_mat<T, R>(hc, t, C, c, m);
+    cgt::mm_ta<T, R>(di, w0, m);
+    cgt::store_mat<T, R>(hw0, t, C, c, m);
+    cgt::mv_ta<T, R>(di, w, v);
+    cgt::store_vec<T, R>(hw, t, C, c, v);
+    cgt::mm_ta<T, R>(di, di, m);
+    cgt::store_mat<T, R>(pinv, t, C, c, m);
   }
-  cgt::store_sweep_state<T, R>(st, C, c, acc00, accy0, w0l, wl, dl, invdl,
-                               mh, ld);
+};
+
+// Kernel 6 at ranks 1-8: the forward sweep that also writes, for every
+// interior step j = 1..s-1 (stack row j-1): hat_C = D^{-T} C^T, hat_W0 =
+// D^{-T} W0, hat_w = D^{-T} w and pinv = P^{-1} = D^{-T} D^{-1}, all from
+// the triangular inverse di = D^{-1} (one inversion and four products, as
+// the TPU kernel's emit), and 2 log|D_j|.  The split design of
+// pipeline.cuh's elim_split: a chain warp runs the elimination's carried
+// part down tiles of 3 rows while three warps copy the rows in and form
+// the inversion, the four products, ld_rows and the sums.
+template <typename T, int R>
+__global__ void __launch_bounds__(pp::Elim<T, R>::THREADS)
+solveinv_split_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
+                      const T* __restrict__ ym, T jitter, int s, int C,
+                      T* acc00, T* accy0, T* w0l, T* wl, T* dl, T* invdl,
+                      T* mh, T* ld, T* hc, T* hw0, T* hw, T* pinv,
+                      T* ld_rows) {
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  pp::elim_split<T, R>(reinterpret_cast<T*>(cgt_smem), Rm, Om, ym, jitter,
+                       s, C, acc00, accy0, w0l, wl, dl, invdl, mh, ld,
+                       ld_rows, SolveinvHats<T, R>{hc, hw0, hw, pinv, C});
 }
 
 // Kernel 7 at ranks 1-8: the descending pass with the outputs taken off
@@ -378,7 +370,7 @@ constexpr int WARP_D = 16;
 enum { SV_DI = co::SW_BLOCKS, SV_HC, SV_PINV, SV_BLOCKS };
 enum { SV_HW = co::SW_VECS, SV_VECS };
 
-// forward_sweep_solveinv_kernel<T, 16> as one warp per chunk lane: per row
+// kernel 6 at block size 16 as one warp per chunk lane: per row
 // Sweep::step, then Sweep::hats (di = D^{-1} one column per thread, and
 // hat_C = di^T C^T, hat_W0 = di^T W0, hat_w = di^T w, pinv = di^T di).
 template <typename T>
@@ -576,7 +568,22 @@ size_t backsolve_warp_smem() {
   return co::smem_bytes<T>(WARP_D, BW_BLOCKS, BW_VECS);
 }
 
-inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
+template <typename T, int R>
+int launch_solveinv_split(const T* R_cm, const T* O_cm, const T* y_cm,
+                          T jitter, int s, int C, T* acc00, T* accy0, T* w0l,
+                          T* wl, T* dl, T* invdl, T* mh, T* ld, T* hc,
+                          T* hw0, T* hw, T* pinv, T* ld_rows,
+                          cudaStream_t stream) {
+  using K = pp::Elim<T, R>;
+  const cudaError_t err = co::prepare(solveinv_split_kernel<T, R>, K::SMEM);
+  if (err != cudaSuccess) return int(err);
+  solveinv_split_kernel<T, R>
+      <<<(C + K::BLOCK_LANES - 1) / K::BLOCK_LANES, K::THREADS, K::SMEM,
+         stream>>>(
+          R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl,
+          mh, ld, hc, hw0, hw, pinv, ld_rows);
+  return int(cudaGetLastError());
+}
 
 template <typename T>
 int launch_solveinv(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
@@ -593,14 +600,12 @@ int launch_solveinv(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
         ld, hc, hw0, hw, pinv, ld_rows);
     return int(cudaGetLastError());
   }
-#define CGT_LAUNCH(RR)                                                     \
-  forward_sweep_solveinv_kernel<T, RR>                                     \
-      <<<blocks_for(C), CGT_THREADS, 0, stream>>>(                         \
-          R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl, \
-          mh, ld, hc, hw0, hw, pinv, ld_rows)
+#define CGT_LAUNCH(RR)                                                    \
+  return launch_solveinv_split<T, RR>(R_cm, O_cm, y_cm, jitter, s, C,     \
+                                      acc00, accy0, w0l, wl, dl, invdl, mh, \
+                                      ld, hc, hw0, hw, pinv, ld_rows, stream)
   CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
-  return int(cudaGetLastError());
 }
 
 template <typename T, int R>
@@ -641,6 +646,15 @@ int launch_backsolve(const T* hc, const T* hw0, const T* hw, const T* pinv,
                              stream)
   CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
+}
+
+// thread blocks of solveinv_split_kernel<T, R> one SM holds
+template <typename T, int R>
+int solveinv_split_blocks() {
+  using K = pp::Elim<T, R>;
+  if (co::prepare(solveinv_split_kernel<T, R>, K::SMEM) != cudaSuccess)
+    return -1;
+  return pp::blocks_per_sm(solveinv_split_kernel<T, R>, K::THREADS, K::SMEM);
 }
 
 }  // namespace
@@ -706,6 +720,17 @@ int cgt_backsolve_warp_smem_bytes(int d, int f64) {
   if (d != WARP_D) return -1;
   return int(f64 ? backsolve_warp_smem<double>()
                  : backsolve_warp_smem<float>());
+}
+
+// thread blocks an SM of kernel 6's split design at rank r (1..8; the
+// second argument 1 for float64; its shared bytes: solve_sweep.cu's
+// cgt_elim_split_smem_bytes)
+int cgt_solveinv_split_blocks_per_sm(int r, int f64) {
+#define CGT_LAUNCH(RR)                             \
+  return f64 ? solveinv_split_blocks<double, RR>() \
+             : solveinv_split_blocks<float, RR>()
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
 }
 
 // dynamic shared bytes per thread block of kernel 7's split design at rank

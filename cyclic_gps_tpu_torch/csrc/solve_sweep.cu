@@ -3,7 +3,7 @@
 // back-substitution over them.
 //
 // Replaces (cyclic_gps_tpu/ops/pallas_sweep.py):
-//   forward_sweep_collect_kernel <- :400 forward_sweep_collect_pallas
+//   collect_split_kernel         <- :400 forward_sweep_collect_pallas
 //                                   (kernel body _sweep_collect_kernel, :328)
 //   backsub_split_kernel         <- :1006 backward_substitute_pallas
 //                                   (_backsub_kernel, :976)
@@ -14,17 +14,19 @@
 // 2 R^2 + R values and writes 2 R^2 + R + 1; the back-substitution reads
 // 2 R^2 + R and writes R.  In bytes that is ~440 MB and ~240 MB at rank 5,
 // N = 1e6, float32 (bounds of ~0.13 and ~0.07 ms).  With C = N/s lanes
-// (7,813 at s = 128) and a dependent chain of small products per row, the
-// sweep is latency- and occupancy-bound like the likelihood's sweep; the
-// back-substitution is a multiply-add walk whose loads dominate.
+// (7,813 at s = 128) each lane runs a dependent chain of small products
+// per row, so both are latency-bound unless the chain is split from the
+// rest.
 //
-// The sweep runs ONE THREAD PER CHUNK LANE (~61 blocks of 128 for 132 SMs):
-// the elimination state stays in registers, each stack row is read or
-// written once, and the lane axis is innermost so every access coalesces.
-// The back-substitution takes 32 lanes a block (245 blocks) and keeps
-// several tiles of rows in flight with cp.async while one warp runs the
-// chain (backsub_split_kernel, below).  Both index their rows with plain
-// strides (no reversed copy).
+// Both split each lane's rows between warps, one running the serial chain
+// while the others copy rows in with cp.async and form what feeds nothing
+// back: the sweep is pipeline.cuh's elim_split (the elimination's carried
+// part on the chain; the three back substitutions, ld_rows and the sums
+// on three output warps; two lane groups of 32 a block at rank 5 float32,
+// 123 blocks at N = 1e6), the back-substitution is backsub_split_kernel
+// below (32 lanes a block, 245 blocks).  With the chain split off, the
+// sweep's time on the H100 is mostly its stores of the hat stacks.  Both
+// index their rows with plain strides (no reversed copy).
 #include "blockmath.cuh"
 #include "pipeline.cuh"
 #include "rtcoop.cuh"
@@ -33,45 +35,47 @@ namespace {
 
 namespace pp = cgt::pipe;
 
-// Forward sweep (the elimination of forward_sweep.cu) that also writes, for
-// every interior step j = 1..s-1 (stack row j-1), the hat factors of the
-// back-substitution, each by one back substitution against D_j^T as the TPU
-// kernel does:  hat_C = D^{-T} C^T,  hat_W0 = D^{-T} W0,  hat_w = D^{-T} w,
-// and the step's pivot log-determinant 2 log|D_j|.
+// Kernel 8's outputs of stack row t (elim_split's emit), each by one back
+// substitution against D_j^T as the TPU kernel writes them.
 template <typename T, int R>
-__global__ void __launch_bounds__(CGT_THREADS)
-forward_sweep_collect_kernel(const T* __restrict__ Rm,
-                             const T* __restrict__ Om,
-                             const T* __restrict__ ym, T jitter, int s, int C,
-                             T* acc00, T* accy0, T* w0l, T* wl, T* dl,
-                             T* invdl, T* mh, T* ld, T* hc, T* hw0, T* hw,
-                             T* ld_rows) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  cgt::SweepCarry<T, R> st;
-  T o_left[R][R];
-  cgt::load_mat<T, R>(Om, 0, C, c, o_left);
-  for (int j = 1; j < s; ++j) {
-    T P[R][R], o_j[R][R], y_j[R];
-    cgt::load_mat<T, R>(Rm, j, C, c, P);
-#pragma unroll
-    for (int i = 0; i < R; ++i) P[i][i] += jitter;
-    cgt::load_mat<T, R>(Om, j, C, c, o_j);
-    cgt::load_vec<T, R>(ym, j, C, c, y_j);
-    const T ldl = cgt::elim_step<T, R>(j == 1, P, o_j, y_j, o_left, st);
-    ld_rows[size_t(j - 1) * C + c] = T(2) * ldl;
-
-    T ct[R][R], t[R][R], v[R];
-    cgt::transpose<T, R>(st.cprev, ct);
-    cgt::solve_lower_t<T, R, R>(st.D, st.invd, ct, t);
-    cgt::store_mat<T, R>(hc, j - 1, C, c, t);
-    cgt::solve_lower_t<T, R, R>(st.D, st.invd, st.w0, t);
-    cgt::store_mat<T, R>(hw0, j - 1, C, c, t);
-    cgt::solve_lower_t_vec<T, R>(st.D, st.invd, st.w, v);
-    cgt::store_vec<T, R>(hw, j - 1, C, c, v);
+struct CollectHats {
+  T *hc, *hw0, *hw;
+  int C;
+  __device__ __forceinline__ void operator()(int t, int c, const T (&D)[R][R],
+                                             const T (&invd)[R],
+                                             const T (&cprev)[R][R],
+                                             const T (&w0)[R][R],
+                                             const T (&w)[R]) const {
+    T ct[R][R], m[R][R], v[R];
+    cgt::transpose<T, R>(cprev, ct);
+    cgt::solve_lower_t<T, R, R>(D, invd, ct, m);
+    cgt::store_mat<T, R>(hc, t, C, c, m);
+    cgt::solve_lower_t<T, R, R>(D, invd, w0, m);
+    cgt::store_mat<T, R>(hw0, t, C, c, m);
+    cgt::solve_lower_t_vec<T, R>(D, invd, w, v);
+    cgt::store_vec<T, R>(hw, t, C, c, v);
   }
-  cgt::store_sweep_state<T, R>(st, C, c, acc00, accy0, w0l, wl, dl, invdl,
-                               mh, ld);
+};
+
+// Kernel 8 at ranks 1-8: the forward sweep (the elimination of
+// forward_sweep.cu) that also writes, for every interior step j = 1..s-1
+// (stack row j-1), the hat factors of the back-substitution, each by one
+// back substitution against D_j^T as the TPU kernel does:  hat_C =
+// D^{-T} C^T,  hat_W0 = D^{-T} W0,  hat_w = D^{-T} w, and the step's
+// pivot log-determinant 2 log|D_j|.  The split design of
+// pipeline.cuh's elim_split: a chain warp runs the elimination's carried
+// part down tiles of 3 rows while three warps copy the rows in and form
+// these three solves, ld_rows and the sums.
+template <typename T, int R>
+__global__ void __launch_bounds__(pp::Elim<T, R>::THREADS)
+collect_split_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
+                     const T* __restrict__ ym, T jitter, int s, int C,
+                     T* acc00, T* accy0, T* w0l, T* wl, T* dl, T* invdl,
+                     T* mh, T* ld, T* hc, T* hw0, T* hw, T* ld_rows) {
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  pp::elim_split<T, R>(reinterpret_cast<T*>(cgt_smem), Rm, Om, ym, jitter,
+                       s, C, acc00, accy0, w0l, wl, dl, invdl, mh, ld,
+                       ld_rows, CollectHats<T, R>{hc, hw0, hw, C});
 }
 
 // Kernel 9 at ranks 1-8: the back-substitution with its loads taken off
@@ -214,21 +218,34 @@ backsub_split_kernel(const T* __restrict__ hc, const T* __restrict__ hw0,
   }
 }
 
-inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
+template <typename T, int R>
+int launch_collect_split(const T* R_cm, const T* O_cm, const T* y_cm,
+                         T jitter, int s, int C, T* acc00, T* accy0, T* w0l,
+                         T* wl, T* dl, T* invdl, T* mh, T* ld, T* hc, T* hw0,
+                         T* hw, T* ld_rows, cudaStream_t stream) {
+  using K = pp::Elim<T, R>;
+  const cudaError_t err =
+      cgt::coop::prepare(collect_split_kernel<T, R>, K::SMEM);
+  if (err != cudaSuccess) return int(err);
+  collect_split_kernel<T, R>
+      <<<(C + K::BLOCK_LANES - 1) / K::BLOCK_LANES, K::THREADS, K::SMEM,
+         stream>>>(
+          R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl,
+          mh, ld, hc, hw0, hw, ld_rows);
+  return int(cudaGetLastError());
+}
 
 template <typename T>
 int launch_collect(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
                    int s, int d, int C, T* acc00, T* accy0, T* w0l, T* wl,
                    T* dl, T* invdl, T* mh, T* ld, T* hc, T* hw0, T* hw,
                    T* ld_rows, cudaStream_t stream) {
-#define CGT_LAUNCH(RR)                                                      \
-  forward_sweep_collect_kernel<T, RR>                                       \
-      <<<blocks_for(C), CGT_THREADS, 0, stream>>>(                          \
-          R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl, \
-          mh, ld, hc, hw0, hw, ld_rows)
+#define CGT_LAUNCH(RR)                                                       \
+  return launch_collect_split<T, RR>(R_cm, O_cm, y_cm, jitter, s, C, acc00, \
+                                     accy0, w0l, wl, dl, invdl, mh, ld, hc, \
+                                     hw0, hw, ld_rows, stream)
   CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
-  return int(cudaGetLastError());
 }
 
 template <typename T, int R>
@@ -254,6 +271,15 @@ int launch_backsub(const T* hc, const T* hw0, const T* hw, const T* hw1,
                                      stream)
   CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
+}
+
+// thread blocks of collect_split_kernel<T, R> one SM holds
+template <typename T, int R>
+int collect_split_blocks() {
+  using K = pp::Elim<T, R>;
+  if (cgt::coop::prepare(collect_split_kernel<T, R>, K::SMEM) != cudaSuccess)
+    return -1;
+  return pp::blocks_per_sm(collect_split_kernel<T, R>, K::THREADS, K::SMEM);
 }
 
 }  // namespace
@@ -298,6 +324,26 @@ int cgt_backward_substitute_f64(const double* hc, const double* hw0,
                                 int d, int C, double* x, void* stream) {
   return launch_backsub<double>(hc, hw0, hw, hw1, xb, xbn, s, d, C, x,
                                 (cudaStream_t)stream);
+}
+
+// dynamic shared bytes per thread block of kernel 8's and kernel 6's split
+// designs (one layout, pipeline.cuh's Elim) at rank r (1..8; the second
+// argument 1 for float64)
+int cgt_elim_split_smem_bytes(int r, int f64) {
+#define CGT_LAUNCH(RR) \
+  return int(f64 ? pp::Elim<double, RR>::SMEM : pp::Elim<float, RR>::SMEM)
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
+}
+
+// thread blocks an SM of kernel 8's split design at rank r (1..8; the
+// second argument 1 for float64)
+int cgt_collect_split_blocks_per_sm(int r, int f64) {
+#define CGT_LAUNCH(RR)                             \
+  return f64 ? collect_split_blocks<double, RR>() \
+             : collect_split_blocks<float, RR>()
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
 }
 
 // dynamic shared bytes per thread block of kernel 9's split design at

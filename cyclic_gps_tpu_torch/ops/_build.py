@@ -109,7 +109,8 @@ _SIGNATURES.update({
 # collecting filter and filter sweep at nblocks and obs_dim, and of
 # kernels 1, 6 and 7 at block size 16 (forward_sweep.cu's
 # and backward_sweep.cu's warp-per-lane sweeps and walk), and of the split
-# designs of kernels 7, 9 and 11 at ranks 1..8
+# designs of kernels 7, 9 and 11 at ranks 1..8, and of kernels 6 and 8
+# there (one layout), with the thread blocks an SM holds of each
 _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_rt_takahashi_smem_bytes", "cgt_wide_backward_smem_bytes",
     "cgt_rt_collect_smem_bytes", "cgt_rt_backsub_smem_bytes",
@@ -120,7 +121,8 @@ _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_forward_sweep_warp_smem_bytes",
     "cgt_solveinv_warp_smem_bytes", "cgt_backsolve_warp_smem_bytes",
     "cgt_backsolve_split_smem_bytes", "cgt_backsub_split_smem_bytes",
-    "cgt_takahashi_split_smem_bytes")})
+    "cgt_takahashi_split_smem_bytes", "cgt_elim_split_smem_bytes",
+    "cgt_collect_split_blocks_per_sm", "cgt_solveinv_split_blocks_per_sm")})
 _SIGNATURES["cgt_celerite_sweep_smem_bytes"] = [_I]
 # the dynamic shared bytes per thread block of the K-system emission
 # (kernel 3), the fused emission sweep (kernel 4) and the emission adjoint

@@ -30,13 +30,15 @@ instances (``csrc/rt_solve.cu``, ``csrc/rt_inverse.cu``), which replace
 forward_sweep_collect_wide_pallas, :496 backward_substitute_wide_pallas,
 :641 forward_sweep_inverse_wide_pallas and :812
 takahashi_backward_wide_pallas on the chunk-major layout; a wrapper counts
-the two apart (``launches`` and ``launches_rt``); at 1..8 the
-back-substitution and the Takahashi recursion split each chunk lane's
-rows between a chain warp and warps that stage rows or form outputs,
-counted on ``launches_split`` as well.  The first three take
-block sizes 1..8 one thread per chunk lane and 16 (celerite's boundary
-chain at nblocks 8) one warp per chunk lane; ``launches`` counts both,
-``launches_warp`` the second.
+the two apart (``launches`` and ``launches_rt``); at 1..8 the collecting
+sweep, the back-substitution and the Takahashi recursion split each chunk
+lane's rows between a chain warp and warps that stage rows or form
+outputs, counted on ``launches_split`` as well.  The first three take
+block sizes 1..8 and 16 (celerite's boundary chain at nblocks 8), 16 one
+warp per chunk lane (``launches`` counts every launch, ``launches_warp``
+those at 16); at 1..8 the likelihood's sweep runs one thread per chunk
+lane, and the solve+inverse sweep and the walk split each lane's rows as
+above (``launches_split``).
 
 Each wrapper launches its kernel for CUDA tensors; for CPU tensors it runs
 its plain twin (``*_plain``), which computes the same function with tensor
@@ -242,11 +244,16 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     stack row j-1 holding step j: hat_C = D^{-T} C^T, hat_W0 = D^{-T} W0,
     hat_w = D^{-T} w and pinv = P^{-1} = D^{-T} D^{-1}.
 
-    CUDA tensors launch ``csrc/backward_sweep.cu``: one thread per chunk
-    lane at d = 1..8, one warp per chunk lane at d = 16
+    CUDA tensors launch ``csrc/backward_sweep.cu``: at d = 1..8 lane
+    groups of 32 chunk lanes (fewer where shared memory is short; two a
+    thread block where they fit), in each one warp running the
+    elimination's carried part while three warps copy the rows in ahead
+    of it with cp.async and form the hats, pinv, the row log-dets and the
+    sums (``csrc/pipeline.cuh``'s ``elim_split``); one
+    warp per chunk lane at d = 16
     (``forward_sweep_solveinv_cuda.launches`` counts every launch,
-    ``.launches_warp`` those at 16); CPU tensors run
-    `forward_sweep_solveinv_plain`.
+    ``.launches_split`` those at 1..8, ``.launches_warp`` those at 16);
+    CPU tensors run `forward_sweep_solveinv_plain`.
     """
     name = "forward_sweep_solveinv_cuda"
     _build.check_no_grad(name, R_cm, O_cm, y_cm)
@@ -264,6 +271,8 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     forward_sweep_solveinv_cuda.launches += 1
     if d == 16:
         forward_sweep_solveinv_cuda.launches_warp += 1
+    else:
+        forward_sweep_solveinv_cuda.launches_split += 1
     (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0, hw, pinv,
      ld_rows) = outs
     return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
@@ -271,6 +280,7 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 
 
 forward_sweep_solveinv_cuda.launches = 0
+forward_sweep_solveinv_cuda.launches_split = 0
 forward_sweep_solveinv_cuda.launches_warp = 0
 
 
@@ -409,10 +419,15 @@ def forward_sweep_collect_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     pivot log-det 2 log|D_j|.  The stacks come at the true chunk count C
     (the TPU kernel pads them to its lane tile).
 
-    CUDA tensors launch ``csrc/solve_sweep.cu`` at d <= 8
-    (``forward_sweep_collect_cuda.launches``) and ``csrc/rt_solve.cu`` at
-    d = 9..15 (``.launches_rt``); CPU tensors run
-    `forward_sweep_collect_plain`.
+    CUDA tensors launch ``csrc/solve_sweep.cu`` at d <= 8: lane groups of
+    32 chunk lanes (fewer where shared memory is short; two a thread
+    block where they fit), in each one warp running the elimination's
+    carried part while three warps copy the rows in ahead of it with
+    cp.async and form the hats, the row log-dets and the sums
+    (``csrc/pipeline.cuh``'s ``elim_split``;
+    ``forward_sweep_collect_cuda.launches`` and ``.launches_split``);
+    ``csrc/rt_solve.cu`` at d = 9..15, one warp per chunk lane
+    (``.launches_rt``); CPU tensors run `forward_sweep_collect_plain`.
     """
     name = "forward_sweep_collect_cuda"
     _build.check_no_grad(name, R_cm, O_cm, y_cm)
@@ -428,6 +443,8 @@ def forward_sweep_collect_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
         _launch(name, _solve_symbol("forward_sweep_collect", d),
                 R_cm.dtype, R_cm, O_cm, y_cm, float(jitter), s, d, c, *outs)
     _count_solve(forward_sweep_collect_cuda, d)
+    if not _build.runtime_d(d):
+        forward_sweep_collect_cuda.launches_split += 1
     (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0, hw,
      ld_rows) = outs
     return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
@@ -436,6 +453,7 @@ def forward_sweep_collect_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
 
 forward_sweep_collect_cuda.launches = 0
 forward_sweep_collect_cuda.launches_rt = 0
+forward_sweep_collect_cuda.launches_split = 0
 
 
 def backward_substitute_plain(hat_cs, hat_w0s, hat_ws, hat_w1, xb,
