@@ -40,12 +40,15 @@ Phases, one line of output each (or more):
               their shared bytes, failing if kernel 7's float32 rank-5
               instance uses any stack or spill; kernels 9 and 11's split
               designs (a chain warp and three warps that stage rows) at
-              every rank and dtype with their shared bytes; kernels 6 and
-              8's split designs (csrc/pipeline.cuh's elim_split: lane
-              groups of a chain warp and three output warps) at every rank
-              and dtype with their shared bytes and the thread blocks an
-              SM holds, failing if a float32 rank-5 instance uses any
-              stack or spill.
+              every rank and dtype with their shared bytes; the split
+              designs of the four elimination sweeps, kernels 6, 8, 1 and
+              10 (csrc/pipeline.cuh's elim_split: lane groups of a chain
+              warp and three output warps; 10 without the right-hand
+              side) at every rank and dtype with their shared bytes and
+              the thread blocks an SM holds, failing if a float32 rank-5
+              instance uses any stack or spill, and their thread-per-lane
+              instances (float64 ranks 7 and 8) with the table that routes
+              to them (sweep_cuda.THREAD_F64).
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
@@ -60,11 +63,15 @@ Phases, one line of output each (or more):
               giving the same bits on a second run; and kernel 7 at its
               edge shapes ([walk]: ranks 1, 5 and 8, s = 2, 3 and 7, C =
               1, 35 and 45, float32 and float64, the same bits on a second
-              run, every launch on the split design); and kernels 6 and 8
-              at theirs ([elim-edges]: ranks 1, 5 and 8; s = 2, 4, 15 and
-              128; C = 1, 35, 45 and 70; float32 and float64; every output
-              against the twin, the same bits on a second run, every
-              launch on the split design).
+              run, every launch on the split design); and the four
+              elimination sweeps, kernels 1, 6, 8 and 10, at theirs
+              ([elim-edges]: ranks 1, 5 and 8; s = 2, 4, 15 and 128; C =
+              1, 35, 45 and 70; float32 and float64; every output against
+              the twin, the same bits on a second run, every launch on the
+              design the table names); then both designs of the four at
+              float64 ranks 7 and 8, N = 1e5, 4e5, 1e6 and 2e6
+              ([elim-pick]: each against the twin, timed in turns, failing
+              where the table picks the slower).
   4. path     the likelihood through the user entry points with
               backend="auto" (the kernels), launch counts reset just
               before and read just after, then each value against
@@ -75,16 +82,19 @@ Phases, one line of output each (or more):
               case against autograd through the dense oracle.
   6. train    three Adam train steps on the fused N = 1e6 route, launch
               counts reset just before and read just after, every launch
-              of kernels 4, 5, 3, 7 and 6 on their redesigned kernels; then
-              one step under torch.profiler (every launch of 6 split; its
-              busy share against the profiled wall and against the
-              unprofiled median; its ten largest device ops and every
-              split kernel below them); then the float32 default on this
+              of kernels 4, 5, 3, 7 and 6 on their redesigned kernels and
+              of kernels 1, 6, 8 and 10 on the design the table names; then
+              one step under torch.profiler (every launch of 6 split, of
+              1, 6, 8, 10 on the table's design; its busy share against
+              the profiled wall and against the unprofiled median; its ten
+              largest device ops and every split kernel below them; the
+              summed device time and launches of kernels 1, 6, 8 and 10);
+              then the float32 default on this
               grid, the residual loss: log_likelihood_residual's value and
               gradient with backend="auto" against "torch", and two steps
               of fit(loss=None), which must pick "cr_residual", with the
               launch counts of kernels 2, 3, 5-9 (every launch of 9, 8 and
-              6 on its split design).
+              6 on its split design, of 1, 6, 8, 10 on the table's).
   7. posterior the four posterior kernels against their twins on the inputs
               one insample_posterior(method="precision") call hands them
               at N = 1e6; kernels 9 and 11 at their edge shapes
@@ -93,15 +103,17 @@ Phases, one line of output each (or more):
               bits on a second run, every launch on the split design);
               the solve of bench.py's system (N = 1e6, d = 5) with
               backend="auto" and "torch", every launch of kernels 9 and 8
-              split; the posterior path (float32 irregular with launch
-              counts reset just before and read just after, every launch
-              of kernel 3 tiled and of 8, 9 and 11 split, float32 regular,
-              float64 method="auto")
+              split (and of 1, 6, 8, 10 on the table's design); the
+              posterior path (float32 irregular with launch counts reset
+              just before and read just after, every launch of kernel 3
+              tiled, of 8, 9 and 11 split and of 1, 6, 8, 10 on the
+              table's design, float32 regular, float64 method="auto")
               and make_predictions (P = 1e6 targets, and a dense P = 4096
               grid on N = 1024), each against backend="torch"; a float64
               N = 48 predictive against the dense GP oracle; one profiled
               insample_posterior call (busy share against the profiled and
-              the unprofiled wall).
+              the unprofiled wall; the summed device time and launches of
+              kernels 1, 6, 8 and 10).
   8. celerite the celerite family at nblocks = 8 (rank 16), obs 1, N = 1e6
               on the bench grid (gaps randint(1, 5) * 0.125, float32): the
               four celerite kernels against their twins, and the engine's
@@ -185,6 +197,13 @@ Phases, one line of output each (or more):
 Any failure exits non-zero before the final line.  There is no CPU path:
 without a CUDA device, or without the package beside this script, it
 fails.
+
+    python3 chip_smoke.py --sweeps [--root DIR] [--label TEXT]
+
+times only the four elimination sweeps (kernels 1, 6, 8, 10) on the LEG
+main path (sweeps_main), with the port imported from DIR (an unpacked
+``git archive`` of another commit) or from this checkout: run parent,
+change, change, parent in one call to compare two commits on one card.
 """
 
 import functools
@@ -235,6 +254,25 @@ def cuda_ms(fn, reps=REPS, warm=True):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def profiled(fn):
+    """(wall ms with the profiler on, {device op name: (ms, calls)}) of
+    fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    return wall, by_name
 
 
 def host_ms(fn, reps=3):
@@ -409,6 +447,18 @@ def _wide_read_bytes(kernel, args):
     return n * c * args[0].element_size()
 
 
+def _elim_read_bytes(args):
+    """Bytes an elimination sweep (kernels 1, 6, 8, 10) must read: of R
+    only the lower triangle of rows 1..s-1 (row 0 is not eliminated and
+    the Cholesky reads no more), O all rows (O_0 seeds row 1), y rows
+    1..s-1; kernel 10 has no y."""
+    s, r, _, c = args[0].shape
+    n = (s - 1) * r * (r + 1) // 2 + s * r * r
+    if len(args) > 2 and isinstance(args[2], torch.Tensor):
+        n += (s - 1) * r
+    return n * c * args[0].element_size()
+
+
 def bound(kernel, args, outs, g=None, dt=None):
     """(least ms, "bytes" or "operations") for one kernel call."""
     # a runtime-d instance does the work of its rank-templated counterpart
@@ -418,6 +468,8 @@ def bound(kernel, args, outs, g=None, dt=None):
     if kernel.endswith("_wide"):
         # outputs at their full (padded) size: the kernels write it all
         nbytes = _wide_read_bytes(kernel, args) + _nbytes(outs)
+    elif kernel in ELIM_KERNELS.values():
+        nbytes = _elim_read_bytes(args) + _nbytes(outs)
     else:
         nbytes = _nbytes(args) + _nbytes(outs)
     if kernel.startswith("celerite"):
@@ -1854,43 +1906,203 @@ def run_post_walk_edges(dev, check_kernel, sweep_cuda, pt):
     say(f"[post-walk] phase took {time.perf_counter() - t0:.1f} s")
 
 
-# kernels 6 and 8 at ranks 1-8 (pipeline.cuh's split sweep: lane groups of
-# 32 chunk lanes, or fewer where shared memory is short, two a block where
-# they fit; a chain warp and three output warps a group, tiles of 3 rows, a
-# ring of 3 input tiles, or 2 where shared memory is short): s = 2 one row
+# the four elimination sweeps at ranks 1-8 -- kernels 1, 6, 8 and 10, by
+# the stem of their wrappers -- on pipeline.cuh's split sweep (lane groups
+# of 32 chunk lanes, or fewer where shared memory is short, two a block
+# where they fit; a chain warp and three output warps a group, tiles of 3
+# rows, a ring of 3 input tiles, or 2 where shared memory is short), or
+# one thread per lane where sweep_cuda.THREAD_F64 says so: s = 2 one row
 # (row 1's seeding from O_0 alone), 4 one tile, 15 five tiles (the ring
 # wrapping), 128 the main path's chunk length; C = 1 a lone lane, 35 and
 # 45 a ragged second block, 70 three blocks
+ELIM_KERNELS = {1: "forward_sweep", 6: "forward_sweep_solveinv",
+                8: "forward_sweep_collect", 10: "forward_sweep_inverse"}
 ELIM_EDGES = tuple((r, s, c) for r in (1, 5, 8)
                    for s, c in ((2, 35), (4, 45), (15, 35), (2, 1), (4, 1),
                                 (15, 45), (128, 70)))
+# [elim-pick]: both designs at float64 ranks 7 and 8; a pick slower than
+# the other design by at most PICK_TIE of its time is a tie
+N_PICK = (100_000, 400_000, 1_000_000, 2_000_000)
+PICK_TIE = 0.05
+
+
+def elim_args(key, ins):
+    """An elimination sweep's inputs: kernel 10 has no right-hand side."""
+    return ins[:2] if key == "forward_sweep_inverse" else ins
+
+
+def elim_counts(sweep_cuda):
+    """{stem: (launches at ranks 1-8, on the split design, on the
+    thread-per-lane one)} of the four elimination sweeps."""
+    out = {}
+    for key in ELIM_KERNELS.values():
+        w = getattr(sweep_cuda, f"{key}_cuda")
+        out[key] = (w.launches - getattr(w, "launches_warp", 0),
+                    w.launches_split, w.launches_thread)
+    return out
+
+
+def check_elim_designs(phase, what, sweep_cuda, before):
+    """Every launch of the four elimination sweeps at ranks 1-8 since the
+    counts ``before`` (elim_counts) took the split design: the phases
+    that call this run float32, where sweep_cuda.THREAD_F64 names no
+    thread-per-lane instance."""
+    now, parts = elim_counts(sweep_cuda), []
+    for num, key in ELIM_KERNELS.items():
+        n, n_split, n_thread = (a - b for a, b in zip(now[key], before[key]))
+        parts.append(f"{num} {n}")
+        if n_split != n or n_thread != 0:
+            fail(f"{what}: a launch of {key} at ranks 1-8 did not take the "
+                 "split design the table names at float32")
+    say(f"[{phase}] {what}: launches of the elimination sweeps 1, 6, 8, 10 "
+        "at ranks 1-8, each on the split design (float32): "
+        + ", ".join(parts))
+
+
+# the device kernels of the four elimination sweeps, either design
+ELIM_PROFILE = {
+    1: r"\b(forward_sweep_kernel|sweep_split_kernel)<",
+    6: r"\b(forward_sweep_solveinv_kernel|solveinv_split_kernel)<",
+    8: r"\b(forward_sweep_collect_kernel|collect_split_kernel)<",
+    10: r"\b(forward_sweep_inverse_kernel|inverse_split_kernel)<"}
+
+
+def elim_profile(phase, by_kernel):
+    """One line: each elimination sweep's summed device time and launches
+    in a profile ({device op name: (ms, calls)}), whatever its rank."""
+    parts = []
+    for num, pattern in ELIM_PROFILE.items():
+        hits = [v for k, v in by_kernel.items() if re.search(pattern, k)]
+        parts.append(f"{num} {sum(v[0] for v in hits):.3f} ms / "
+                     f"{sum(v[1] for v in hits)} launches")
+    say(f"[{phase}]   elimination sweeps (summed over their instances): "
+        + ", ".join(parts))
+
+
+def sweeps_main(root, label):
+    """``--sweeps``: the four elimination sweeps' device time on the LEG
+    main path (rank 5, N = 1e6 irregular gaps, float32), with the port
+    imported from ``root`` (an unpacked ``git archive`` of another commit,
+    which builds its own library) or from this checkout, so that two
+    commits can be timed on one card in turns (parent, change, change,
+    parent).  Prints the CUDA-event median (REPS runs) of each sweep's
+    wrapper on the inputs the main path hands it (1 from a two-kernel
+    likelihood call, 6 from its gradient, 8 and 10 from one
+    insample_posterior call), then one Adam step and one
+    insample_posterior call under torch.profiler, after warm-up: their
+    device time and each sweep's summed device time and launches
+    (elim_profile, either design's kernel names)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    sys.path.insert(0, root or os.path.dirname(os.path.abspath(__file__)))
+    from cyclic_gps_tpu_torch.data.synthetic import generate_data
+    from cyclic_gps_tpu_torch.models import leg
+    from cyclic_gps_tpu_torch.ops import _build, sweep_cuda
+    from cyclic_gps_tpu_torch.train import loop
+
+    tag = f"sweeps{' ' + label if label else ''}"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    say(f"[{tag}] {smi.stdout.strip()}; package {sweep_cuda.__file__}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    so, secs = _build.build()
+    say(f"[{tag}] library {so.name}: "
+        + ("cached" if secs is None else f"built in {secs:.1f} s"))
+    dev = torch.device("cuda", 0)
+    params = leg.init_params(RANK, OBS, generator=torch.Generator()
+                             .manual_seed(0), dtype=torch.float32,
+                             device=dev)
+    ts, xs = generate_data(N_BIG, OBS, dtype=torch.float64, seed=0,
+                           device=dev)
+    xs = xs.float()
+
+    captured, origs = {}, {}
+
+    def spy_on(key, orig):
+        # wraps copies the launch counters, which the wrapper updates by
+        # its module-level name: the spy's
+        @functools.wraps(orig)
+        def spy(*args, **kw):
+            if (key not in captured
+                    or args[0].numel() > captured[key][0][0].numel()):
+                captured[key] = (args, kw)
+            return orig(*args, **kw)
+
+        return spy
+
+    for key in ELIM_KERNELS.values():
+        origs[key] = getattr(sweep_cuda, f"{key}_cuda")
+        setattr(sweep_cuda, f"{key}_cuda", spy_on(key, origs[key]))
+    try:
+        torch.autograd.grad(leg.log_likelihood(params, ts, xs, fused=False),
+                            list(params.parameters()))
+        with torch.no_grad():
+            leg.insample_posterior(params, ts, xs, method="precision")
+        torch.cuda.synchronize()
+    finally:
+        for key, orig in origs.items():
+            setattr(sweep_cuda, f"{key}_cuda", orig)
+    with torch.no_grad():
+        for num, key in ELIM_KERNELS.items():
+            args, kw = captured.pop(key)
+            ms = cuda_ms(lambda: origs[key](*args, **kw))
+            say(f"[{tag}] kernel {num} ({key}_cuda) on the main path's "
+                f"inputs (s {args[0].shape[0]}, C {args[0].shape[-1]}): "
+                f"{ms:.4f} ms (CUDA-event median of {REPS})")
+
+    p_train = leg.init_params(RANK, OBS, generator=torch.Generator()
+                              .manual_seed(0), device=dev)
+    opt = loop.make_optimizer("adam", 1e-2)
+    for _ in range(2):
+        loop.train_step(p_train, opt, ts, xs)
+    with torch.no_grad():
+        leg.insample_posterior(params, ts, xs, method="precision")
+    for what, fn, grad in (
+            ("Adam step", lambda: loop.train_step(p_train, opt, ts, xs),
+             True),
+            ("insample_posterior call", lambda: leg.insample_posterior(
+                params, ts, xs, method="precision"), False)):
+        with torch.set_grad_enabled(grad):
+            wall, by_kernel = profiled(fn)
+        if not by_kernel:
+            say(f"[{tag}] profiled {what}: the profiler saw no device "
+                "events; not measured")
+            continue
+        say(f"[{tag}] profiled {what}: device "
+            f"{sum(ms for ms, _ in by_kernel.values()):.3f} ms in "
+            f"{sum(n for _, n in by_kernel.values())} ops (wall {wall:.1f} "
+            "ms, profiler on)")
+        elim_profile(f"{tag} {what}", by_kernel)
 
 
 def run_elim_edges(dev, sweep_cuda, pt):
-    """Kernels 6 and 8 (split designs) against their twins at ELIM_EDGES,
-    float32 and float64, every output (the last state, mh, ld, the hat
-    stacks, pinv, ld_rows), on a block-tridiagonal system diagonally
-    dominant at every block size (q q^T / d + 4 I, off-diagonal blocks
-    randn / 2d, seeded), pivot jitter 1e-3: each within 1e-3 (float32) or
-    1e-9 (float64) relative plus 1e-4 or 1e-10 of each output's scale, the
-    same bits on a second run, and every launch on the split design.  One
-    line a kernel (the worst err/tol of its shapes)."""
+    """The four elimination sweeps (kernels 1, 6, 8, 10) against their
+    twins at ELIM_EDGES, float32 and float64, every output (the last
+    state, mh, ld, ld_rows; 6 and 8 their hat stacks, 6 pinv; 10 its four
+    raw-factor stacks), on a block-tridiagonal system diagonally dominant
+    at every block size (q q^T / d + 4 I, off-diagonal blocks randn / 2d,
+    seeded), pivot jitter 1e-3: each within 1e-3 (float32) or 1e-9
+    (float64) relative plus 1e-4 or 1e-10 of each output's scale, the
+    same bits on a second run, and every launch on the design the table
+    names.  One line a kernel (the worst err/tol of its shapes)."""
     import numpy as np
 
     t0 = time.perf_counter()
-    for key in ("forward_sweep_solveinv", "forward_sweep_collect"):
+    for num, key in ELIM_KERNELS.items():
         kern = getattr(sweep_cuda, f"{key}_cuda")
         twin = getattr(sweep_cuda, f"{key}_plain")
-        n0, n_split = kern.launches, kern.launches_split
-        worst = 0.0
+        n0, n_split, n_thread = elim_counts(sweep_cuda)[key]
+        worst, want = 0.0, {"split": 0, "thread": 0}
         for r, s, c in ELIM_EDGES:
             system = dominant_system(
                 np.random.RandomState(100 * r + 10 * s + c), r, s * c)
             for dtype, (rtol, atol) in ((torch.float32, (1e-3, 1e-4)),
                                         (torch.float64, (1e-9, 1e-10))):
-                ins = [t.contiguous() for t in pt._chunk_layout(
+                ins = elim_args(key, [t.contiguous() for t in pt._chunk_layout(
                     *(torch.as_tensor(a, dtype=dtype, device=dev)
-                      for a in system), s)[:3]]
+                      for a in system), s)[:3]])
+                want[sweep_cuda._elim_design(key, dtype, r, c)] += 2
                 with torch.no_grad():
                     got = kern(*ins, 1e-3)
                     again = kern(*ins, 1e-3)
@@ -1900,29 +2112,97 @@ def run_elim_edges(dev, sweep_cuda, pt):
                 if not all(bool(torch.equal(a, b))
                            for a, b in zip(got, again)):
                     fail(f"{label}: two runs differ")
-                for i, (a, b) in enumerate(zip(got, ref)):
-                    a, b = a.double(), b.double()
-                    if a.shape != b.shape or not bool(
-                            torch.isfinite(a).all()):
-                        fail(f"{label} output {i}: shape {tuple(a.shape)} "
-                             f"vs {tuple(b.shape)}, or non-finite")
-                    tol = atol * float(b.abs().max()) + rtol * b.abs()
-                    diff = (a - b).abs()
-                    ratio = float(torch.where(diff == 0, 0.0,
-                                              diff / tol).max())
-                    worst = max(worst, ratio)
-                    if ratio > 1.0:
-                        fail(f"{label} output {i} disagrees with its twin: "
-                             f"err/tol {ratio:.3e}")
-        n_all = kern.launches - n0
-        if kern.launches_split - n_split != n_all:
-            fail(f"{key}: a launch at ranks 1-8 did not take the split "
-                 "design")
-        say(f"[elim-edges] {key} (split design) agrees with its twin at "
+                worst = max(worst, elim_agree(label, got, ref, rtol, atol))
+        n_all, n_s, n_t = (a - b for a, b in zip(
+            elim_counts(sweep_cuda)[key], (n0, n_split, n_thread)))
+        if (n_s, n_t) != (want["split"], want["thread"]) or n_s + n_t != n_all:
+            fail(f"{key}: {n_s} split and {n_t} thread-per-lane launches of "
+                 f"{n_all}, not the table's {want}")
+        say(f"[elim-edges] kernel {num} ({key}) agrees with its twin at "
             f"{len(ELIM_EDGES)} edge shapes, float32 and float64 (worst "
             f"err/tol {worst:.3e}), gives the same bits on a second run at "
-            f"each; {n_all} launches, all split")
+            f"each; {n_all} launches, each on the table's design (split "
+            f"{n_s}, thread-per-lane {n_t})")
     say(f"[elim-edges] phase took {time.perf_counter() - t0:.1f} s")
+
+
+def elim_agree(label, got, ref, rtol, atol):
+    """Fail unless every output agrees with the twin's within rtol plus
+    atol of its scale; returns the worst err/tol."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a, b = a.double(), b.double()
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            fail(f"{label} output {i}: shape {tuple(a.shape)} vs "
+                 f"{tuple(b.shape)}, or non-finite")
+        tol = atol * float(b.abs().max()) + rtol * b.abs()
+        diff = (a - b).abs()
+        ratio = float(torch.where(diff == 0, 0.0, diff / tol).max())
+        worst = max(worst, ratio)
+        if ratio > 1.0:
+            fail(f"{label} output {i} disagrees with its twin: err/tol "
+                 f"{ratio:.3e}")
+    return worst
+
+
+def run_elim_pick(dev, sweep_cuda, pt, _build):
+    """Both designs of the four elimination sweeps -- the split sweep and
+    one thread per chunk lane -- at the float64 ranks that have both
+    (_build.THREAD_RANKS), at N_PICK on the default chunk length (C from
+    782 to 15,625: one to eight waves of the split design at rank 7, on
+    both sides of each bound of the table): each against the twin (1e-9
+    relative plus 1e-10 of each output's scale), then CUDA-event medians
+    of 5 runs in turns (split, thread, thread, split); fails if the table
+    (sweep_cuda.THREAD_F64) picks the slower by more than PICK_TIE: within
+    it the two are a tie (near a bound of the table, where the turns of
+    one call differ by up to ~2.5 %).  These launches go through
+    sweep_cuda._elim_launch and count on no counter."""
+    import numpy as np
+
+    for n in N_PICK:
+        s = pt.default_chunk_len(n)
+        for r in _build.THREAD_RANKS:
+            system = dominant_system(np.random.RandomState(r), r, n)
+            ins = [t.contiguous() for t in pt._chunk_layout(
+                *(torch.as_tensor(a, dtype=torch.float64, device=dev)
+                  for a in system), s)[:3]]
+            del system
+            c = ins[0].shape[-1]
+            for num, key in ELIM_KERNELS.items():
+                y = None if key == ELIM_KERNELS[10] else ins[2]
+                symbol = {"split": f"cgt_{key}",
+                          "thread": f"cgt_{key}_thread"}
+
+                def run(design):
+                    return sweep_cuda._elim_launch(key, symbol[design],
+                                                   ins[0], ins[1], y, 1e-3)
+
+                with torch.no_grad():
+                    ref = getattr(sweep_cuda, f"{key}_plain")(
+                        *elim_args(key, ins), 1e-3)
+                    for design in symbol:
+                        elim_agree(f"{key} at float64 rank {r}, N {n}, "
+                                   f"{design}", run(design), ref, 1e-9, 1e-10)
+                    del ref
+                    ms = {"split": [], "thread": []}
+                    for design in ("split", "thread", "thread", "split"):
+                        ms[design].append(cuda_ms(lambda: run(design), 5))
+                mean = {k: sum(v) / len(v) for k, v in ms.items()}
+                pick = sweep_cuda._elim_design(key, torch.float64, r, c)
+                other = "thread" if pick == "split" else "split"
+                ratio = mean[pick] / mean[other]
+                say(f"[elim-pick] kernel {num} ({key}) float64 rank {r}, N "
+                    f"{n}, s {s}, C {c}: split {ms['split'][0]:.3f} / "
+                    f"{ms['split'][1]:.3f} ms, thread-per-lane "
+                    f"{ms['thread'][0]:.3f} / {ms['thread'][1]:.3f} ms "
+                    f"(turns; CUDA-event medians of 5); the table picks "
+                    f"{pick}, {ratio:.3f} of the other's time"
+                    + (" (a tie)" if 1 < ratio <= 1 + PICK_TIE else ""))
+                if ratio > 1 + PICK_TIE:
+                    fail(f"{key} at float64 rank {r}, C {c}: the table picks "
+                         f"the {pick} design, slower than the {other} one")
+            del ins
+            torch.cuda.empty_cache()
 
 
 def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
@@ -1974,6 +2254,7 @@ def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
              "forward_sweep_solveinv")
     for k in split:
         wrappers[k].launches_split = 0
+    elim0 = elim_counts(sweep_cuda)
     stamps = []
 
     def stamp(step, loss):
@@ -2001,6 +2282,7 @@ def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
         if n_split[k] != counts[k]:
             fail(f"{k}: a launch in the residual train steps did not take "
                  "the split design")
+    check_elim_designs("train", "residual steps", sweep_cuda, elim0)
 
 
 def main():
@@ -2231,14 +2513,20 @@ def main():
                     f"(kernel {num}): registers {regs}, stack {stack} B, "
                     f"spill stores {spill} B, dynamic shared bytes per block "
                     f"{query(r, f64)}")
-    # kernels 6 and 8's split designs (pipeline.cuh's elim_split: lane
-    # groups of a chain warp and three output warps, one layout) at every
-    # rank and dtype, with the thread blocks an SM holds; the float32
-    # rank-5 instances must not touch local memory
-    for kname, num, blocks in (
-            ("solveinv_split_kernel", 6,
+    # the split designs of the four elimination sweeps, kernels 6, 8, 1
+    # and 10 (pipeline.cuh's elim_split: lane groups of a chain warp and
+    # three output warps; 10 without the right-hand side, a layout of its
+    # own) at every rank and dtype, with the thread blocks an SM holds; the
+    # float32 rank-5 instances must not touch local memory
+    for kname, num, smem, blocks in (
+            ("solveinv_split_kernel", 6, lib.cgt_elim_split_smem_bytes,
              lib.cgt_solveinv_split_blocks_per_sm),
-            ("collect_split_kernel", 8, lib.cgt_collect_split_blocks_per_sm)):
+            ("collect_split_kernel", 8, lib.cgt_elim_split_smem_bytes,
+             lib.cgt_collect_split_blocks_per_sm),
+            ("sweep_split_kernel", 1, lib.cgt_elim_split_smem_bytes,
+             lib.cgt_sweep_split_blocks_per_sm),
+            ("inverse_split_kernel", 10, lib.cgt_inverse_split_smem_bytes,
+             lib.cgt_inverse_split_blocks_per_sm)):
         for r in _build.RANKS:
             for code, f64 in (("f", 0), ("d", 1)):
                 rep = [v for k, v in _build.ptxas_report(r).items()
@@ -2250,11 +2538,28 @@ def main():
                 say(f"[build] {kname}<{'double' if f64 else 'float'}, {r}> "
                     f"(kernel {num}): registers {regs}, stack {stack} B, "
                     f"spill stores {spill} B, dynamic shared bytes per block "
-                    f"{lib.cgt_elim_split_smem_bytes(r, f64)}, blocks an SM "
-                    f"{blocks(r, f64)}")
+                    f"{smem(r, f64)}, blocks an SM {blocks(r, f64)}")
                 if r == RANK and not f64 and (stack or spill):
                     fail(f"{kname}<float, {r}> uses local memory (stack "
                          f"{stack} B, spill stores {spill} B)")
+    # their thread-per-lane instances (float64 at _build.THREAD_RANKS,
+    # where the table may route them)
+    for kname, num in (("forward_sweep_kernel", 1),
+                       ("forward_sweep_solveinv_kernel", 6),
+                       ("forward_sweep_collect_kernel", 8),
+                       ("forward_sweep_inverse_kernel", 10)):
+        for r in _build.THREAD_RANKS:
+            rep = [v for k, v in _build.ptxas_report(r).items()
+                   if f"{len(kname)}{kname}IdLi{r}E" in k and v[0] is not None]
+            if len(rep) != 1:
+                fail(f"{kname}<double, {r}>: no single entry in the "
+                     "compiler's report")
+            regs, stack, spill = rep[0]
+            say(f"[build] {kname}<double, {r}> (kernel {num}, one thread per "
+                f"chunk lane): registers {regs}, stack {stack} B, spill "
+                f"stores {spill} B")
+    say(f"[build] float64 instances on one thread per chunk lane from a "
+        f"chunk count on (sweep_cuda.THREAD_F64): {sweep_cuda.THREAD_F64}")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
     gen = torch.Generator().manual_seed(0)
@@ -2397,7 +2702,8 @@ def main():
         sweep_cuda.forward_sweep_cuda, sweep_cuda.forward_sweep_plain,
         (k_sys[0], k_sys[1], v_cm), 1e-3, 1e-4,
         "127 dependent elimination steps on kernel 3's K; mh/ld summed "
-        "over 1e6 rows in another order")
+        "over 1e6 rows in another order; split design (pipeline.cuh "
+        "elim_split: a chain warp, three output warps)")
     check_kernel(
         "gap_mahal_sweep",
         "cyclic_gps_tpu_torch/csrc/gap_emission.cu",
@@ -2449,6 +2755,7 @@ def main():
     run_emission_edges(dev, check_kernel, leg, expm_cuda)
     run_walk_edges(dev, check_kernel, sweep_cuda, pt)
     run_elim_edges(dev, sweep_cuda, pt)
+    run_elim_pick(dev, sweep_cuda, pt, _build)
     by_name = {r["name"]: r for r in rows}
 
     # ---- 4. the main path through the user entry points -------------------
@@ -2588,6 +2895,7 @@ def main():
     expm_cuda.k_system_cuda.launches_tiled = 0
     sweep_cuda.backward_solve_takahashi_cuda.launches_split = 0
     sweep_cuda.forward_sweep_solveinv_cuda.launches_split = 0
+    elim0 = elim_counts(sweep_cuda)
     step_ms, losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2617,29 +2925,13 @@ def main():
         if n != by_name[key]["launches"]:
             fail(f"{key}: {n} of {by_name[key]['launches']} launches in the "
                  "train steps took the redesigned kernel")
+    check_elim_designs("train", f"{TRAIN_STEPS} Adam steps", sweep_cuda,
+                       elim0)
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite training loss: {losses}")
     say(f"[train] losses {losses}; step ms {[round(t, 2) for t in step_ms]}"
         f", median {statistics.median(step_ms):.2f} ms (host clock, "
         "synchronised; the first step includes warm-up)")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    def profiled(fn):
-        """(wall ms with the profiler on, {device op name: (ms, calls)})
-        of fn() under torch.profiler."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ms, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
-        return wall, by_name
 
     k6 = sweep_cuda.forward_sweep_solveinv_cuda
     n6, n6_split = k6.launches, k6.launches_split
@@ -2650,7 +2942,9 @@ def main():
         ops = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
         return ops[:10] + [kv for kv in ops[10:] if "split_kernel" in kv[0]]
 
+    elim0 = elim_counts(sweep_cuda)
     wall, by_kernel = profiled(lambda: loop.train_step(p_train, opt, ts, xs))
+    check_elim_designs("train", "profiled step", sweep_cuda, elim0)
     n6, n6_split = k6.launches - n6, k6.launches_split - n6_split
     say(f"[train] profiled step: kernel 6 launches {n6}, split {n6_split}")
     if n6 <= 0 or n6_split != n6:
@@ -2674,6 +2968,7 @@ def main():
             f"{sum(n for _, n in by_fwd.values())} device ops")
     for key, (ms, n) in top_ops(by_kernel):
         say(f"[train]   {key[:80]}: {ms:.3f} ms, {n} calls")
+    elim_profile("train", by_kernel)
     # the float32 default on this grid: the residual loss
     run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
                        grad_bar)
@@ -2702,7 +2997,8 @@ def main():
              "output's scale"),
             ("forward_sweep_inverse", 534,
              "kernel 1's 127 dependent elimination steps; atol is 1e-4 of "
-             "each output's scale"),
+             "each output's scale; split design without the right-hand "
+             "side (pipeline.cuh elim_split)"),
             ("takahashi_backward", 648,
              "126 dependent steps, four products a row on the chain in "
              "the hat form, which sums u0 and u1 in another order than the "
@@ -2725,6 +3021,7 @@ def main():
     k8 = sweep_cuda.forward_sweep_collect_cuda
     n9, n9_split = k9.launches, k9.launches_split
     n8, n8_split = k8.launches, k8.launches_split
+    elim0 = elim_counts(sweep_cuda)
     with torch.no_grad():
         x_a, ld_a = pt.solve_cm(R_b, O_b, y_b, backend="auto")
         x_t, ld_t = pt.solve_cm(R_b, O_b, y_b, backend="torch")
@@ -2746,6 +3043,8 @@ def main():
         if k.launches == n or k.launches_split - n_split != k.launches - n:
             fail(f"solve_cm: kernel {num} was not launched, or a launch did "
                  "not take the split design")
+    check_elim_designs("posterior", "solve_cm (value, then timed runs)",
+                       sweep_cuda, elim0)
     del R_b, O_b, y_b, x_a, x_t
 
     # the posterior path: counts reset just before and read just after
@@ -2757,10 +3056,13 @@ def main():
                     "takahashi_backward")}
     for w in split_walks.values():
         w.launches_split = 0
+    elim0 = elim_counts(sweep_cuda)
     with torch.no_grad():
         post_auto = leg.insample_posterior(params, ts, xs,
                                            method="precision")
         torch.cuda.synchronize()
+    check_elim_designs("posterior", "one insample_posterior call",
+                       sweep_cuda, elim0)
     post_launches = {r["name"]: r["kernel"].launches for r in rows}
     post_split = {k: w.launches_split for k, w in split_walks.items()}
     say(f"[posterior] launches in one insample_posterior(method="
@@ -2881,6 +3183,7 @@ def main():
             f"one run after a warm-up) {dev_ms / post_wall:.3f}")
     for key, (ms, n) in top_ops(by_kernel):
         say(f"[posterior]   {key[:80]}: {ms:.3f} ms, {n} calls")
+    elim_profile("posterior", by_kernel)
 
     # ---- 8. celerite: nblocks 8 (rank 16), the bench grid ------------------
     from cyclic_gps_tpu_torch.models import celerite
@@ -3175,4 +3478,15 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if "--sweeps" in sys.argv[1:]:
+        import argparse
+
+        ap = argparse.ArgumentParser(description=sweeps_main.__doc__)
+        ap.add_argument("--sweeps", action="store_true", required=True)
+        ap.add_argument("--root", default=None,
+                        help="checkout whose cyclic_gps_tpu_torch to time")
+        ap.add_argument("--label", default="", help="tag of every line")
+        a = ap.parse_args()
+        sweeps_main(a.root, a.label)
+    else:
+        main()

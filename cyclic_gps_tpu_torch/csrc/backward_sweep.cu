@@ -27,7 +27,11 @@
 //   N = 1e6), in each one warp running the elimination's carried part
 //   while three warps copy the rows in ahead of it with cp.async and
 //   form each row's hats, pinv, log-det and its terms of the sums from
-//   what the chain parks in shared memory.
+//   what the chain parks in shared memory.  Where the split design loses
+//   (float64 rank 8 falls into local memory: ops/_build.py's
+//   ELIM_THREAD), the wrapper takes the thread-per-lane sweep
+//   (forward_sweep_solveinv_kernel, kept at float64 ranks 7-8 only,
+//   cgt_forward_sweep_solveinv_thread_f64).
 // * The walk at R = 1..8: the same split (backsolve_split_kernel, below):
 //   32 lanes a block, one warp running the rows' serial chain (x, phi,
 //   u0, u1) while three warps form the selected-inverse blocks of the rows
@@ -90,6 +94,38 @@ solveinv_split_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
   pp::elim_split<T, R>(reinterpret_cast<T*>(cgt_smem), Rm, Om, ym, jitter,
                        s, C, acc00, accy0, w0l, wl, dl, invdl, mh, ld,
                        ld_rows, SolveinvHats<T, R>{hc, hw0, hw, pinv, C});
+}
+
+// Kernel 6 one thread per chunk lane (float64 ranks 7-8 only): the carried
+// state in registers, each step's hats from the triangular inverse
+// di = D^{-1} as SolveinvHats forms them.
+template <typename T, int R>
+__global__ void __launch_bounds__(CGT_THREADS)
+forward_sweep_solveinv_kernel(const T* __restrict__ Rm,
+                              const T* __restrict__ Om,
+                              const T* __restrict__ ym, T jitter, int s,
+                              int C, T* acc00, T* accy0, T* w0l, T* wl, T* dl,
+                              T* invdl, T* mh, T* ld, T* hc, T* hw0, T* hw,
+                              T* pinv, T* ld_rows) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  cgt::SweepCarry<T, R> st;
+  T o_left[R][R];
+  cgt::load_mat<T, R>(Om, 0, C, c, o_left);
+  const SolveinvHats<T, R> hats{hc, hw0, hw, pinv, C};
+  for (int j = 1; j < s; ++j) {
+    T P[R][R], o_j[R][R], y_j[R];
+    cgt::load_mat<T, R>(Rm, j, C, c, P);
+#pragma unroll
+    for (int i = 0; i < R; ++i) P[i][i] += jitter;
+    cgt::load_mat<T, R>(Om, j, C, c, o_j);
+    cgt::load_vec<T, R>(ym, j, C, c, y_j);
+    const T ldl = cgt::elim_step<T, R>(j == 1, P, o_j, y_j, o_left, st);
+    ld_rows[size_t(j - 1) * C + c] = T(2) * ldl;
+    hats(j - 1, c, st.D, st.invd, st.cprev, st.w0, st.w);
+  }
+  cgt::store_sweep_state<T, R>(st, C, c, acc00, accy0, w0l, wl, dl, invdl,
+                               mh, ld);
 }
 
 // Kernel 7 at ranks 1-8: the descending pass with the outputs taken off
@@ -608,6 +644,26 @@ int launch_solveinv(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
 #undef CGT_LAUNCH
 }
 
+// the thread-per-lane sweep at float64 rank d (7 or 8)
+int launch_solveinv_thread(const double* R_cm, const double* O_cm,
+                           const double* y_cm, double jitter, int s, int d,
+                           int C, double* acc00, double* accy0, double* w0l,
+                           double* wl, double* dl, double* invdl, double* mh,
+                           double* ld, double* hc, double* hw0, double* hw,
+                           double* pinv, double* ld_rows,
+                           cudaStream_t stream) {
+  const int blocks = (C + CGT_THREADS - 1) / CGT_THREADS;
+#define CGT_LAUNCH(RR)                                                      \
+  forward_sweep_solveinv_kernel<double, RR>                                 \
+      <<<blocks, CGT_THREADS, 0, stream>>>(R_cm, O_cm, y_cm, jitter, s, C,  \
+                                           acc00, accy0, w0l, wl, dl,       \
+                                           invdl, mh, ld, hc, hw0, hw,      \
+                                           pinv, ld_rows)
+  CGT_THREAD_RANK_SWITCH(d, CGT_LAUNCH)
+#undef CGT_LAUNCH
+  return int(cudaGetLastError());
+}
+
 template <typename T, int R>
 int launch_split(const T* hc, const T* hw0, const T* hw, const T* pinv,
                  const T* hw1, const T* xb, const T* xbn, const T* p00,
@@ -685,6 +741,17 @@ int cgt_forward_sweep_solveinv_f64(const double* R_cm, const double* O_cm,
   return launch_solveinv<double>(R_cm, O_cm, y_cm, jitter, s, d, C, acc00,
                                  accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0,
                                  hw, pinv, ld_rows, (cudaStream_t)stream);
+}
+
+int cgt_forward_sweep_solveinv_thread_f64(
+    const double* R_cm, const double* O_cm, const double* y_cm,
+    double jitter, int s, int d, int C, double* acc00, double* accy0,
+    double* w0l, double* wl, double* dl, double* invdl, double* mh,
+    double* ld, double* hc, double* hw0, double* hw, double* pinv,
+    double* ld_rows, void* stream) {
+  return launch_solveinv_thread(R_cm, O_cm, y_cm, jitter, s, d, C, acc00,
+                                accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0,
+                                hw, pinv, ld_rows, (cudaStream_t)stream);
 }
 
 int cgt_backward_solve_takahashi_f32(

@@ -12,12 +12,20 @@
 // floats per lane, so its bound is those bytes, but the chain's latency
 // sets its time.
 //
-// Two designs, routed by block size in the launcher:
-// * R = 1..8: ONE THREAD PER CHUNK LANE.  The carried state (C_j, W0_j,
-//   w_j and the two accumulators) stays in registers for the whole walk,
-//   so device memory sees each input row exactly once, and the chunk-major
-//   layout puts the lane axis innermost so every thread's loads coalesce
-//   with its neighbours' without a transpose.
+// Designs, routed by block size in the launcher:
+// * R = 1..8: THE CHAIN SPLIT FROM THE REST (sweep_split_kernel, on
+//   pipeline.cuh's elim_split, the sweep of kernels 6 and 8 with an emit
+//   that stores nothing): lane groups of 32 lanes, two a block at rank 5
+//   float32 (123 blocks at N = 1e6 against the ~61 of one thread per
+//   lane), in each one warp running the elimination's carried part while
+//   three warps copy the rows in ahead of it with cp.async and form each
+//   row's log-det and its terms of the sums.  Every sum keeps elim_step's
+//   order, so the outputs are the thread-per-lane kernel's to the bit.
+//   Where the split design loses (float64 rank 8 falls into local
+//   memory: ops/_build.py's ELIM_THREAD), the wrapper takes the
+//   thread-per-lane kernel (forward_sweep_kernel, kept at float64 ranks
+//   7-8 only, cgt_forward_sweep_thread_f64): the carried state in
+//   registers, each input row read once, coalesced over the lane axis.
 // * R = 16 (the celerite family's boundary chain at nblocks = 8: C = 245
 //   lanes of s = 32 at N = 1e6, then 8): ONE WARP PER CHUNK LANE on
 //   rtcoop.cuh.  Held per thread, the rank-16 state lives in local memory
@@ -33,10 +41,28 @@
 //   its triangle, so that kernel's register allocation at 9-15 stays as
 //   it is.)
 #include "blockmath.cuh"
+#include "pipeline.cuh"
 #include "rtcoop.cuh"
 
 namespace {
 
+namespace pp = cgt::pipe;
+
+// Kernel 1 at ranks 1-8: pipeline.cuh's split sweep with no per-row
+// outputs but ld_rows.
+template <typename T, int R>
+__global__ void __launch_bounds__(pp::Elim<T, R>::THREADS)
+sweep_split_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
+                   const T* __restrict__ ym, T jitter, int s, int C,
+                   T* acc00, T* accy0, T* w0l, T* wl, T* dl, T* invdl,
+                   T* mh, T* ld, T* ld_rows) {
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  pp::elim_split<T, R>(reinterpret_cast<T*>(cgt_smem), Rm, Om, ym, jitter,
+                       s, C, acc00, accy0, w0l, wl, dl, invdl, mh, ld,
+                       ld_rows, pp::ElimNoEmit{});
+}
+
+// The thread-per-lane design (float64 ranks 7-8 only).
 template <typename T, int R>
 __global__ void __launch_bounds__(CGT_THREADS)
 forward_sweep_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
@@ -122,6 +148,21 @@ size_t warp_smem() {
   return co::smem_bytes<T>(WARP_D, co::SW_BLOCKS, co::SW_VECS);
 }
 
+template <typename T, int R>
+int launch_sweep_split(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
+                       int s, int C, T* acc00, T* accy0, T* w0l, T* wl,
+                       T* dl, T* invdl, T* mh, T* ld, T* ld_rows,
+                       cudaStream_t stream) {
+  using K = pp::Elim<T, R>;
+  const cudaError_t err = co::prepare(sweep_split_kernel<T, R>, K::SMEM);
+  if (err != cudaSuccess) return int(err);
+  sweep_split_kernel<T, R>
+      <<<(C + K::BLOCK_LANES - 1) / K::BLOCK_LANES, K::THREADS, K::SMEM,
+         stream>>>(R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl,
+                   dl, invdl, mh, ld, ld_rows);
+  return int(cudaGetLastError());
+}
+
 template <typename T>
 int launch_forward_sweep(const T* R_cm, const T* O_cm, const T* y_cm,
                          T jitter, int s, int d, int C, T* acc00, T* accy0,
@@ -137,14 +178,38 @@ int launch_forward_sweep(const T* R_cm, const T* O_cm, const T* y_cm,
         ld, ld_rows);
     return int(cudaGetLastError());
   }
-  const int blocks = (C + CGT_THREADS - 1) / CGT_THREADS;
-#define CGT_LAUNCH(RR)                                                      \
-  forward_sweep_kernel<T, RR><<<blocks, CGT_THREADS, 0, stream>>>(          \
-      R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl, mh, \
-      ld, ld_rows)
+#define CGT_LAUNCH(RR)                                                    \
+  return launch_sweep_split<T, RR>(R_cm, O_cm, y_cm, jitter, s, C, acc00, \
+                                   accy0, w0l, wl, dl, invdl, mh, ld,     \
+                                   ld_rows, stream)
   CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
+}
+
+// the thread-per-lane kernel at float64 rank d (7 or 8)
+int launch_forward_sweep_thread(const double* R_cm, const double* O_cm,
+                                const double* y_cm, double jitter, int s,
+                                int d, int C, double* acc00, double* accy0,
+                                double* w0l, double* wl, double* dl,
+                                double* invdl, double* mh, double* ld,
+                                double* ld_rows, cudaStream_t stream) {
+  const int blocks = (C + CGT_THREADS - 1) / CGT_THREADS;
+#define CGT_LAUNCH(RR)                                                      \
+  forward_sweep_kernel<double, RR><<<blocks, CGT_THREADS, 0, stream>>>(     \
+      R_cm, O_cm, y_cm, jitter, s, C, acc00, accy0, w0l, wl, dl, invdl, mh, \
+      ld, ld_rows)
+  CGT_THREAD_RANK_SWITCH(d, CGT_LAUNCH)
+#undef CGT_LAUNCH
   return int(cudaGetLastError());
+}
+
+// thread blocks of sweep_split_kernel<T, R> one SM holds
+template <typename T, int R>
+int sweep_split_blocks() {
+  using K = pp::Elim<T, R>;
+  if (co::prepare(sweep_split_kernel<T, R>, K::SMEM) != cudaSuccess)
+    return -1;
+  return pp::blocks_per_sm(sweep_split_kernel<T, R>, K::THREADS, K::SMEM);
 }
 
 }  // namespace
@@ -171,11 +236,32 @@ int cgt_forward_sweep_f64(const double* R_cm, const double* O_cm,
                                       ld, ld_rows, (cudaStream_t)stream);
 }
 
+int cgt_forward_sweep_thread_f64(const double* R_cm, const double* O_cm,
+                                 const double* y_cm, double jitter, int s,
+                                 int d, int C, double* acc00, double* accy0,
+                                 double* w0l, double* wl, double* dl,
+                                 double* invdl, double* mh, double* ld,
+                                 double* ld_rows, void* stream) {
+  return launch_forward_sweep_thread(R_cm, O_cm, y_cm, jitter, s, d, C,
+                                     acc00, accy0, w0l, wl, dl, invdl, mh,
+                                     ld, ld_rows, (cudaStream_t)stream);
+}
+
 // dynamic shared bytes per thread block of the warp-per-lane instance at
 // block size d (16 only; the second argument 1 for float64)
 int cgt_forward_sweep_warp_smem_bytes(int d, int f64) {
   if (d != WARP_D) return -1;
   return int(f64 ? warp_smem<double>() : warp_smem<float>());
+}
+
+// thread blocks an SM of kernel 1's split design at rank r (1..8; the
+// second argument 1 for float64; its shared bytes: solve_sweep.cu's
+// cgt_elim_split_smem_bytes)
+int cgt_sweep_split_blocks_per_sm(int r, int f64) {
+#define CGT_LAUNCH(RR) \
+  return f64 ? sweep_split_blocks<double, RR>() : sweep_split_blocks<float, RR>()
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
 }
 
 }  // extern "C"

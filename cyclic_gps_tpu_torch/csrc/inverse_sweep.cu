@@ -3,7 +3,7 @@
 // interior step, and the descending Takahashi recursion over them.
 //
 // Replaces (cyclic_gps_tpu/ops/pallas_sweep.py):
-//   forward_sweep_inverse_kernel <- :534 forward_sweep_inverse_pallas
+//   inverse_split_kernel         <- :534 forward_sweep_inverse_pallas
 //                                   (_sweep_inverse_collect_kernel, :483)
 //   takahashi_split_kernel       <- :648 takahashi_backward_pallas
 //                                   (_takahashi_kernel, :585)
@@ -16,10 +16,17 @@
 // each).  The recursion does ~25 R x R products per row, with C = N/s
 // lanes (7,813 at s = 128).
 //
-// The sweep runs ONE THREAD PER CHUNK LANE (~61 blocks of 128 for 132 SMs
-// at s = 128): the carried state stays in registers, each stack row is
-// read or written once, and the lane axis is innermost so every access
-// coalesces.  The recursion takes 32 lanes a block (245 blocks) and splits
+// The sweep is pipeline.cuh's split elimination (inverse_split_kernel,
+// below) without the right-hand side: lane groups of 32 lanes, two a
+// block at rank 5 float32 (123 blocks at N = 1e6 against the ~61 of one
+// thread per lane), in each one warp running the elimination's carried
+// part (no w) while three warps copy the rows' (P, O) in ahead of it with
+// cp.async and store each row's raw factors from what the chain parks.
+// Where the split design loses (float64 rank 8, ops/_build.py's
+// ELIM_THREAD), the wrapper takes the thread-per-lane kernel
+// (forward_sweep_inverse_kernel, kept at float64 ranks 7-8 only,
+// cgt_forward_sweep_inverse_thread_f64).  The recursion takes 32 lanes a
+// block (245 blocks) and splits
 // each lane's rows between warps (takahashi_split_kernel, below): of its
 // ~25 products only four a row cross rows.  The TPU kernel also carries a0
 // and a1 from step to step (its scratch), but no step reads the carried
@@ -33,9 +40,45 @@ namespace {
 
 namespace pp = cgt::pipe;
 
-// Forward elimination without a right-hand side (forward_sweep.cu's step
-// with no w, accy0 or mh), writing the raw factors of every interior step
-// j = 1..s-1 (stack row j-1): D_j, 1/diag(D_j), C_j = O_j D_j^{-T}, W0_j.
+// Kernel 10's outputs of stack row t (elim_split's emit without the
+// right-hand side): the raw factors D_j (as chol forms it), 1/diag(D_j),
+// C_j = O_j D_j^{-T} and W0_j.
+template <typename T, int R>
+struct InverseFactors {
+  T *ds, *invds, *cs, *w0s;
+  int C;
+  __device__ __forceinline__ void operator()(int t, int c, const T (&D)[R][R],
+                                             const T (&invd)[R],
+                                             const T (&cprev)[R][R],
+                                             const T (&w0)[R][R],
+                                             const T (&)[R]) const {
+    cgt::store_mat<T, R>(ds, t, C, c, D);
+    cgt::store_vec<T, R>(invds, t, C, c, invd);
+    cgt::store_mat<T, R>(cs, t, C, c, cprev);
+    cgt::store_mat<T, R>(w0s, t, C, c, w0);
+  }
+};
+
+// Kernel 10 at ranks 1-8: the forward elimination without a right-hand
+// side (forward_sweep.cu's with no w, accy0 or mh), writing the raw
+// factors of every interior step j = 1..s-1 (stack row j-1), on
+// pipeline.cuh's split sweep.  Its W0 recursion (elim_carry) and its sum
+// of W0^T W0 (elim_output_row, elim_accumulate) are the thread-per-lane
+// kernel's below, in the same order, so the outputs are that kernel's to
+// the bit.
+template <typename T, int R>
+__global__ void __launch_bounds__(pp::Elim<T, R, false>::THREADS)
+inverse_split_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
+                     T jitter, int s, int C, T* acc00, T* w0l, T* dl,
+                     T* invdl, T* ds, T* invds, T* cs, T* w0s) {
+  extern __shared__ __align__(16) unsigned char cgt_smem[];
+  pp::elim_split<T, R, false>(
+      reinterpret_cast<T*>(cgt_smem), Rm, Om, nullptr, jitter, s, C, acc00,
+      nullptr, w0l, nullptr, dl, invdl, nullptr, nullptr, nullptr,
+      InverseFactors<T, R>{ds, invds, cs, w0s, C});
+}
+
+// The same sweep one thread per chunk lane (float64 ranks 7-8 only).
 template <typename T, int R>
 __global__ void __launch_bounds__(CGT_THREADS)
 forward_sweep_inverse_kernel(const T* __restrict__ Rm,
@@ -398,21 +441,57 @@ takahashi_split_kernel(
   }
 }
 
-inline int blocks_for(int n) { return (n + CGT_THREADS - 1) / CGT_THREADS; }
+template <typename T, int R>
+int launch_inverse_split(const T* R_cm, const T* O_cm, T jitter, int s,
+                         int C, T* acc00, T* w0l, T* dl, T* invdl, T* ds,
+                         T* invds, T* cs, T* w0s, cudaStream_t stream) {
+  using K = pp::Elim<T, R, false>;
+  const cudaError_t err =
+      cgt::coop::prepare(inverse_split_kernel<T, R>, K::SMEM);
+  if (err != cudaSuccess) return int(err);
+  inverse_split_kernel<T, R>
+      <<<(C + K::BLOCK_LANES - 1) / K::BLOCK_LANES, K::THREADS, K::SMEM,
+         stream>>>(R_cm, O_cm, jitter, s, C, acc00, w0l, dl, invdl, ds,
+                   invds, cs, w0s);
+  return int(cudaGetLastError());
+}
 
 template <typename T>
 int launch_inverse_sweep(const T* R_cm, const T* O_cm, T jitter, int s, int d,
                          int C, T* acc00, T* w0l, T* dl, T* invdl, T* ds,
                          T* invds, T* cs, T* w0s, cudaStream_t stream) {
-#define CGT_LAUNCH(RR)                                                    \
-  forward_sweep_inverse_kernel<T, RR>                                     \
-      <<<blocks_for(C), CGT_THREADS, 0, stream>>>(R_cm, O_cm, jitter, s, \
-                                                   C, acc00, w0l, dl,     \
-                                                   invdl, ds, invds, cs,  \
-                                                   w0s)
+#define CGT_LAUNCH(RR)                                                      \
+  return launch_inverse_split<T, RR>(R_cm, O_cm, jitter, s, C, acc00, w0l, \
+                                     dl, invdl, ds, invds, cs, w0s, stream)
   CGT_RANK_SWITCH(d, CGT_LAUNCH)
 #undef CGT_LAUNCH
+}
+
+// the thread-per-lane kernel at float64 rank d (7 or 8)
+int launch_inverse_sweep_thread(const double* R_cm, const double* O_cm,
+                                double jitter, int s, int d, int C,
+                                double* acc00, double* w0l, double* dl,
+                                double* invdl, double* ds, double* invds,
+                                double* cs, double* w0s,
+                                cudaStream_t stream) {
+  const int blocks = (C + CGT_THREADS - 1) / CGT_THREADS;
+#define CGT_LAUNCH(RR)                                                    \
+  forward_sweep_inverse_kernel<double, RR>                                \
+      <<<blocks, CGT_THREADS, 0, stream>>>(R_cm, O_cm, jitter, s, C,      \
+                                           acc00, w0l, dl, invdl, ds,     \
+                                           invds, cs, w0s)
+  CGT_THREAD_RANK_SWITCH(d, CGT_LAUNCH)
+#undef CGT_LAUNCH
   return int(cudaGetLastError());
+}
+
+// thread blocks of inverse_split_kernel<T, R> one SM holds
+template <typename T, int R>
+int inverse_split_blocks() {
+  using K = pp::Elim<T, R, false>;
+  if (cgt::coop::prepare(inverse_split_kernel<T, R>, K::SMEM) != cudaSuccess)
+    return -1;
+  return pp::blocks_per_sm(inverse_split_kernel<T, R>, K::THREADS, K::SMEM);
 }
 
 template <typename T, int R>
@@ -470,6 +549,18 @@ int cgt_forward_sweep_inverse_f64(const double* R_cm, const double* O_cm,
                                       (cudaStream_t)stream);
 }
 
+int cgt_forward_sweep_inverse_thread_f64(const double* R_cm,
+                                         const double* O_cm, double jitter,
+                                         int s, int d, int C, double* acc00,
+                                         double* w0l, double* dl,
+                                         double* invdl, double* ds,
+                                         double* invds, double* cs,
+                                         double* w0s, void* stream) {
+  return launch_inverse_sweep_thread(R_cm, O_cm, jitter, s, d, C, acc00, w0l,
+                                     dl, invdl, ds, invds, cs, w0s,
+                                     (cudaStream_t)stream);
+}
+
 int cgt_takahashi_backward_f32(const float* ds, const float* invds,
                                const float* cs, const float* w0s,
                                const float* p00, const float* p01,
@@ -494,6 +585,25 @@ int cgt_takahashi_backward_f64(const double* ds, const double* invds,
   return launch_takahashi<double>(ds, invds, cs, w0s, p00, p01, p10, p11,
                                   phi, u0, u1, s, d, C, diag, off, u0f, u1f,
                                   (cudaStream_t)stream);
+}
+
+// dynamic shared bytes per thread block and thread blocks an SM of kernel
+// 10's split design (pipeline.cuh's Elim without the right-hand side) at
+// rank r (1..8; the second argument 1 for float64)
+int cgt_inverse_split_smem_bytes(int r, int f64) {
+#define CGT_LAUNCH(RR)                                    \
+  return int(f64 ? pp::Elim<double, RR, false>::SMEM \
+                 : pp::Elim<float, RR, false>::SMEM)
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
+}
+
+int cgt_inverse_split_blocks_per_sm(int r, int f64) {
+#define CGT_LAUNCH(RR)                            \
+  return f64 ? inverse_split_blocks<double, RR>() \
+             : inverse_split_blocks<float, RR>()
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
 }
 
 // dynamic shared bytes per thread block of kernel 11's split design at

@@ -26,7 +26,11 @@
 // 123 blocks at N = 1e6), the back-substitution is backsub_split_kernel
 // below (32 lanes a block, 245 blocks).  With the chain split off, the
 // sweep's time on the H100 is mostly its stores of the hat stacks.  Both
-// index their rows with plain strides (no reversed copy).
+// index their rows with plain strides (no reversed copy).  Where the split
+// sweep loses (float64 rank 8 falls into local memory: ops/_build.py's
+// ELIM_THREAD), the wrapper takes the thread-per-lane sweep
+// (forward_sweep_collect_kernel, kept at float64 ranks 7-8 only,
+// cgt_forward_sweep_collect_thread_f64).
 #include "blockmath.cuh"
 #include "pipeline.cuh"
 #include "rtcoop.cuh"
@@ -76,6 +80,38 @@ collect_split_kernel(const T* __restrict__ Rm, const T* __restrict__ Om,
   pp::elim_split<T, R>(reinterpret_cast<T*>(cgt_smem), Rm, Om, ym, jitter,
                        s, C, acc00, accy0, w0l, wl, dl, invdl, mh, ld,
                        ld_rows, CollectHats<T, R>{hc, hw0, hw, C});
+}
+
+// Kernel 8 one thread per chunk lane (float64 ranks 7-8 only): the carried
+// state in registers, each step's three back substitutions as CollectHats
+// forms them.
+template <typename T, int R>
+__global__ void __launch_bounds__(CGT_THREADS)
+forward_sweep_collect_kernel(const T* __restrict__ Rm,
+                             const T* __restrict__ Om,
+                             const T* __restrict__ ym, T jitter, int s, int C,
+                             T* acc00, T* accy0, T* w0l, T* wl, T* dl,
+                             T* invdl, T* mh, T* ld, T* hc, T* hw0, T* hw,
+                             T* ld_rows) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  cgt::SweepCarry<T, R> st;
+  T o_left[R][R];
+  cgt::load_mat<T, R>(Om, 0, C, c, o_left);
+  const CollectHats<T, R> hats{hc, hw0, hw, C};
+  for (int j = 1; j < s; ++j) {
+    T P[R][R], o_j[R][R], y_j[R];
+    cgt::load_mat<T, R>(Rm, j, C, c, P);
+#pragma unroll
+    for (int i = 0; i < R; ++i) P[i][i] += jitter;
+    cgt::load_mat<T, R>(Om, j, C, c, o_j);
+    cgt::load_vec<T, R>(ym, j, C, c, y_j);
+    const T ldl = cgt::elim_step<T, R>(j == 1, P, o_j, y_j, o_left, st);
+    ld_rows[size_t(j - 1) * C + c] = T(2) * ldl;
+    hats(j - 1, c, st.D, st.invd, st.cprev, st.w0, st.w);
+  }
+  cgt::store_sweep_state<T, R>(st, C, c, acc00, accy0, w0l, wl, dl, invdl,
+                               mh, ld);
 }
 
 // Kernel 9 at ranks 1-8: the back-substitution with its loads taken off
@@ -248,6 +284,25 @@ int launch_collect(const T* R_cm, const T* O_cm, const T* y_cm, T jitter,
 #undef CGT_LAUNCH
 }
 
+// the thread-per-lane sweep at float64 rank d (7 or 8)
+int launch_collect_thread(const double* R_cm, const double* O_cm,
+                          const double* y_cm, double jitter, int s, int d,
+                          int C, double* acc00, double* accy0, double* w0l,
+                          double* wl, double* dl, double* invdl, double* mh,
+                          double* ld, double* hc, double* hw0, double* hw,
+                          double* ld_rows, cudaStream_t stream) {
+  const int blocks = (C + CGT_THREADS - 1) / CGT_THREADS;
+#define CGT_LAUNCH(RR)                                                     \
+  forward_sweep_collect_kernel<double, RR>                                 \
+      <<<blocks, CGT_THREADS, 0, stream>>>(R_cm, O_cm, y_cm, jitter, s, C, \
+                                           acc00, accy0, w0l, wl, dl,      \
+                                           invdl, mh, ld, hc, hw0, hw,     \
+                                           ld_rows)
+  CGT_THREAD_RANK_SWITCH(d, CGT_LAUNCH)
+#undef CGT_LAUNCH
+  return int(cudaGetLastError());
+}
+
 template <typename T, int R>
 int launch_backsub_split(const T* hc, const T* hw0, const T* hw,
                          const T* hw1, const T* xb, const T* xbn, int s,
@@ -310,6 +365,17 @@ int cgt_forward_sweep_collect_f64(const double* R_cm, const double* O_cm,
                                 hw, ld_rows, (cudaStream_t)stream);
 }
 
+int cgt_forward_sweep_collect_thread_f64(
+    const double* R_cm, const double* O_cm, const double* y_cm,
+    double jitter, int s, int d, int C, double* acc00, double* accy0,
+    double* w0l, double* wl, double* dl, double* invdl, double* mh,
+    double* ld, double* hc, double* hw0, double* hw, double* ld_rows,
+    void* stream) {
+  return launch_collect_thread(R_cm, O_cm, y_cm, jitter, s, d, C, acc00,
+                               accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0,
+                               hw, ld_rows, (cudaStream_t)stream);
+}
+
 int cgt_backward_substitute_f32(const float* hc, const float* hw0,
                                 const float* hw, const float* hw1,
                                 const float* xb, const float* xbn, int s,
@@ -326,9 +392,9 @@ int cgt_backward_substitute_f64(const double* hc, const double* hw0,
                                 (cudaStream_t)stream);
 }
 
-// dynamic shared bytes per thread block of kernel 8's and kernel 6's split
-// designs (one layout, pipeline.cuh's Elim) at rank r (1..8; the second
-// argument 1 for float64)
+// dynamic shared bytes per thread block of kernel 8's, kernel 6's and
+// kernel 1's split designs (one layout, pipeline.cuh's Elim) at rank r
+// (1..8; the second argument 1 for float64)
 int cgt_elim_split_smem_bytes(int r, int f64) {
 #define CGT_LAUNCH(RR) \
   return int(f64 ? pp::Elim<double, RR>::SMEM : pp::Elim<float, RR>::SMEM)

@@ -122,7 +122,9 @@ _SIGNATURES.update({name: [_I, _I] for name in (
     "cgt_solveinv_warp_smem_bytes", "cgt_backsolve_warp_smem_bytes",
     "cgt_backsolve_split_smem_bytes", "cgt_backsub_split_smem_bytes",
     "cgt_takahashi_split_smem_bytes", "cgt_elim_split_smem_bytes",
-    "cgt_collect_split_blocks_per_sm", "cgt_solveinv_split_blocks_per_sm")})
+    "cgt_collect_split_blocks_per_sm", "cgt_solveinv_split_blocks_per_sm",
+    "cgt_sweep_split_blocks_per_sm", "cgt_inverse_split_smem_bytes",
+    "cgt_inverse_split_blocks_per_sm")})
 _SIGNATURES["cgt_celerite_sweep_smem_bytes"] = [_I]
 # the dynamic shared bytes per thread block of the K-system emission
 # (kernel 3), the fused emission sweep (kernel 4) and the emission adjoint
@@ -139,6 +141,11 @@ for _base in ("forward_sweep", "forward_sweep_collect",
     for _suf in ("_f32", "_f64"):
         _SIGNATURES[f"cgt_rt_{_base}{_suf}"] = _SIGNATURES[
             f"cgt_{_base}{_suf}"]
+# and so do the thread-per-lane instances of the four elimination sweeps
+# (float64, THREAD_RANKS below)
+for _base in ("forward_sweep", "forward_sweep_solveinv",
+              "forward_sweep_collect", "forward_sweep_inverse"):
+    _SIGNATURES[f"cgt_{_base}_thread_f64"] = _SIGNATURES[f"cgt_{_base}_f64"]
 
 
 def _nvcc() -> str:
@@ -252,6 +259,12 @@ RANKS = tuple(range(1, 9))
 SWEEP_RANKS = RANKS + (16,)
 SOLVE_RANKS = RANKS + tuple(range(9, 16))
 FORWARD_RANKS = SWEEP_RANKS + tuple(range(9, 16))
+
+
+# The float64 ranks at which the four elimination sweeps (kernels 1, 6, 8
+# and 10) also have a thread-per-lane kernel beside csrc/pipeline.cuh's
+# split one (sweep_cuda.THREAD_F64 says where each runs).
+THREAD_RANKS = (7, 8)
 
 
 def runtime_d(r: int) -> bool:

@@ -31,14 +31,21 @@ forward_sweep_collect_wide_pallas, :496 backward_substitute_wide_pallas,
 :641 forward_sweep_inverse_wide_pallas and :812
 takahashi_backward_wide_pallas on the chunk-major layout; a wrapper counts
 the two apart (``launches`` and ``launches_rt``); at 1..8 the collecting
-sweep, the back-substitution and the Takahashi recursion split each chunk
-lane's rows between a chain warp and warps that stage rows or form
-outputs, counted on ``launches_split`` as well.  The first three take
-block sizes 1..8 and 16 (celerite's boundary chain at nblocks 8), 16 one
-warp per chunk lane (``launches`` counts every launch, ``launches_warp``
-those at 16); at 1..8 the likelihood's sweep runs one thread per chunk
-lane, and the solve+inverse sweep and the walk split each lane's rows as
-above (``launches_split``).
+sweep, the back-substitution, the inverse sweep and the Takahashi
+recursion split each chunk lane's rows between a chain warp and warps that
+stage rows or form outputs, counted on ``launches_split`` as well.  The
+first three take block sizes 1..8 and 16 (celerite's boundary chain at
+nblocks 8), 16 one warp per chunk lane (``launches`` counts every launch,
+``launches_warp`` those at 16); at 1..8 the likelihood's sweep, the
+solve+inverse sweep and the walk split each lane's rows as above
+(``launches_split``).
+
+The four elimination sweeps (the likelihood's, the solve+inverse, the
+solve's and the inverse sweep: kernels 1, 6, 8 and 10) are one split
+sweep, ``csrc/pipeline.cuh``'s ``elim_split``, with other outputs.  At the
+instances where it loses to one thread per chunk lane
+(``THREAD_F64``: float64, by rank and chunk count), their wrappers launch
+the thread-per-lane kernel instead and count it on ``launches_thread``.
 
 Each wrapper launches its kernel for CUDA tensors; for CPU tensors it runs
 its plain twin (``*_plain``), which computes the same function with tensor
@@ -142,6 +149,82 @@ def _solve_symbol(kernel: str, d: int) -> str:
     return ("cgt_rt_" if _build.runtime_d(d) else "cgt_") + kernel
 
 
+# The four elimination sweeps (kernels 1, 6, 8 and 10) run
+# csrc/pipeline.cuh's split sweep at block sizes 1..8 but where it loses to
+# one thread per chunk lane, on the H100 only at float64: (wrapper stem,
+# rank) -> the least chunk count C that takes the thread-per-lane kernel
+# (compiled at float64 ranks _build.THREAD_RANKS only).  At rank 8 ptxas
+# puts the split sweep's state in local memory, and it loses at every C.
+# At rank 7 a split block holds 16 lanes, one block an SM, so its time
+# grows a wave of 132 x 16 = 2,112 lanes at a time while the thread
+# kernel's stays nearly flat: 10 loses from its third wave on, 8 from its
+# fifth, 1 and 6 at no C timed.  chip_smoke.py's [elim-pick] times both
+# designs on both sides of these bounds and fails where this table picks
+# the slower (PERF.md §6).
+_WAVE = 132 * 16
+THREAD_F64 = {("forward_sweep", 8): 1, ("forward_sweep_solveinv", 8): 1,
+              ("forward_sweep_collect", 8): 1,
+              ("forward_sweep_inverse", 8): 1,
+              ("forward_sweep_collect", 7): 4 * _WAVE + 1,
+              ("forward_sweep_inverse", 7): 2 * _WAVE + 1}
+
+
+def _elim_design(stem: str, dtype, d: int, c: int):
+    """The design of the elimination sweep ``stem`` (the stem of kernel
+    1's, 6's, 8's or 10's wrapper) at block size ``d`` and ``c`` chunk
+    lanes on the card: "thread" where THREAD_F64 says so, else "split" at
+    1..8, None at 9..16 (one instance there)."""
+    if d not in _build.RANKS:
+        return None
+    least = THREAD_F64.get((stem, d)) if dtype == torch.float64 else None
+    return "thread" if least is not None and c >= least else "split"
+
+
+def _elim_launch(stem: str, symbol: str, R_cm: Tensor, O_cm: Tensor,
+                 y_cm, jitter: float):
+    """Launch the elimination sweep ``stem``'s C entry ``symbol`` on
+    outputs allocated here (kernel 10, ``y_cm`` None, has no right-hand
+    side) and return them as its wrapper does: mh and ld summed over the
+    lanes."""
+    s, d, _, c = R_cm.shape
+    last = [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c), (c,),
+            (c,)]
+    hats = [(s - 1, d, d, c), (s - 1, d, d, c), (s - 1, d, c)]
+    shapes = {"forward_sweep": last,
+              "forward_sweep_solveinv": last + hats + [(s - 1, d, d, c)],
+              "forward_sweep_collect": last + hats,
+              "forward_sweep_inverse": [
+                  (d, d, c), (d, d, c), (d, d, c), (d, c), (s - 1, d, d, c),
+                  (s - 1, d, c), (s - 1, d, d, c), (s - 1, d, d, c)]}[stem]
+    if y_cm is not None:
+        shapes = shapes + [(s - 1, c)]  # ld_rows
+    outs = [R_cm.new_empty(shape) for shape in shapes]
+    ins = (R_cm, O_cm) if y_cm is None else (R_cm, O_cm, y_cm)
+    with torch.cuda.device(R_cm.device):
+        _launch(f"{stem}_cuda", symbol, R_cm.dtype, *ins, float(jitter), s,
+                d, c, *outs)
+    if y_cm is None:
+        return tuple(outs)
+    return (*outs[:6], torch.sum(outs[6]), torch.sum(outs[7]), *outs[8:])
+
+
+def _elim_symbol(stem: str, dtype, d: int, c: int):
+    """(C entry, design) of the elimination sweep ``stem`` (_elim_design)
+    at block size ``d`` and ``c`` chunk lanes."""
+    design = _elim_design(stem, dtype, d, c)
+    if design == "thread":
+        return f"cgt_{stem}_thread", design
+    return _solve_symbol(stem, d), design
+
+
+def _count_design(wrapper, design) -> None:
+    """Count one launch of an elimination sweep at 1..8 on its design."""
+    if design == "split":
+        wrapper.launches_split += 1
+    elif design == "thread":
+        wrapper.launches_thread += 1
+
+
 def _count_solve(wrapper, d: int) -> None:
     """Count one launch on ``wrapper``: ``launches`` for the rank-templated
     instance, ``launches_rt`` for the runtime-d one."""
@@ -177,9 +260,15 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     to every pivot block's diagonal.  The per-lane partial sums of mh and
     ld are summed outside the kernel.
 
-    CUDA tensors launch ``csrc/forward_sweep.cu`` at d in 1..8 (one
-    thread per chunk lane) and 16 (one warp per chunk lane)
-    (``forward_sweep_cuda.launches`` counts both, ``.launches_warp`` those
+    CUDA tensors launch ``csrc/forward_sweep.cu`` at d in 1..8 (the
+    split sweep of ``csrc/pipeline.cuh``: lane groups of 32 chunk lanes,
+    two a thread block where they fit, in each one warp running the
+    elimination's carried part while three warps copy the rows in ahead
+    of it with cp.async and form the row log-dets and the sums; one
+    thread per chunk lane where ``THREAD_F64`` says so) and 16 (one warp
+    per chunk lane)
+    (``forward_sweep_cuda.launches`` counts both, ``.launches_split`` and
+    ``.launches_thread`` those at 1..8 by design, ``.launches_warp`` those
     at 16) and ``csrc/rt_solve.cu``'s runtime-d sweep at d = 9..15
     (``.launches_rt``), on the current stream; CPU tensors run
     `forward_sweep_plain`.
@@ -190,23 +279,20 @@ def forward_sweep_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
         return forward_sweep_plain(R_cm, O_cm, y_cm, jitter)
     s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm,
                                   _build.FORWARD_RANKS)
-    outs = [R_cm.new_empty(shape) for shape in
-            [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
-             (c,), (c,), (s - 1, c)]]
-    with torch.cuda.device(R_cm.device):
-        _launch(name, _solve_symbol("forward_sweep", d), R_cm.dtype, R_cm,
-                O_cm, y_cm, float(jitter), s, d, c, *outs)
+    symbol, design = _elim_symbol("forward_sweep", R_cm.dtype, d, c)
+    out = _elim_launch("forward_sweep", symbol, R_cm, O_cm, y_cm, jitter)
     _count_solve(forward_sweep_cuda, d)
+    _count_design(forward_sweep_cuda, design)
     if d == 16:
         forward_sweep_cuda.launches_warp += 1
-    acc00, accy0, w0l, wl, dl, invdl, mh, ld, ld_rows = outs
-    return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
-            ld_rows)
+    return out
 
 
 forward_sweep_cuda.launches = 0
 forward_sweep_cuda.launches_rt = 0
 forward_sweep_cuda.launches_warp = 0
+forward_sweep_cuda.launches_split = 0
+forward_sweep_cuda.launches_thread = 0
 
 
 def forward_sweep_solveinv_plain(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
@@ -249,11 +335,13 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     thread block where they fit), in each one warp running the
     elimination's carried part while three warps copy the rows in ahead
     of it with cp.async and form the hats, pinv, the row log-dets and the
-    sums (``csrc/pipeline.cuh``'s ``elim_split``); one
+    sums (``csrc/pipeline.cuh``'s ``elim_split``; one thread per chunk
+    lane where ``THREAD_F64`` says so); one
     warp per chunk lane at d = 16
     (``forward_sweep_solveinv_cuda.launches`` counts every launch,
-    ``.launches_split`` those at 1..8, ``.launches_warp`` those at 16);
-    CPU tensors run `forward_sweep_solveinv_plain`.
+    ``.launches_split`` and ``.launches_thread`` those at 1..8 by design,
+    ``.launches_warp`` those at 16); CPU tensors run
+    `forward_sweep_solveinv_plain`.
     """
     name = "forward_sweep_solveinv_cuda"
     _build.check_no_grad(name, R_cm, O_cm, y_cm)
@@ -261,26 +349,20 @@ def forward_sweep_solveinv_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
         return forward_sweep_solveinv_plain(R_cm, O_cm, y_cm, jitter)
     s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm,
                                   _build.SWEEP_RANKS)
-    outs = [R_cm.new_empty(shape) for shape in
-            [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
-             (c,), (c,), (s - 1, d, d, c), (s - 1, d, d, c), (s - 1, d, c),
-             (s - 1, d, d, c), (s - 1, c)]]
-    with torch.cuda.device(R_cm.device):
-        _launch(name, "cgt_forward_sweep_solveinv", R_cm.dtype, R_cm, O_cm,
-                y_cm, float(jitter), s, d, c, *outs)
+    symbol, design = _elim_symbol("forward_sweep_solveinv", R_cm.dtype, d,
+                                  c)
+    out = _elim_launch("forward_sweep_solveinv", symbol, R_cm, O_cm, y_cm,
+                       jitter)
     forward_sweep_solveinv_cuda.launches += 1
+    _count_design(forward_sweep_solveinv_cuda, design)
     if d == 16:
         forward_sweep_solveinv_cuda.launches_warp += 1
-    else:
-        forward_sweep_solveinv_cuda.launches_split += 1
-    (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0, hw, pinv,
-     ld_rows) = outs
-    return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
-            hc, hw0, hw, pinv, ld_rows)
+    return out
 
 
 forward_sweep_solveinv_cuda.launches = 0
 forward_sweep_solveinv_cuda.launches_split = 0
+forward_sweep_solveinv_cuda.launches_thread = 0
 forward_sweep_solveinv_cuda.launches_warp = 0
 
 
@@ -424,10 +506,12 @@ def forward_sweep_collect_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
     block where they fit), in each one warp running the elimination's
     carried part while three warps copy the rows in ahead of it with
     cp.async and form the hats, the row log-dets and the sums
-    (``csrc/pipeline.cuh``'s ``elim_split``;
-    ``forward_sweep_collect_cuda.launches`` and ``.launches_split``);
-    ``csrc/rt_solve.cu`` at d = 9..15, one warp per chunk lane
-    (``.launches_rt``); CPU tensors run `forward_sweep_collect_plain`.
+    (``csrc/pipeline.cuh``'s ``elim_split``; one thread per chunk lane
+    where ``THREAD_F64`` says so;
+    ``forward_sweep_collect_cuda.launches``, and ``.launches_split`` and
+    ``.launches_thread`` by design); ``csrc/rt_solve.cu`` at d = 9..15,
+    one warp per chunk lane (``.launches_rt``); CPU tensors run
+    `forward_sweep_collect_plain`.
     """
     name = "forward_sweep_collect_cuda"
     _build.check_no_grad(name, R_cm, O_cm, y_cm)
@@ -435,25 +519,18 @@ def forward_sweep_collect_cuda(R_cm: Tensor, O_cm: Tensor, y_cm: Tensor,
         return forward_sweep_collect_plain(R_cm, O_cm, y_cm, jitter)
     s, d, c = _check_sweep_inputs(name, R_cm, O_cm, y_cm,
                                   _build.SOLVE_RANKS)
-    outs = [R_cm.new_empty(shape) for shape in
-            [(d, d, c), (d, c), (d, d, c), (d, c), (d, d, c), (d, c),
-             (c,), (c,), (s - 1, d, d, c), (s - 1, d, d, c), (s - 1, d, c),
-             (s - 1, c)]]
-    with torch.cuda.device(R_cm.device):
-        _launch(name, _solve_symbol("forward_sweep_collect", d),
-                R_cm.dtype, R_cm, O_cm, y_cm, float(jitter), s, d, c, *outs)
+    symbol, design = _elim_symbol("forward_sweep_collect", R_cm.dtype, d, c)
+    out = _elim_launch("forward_sweep_collect", symbol, R_cm, O_cm, y_cm,
+                       jitter)
     _count_solve(forward_sweep_collect_cuda, d)
-    if not _build.runtime_d(d):
-        forward_sweep_collect_cuda.launches_split += 1
-    (acc00, accy0, w0l, wl, dl, invdl, mh, ld, hc, hw0, hw,
-     ld_rows) = outs
-    return (acc00, accy0, w0l, wl, dl, invdl, torch.sum(mh), torch.sum(ld),
-            hc, hw0, hw, ld_rows)
+    _count_design(forward_sweep_collect_cuda, design)
+    return out
 
 
 forward_sweep_collect_cuda.launches = 0
 forward_sweep_collect_cuda.launches_rt = 0
 forward_sweep_collect_cuda.launches_split = 0
+forward_sweep_collect_cuda.launches_thread = 0
 
 
 def backward_substitute_plain(hat_cs, hat_w0s, hat_ws, hat_w1, xb,
@@ -555,10 +632,16 @@ def forward_sweep_inverse_cuda(R_cm: Tensor, O_cm: Tensor,
     [s-1, d, d, C]), with stack row j-1 holding step j's D_j, 1/diag(D_j),
     C_j = O_j D_j^{-T} and W0_j, at the true chunk count C.
 
-    CUDA tensors launch ``csrc/inverse_sweep.cu`` at d <= 8
-    (``forward_sweep_inverse_cuda.launches``) and ``csrc/rt_inverse.cu``
-    at d = 9..15 (``.launches_rt``); CPU tensors run
-    `forward_sweep_inverse_plain`.
+    CUDA tensors launch ``csrc/inverse_sweep.cu`` at d <= 8 (the split
+    sweep of ``csrc/pipeline.cuh`` without the right-hand side: lane
+    groups of 32 chunk lanes, two a thread block where they fit, in each
+    one warp running the elimination's carried part while three warps
+    copy the rows in ahead of it with cp.async and store each row's raw
+    factors; one thread per chunk lane where ``THREAD_F64`` says so;
+    ``forward_sweep_inverse_cuda.launches``, and
+    ``.launches_split`` and ``.launches_thread`` by design) and
+    ``csrc/rt_inverse.cu`` at d = 9..15 (``.launches_rt``); CPU tensors
+    run `forward_sweep_inverse_plain`.
     """
     name = "forward_sweep_inverse_cuda"
     _build.check_no_grad(name, R_cm, O_cm)
@@ -567,18 +650,18 @@ def forward_sweep_inverse_cuda(R_cm: Tensor, O_cm: Tensor,
     s, d, _, c = R_cm.shape
     _check_sweep_inputs(name, R_cm, O_cm, R_cm.new_empty((s, d, c)),
                         _build.SOLVE_RANKS)
-    outs = [R_cm.new_empty(shape) for shape in
-            [(d, d, c), (d, d, c), (d, d, c), (d, c), (s - 1, d, d, c),
-             (s - 1, d, c), (s - 1, d, d, c), (s - 1, d, d, c)]]
-    with torch.cuda.device(R_cm.device):
-        _launch(name, _solve_symbol("forward_sweep_inverse", d),
-                R_cm.dtype, R_cm, O_cm, float(jitter), s, d, c, *outs)
+    symbol, design = _elim_symbol("forward_sweep_inverse", R_cm.dtype, d, c)
+    out = _elim_launch("forward_sweep_inverse", symbol, R_cm, O_cm, None,
+                       jitter)
     _count_solve(forward_sweep_inverse_cuda, d)
-    return tuple(outs)
+    _count_design(forward_sweep_inverse_cuda, design)
+    return out
 
 
 forward_sweep_inverse_cuda.launches = 0
 forward_sweep_inverse_cuda.launches_rt = 0
+forward_sweep_inverse_cuda.launches_split = 0
+forward_sweep_inverse_cuda.launches_thread = 0
 
 
 def takahashi_backward_plain(ds, invds, cs, w0s, p00, p01, p10, p11, phi0,

@@ -129,19 +129,23 @@ def _bars(dtype):
 def test_sweep_on_card(card, stem, dtype, r, s, c):
     """Kernel 6 or 8 == its twin, every output (the last state, mh, ld,
     the hat stacks, pinv, ld_rows), the same bits on a second run, and
-    each launch on the split design (``launches_split``; none on kernel
-    6's warp instance or kernel 8's runtime-d one)."""
+    each launch on the design the table names (``launches_split``, or
+    ``launches_thread`` where ``sweep_cuda.THREAD_F64`` names the
+    instance: float64 rank 8, where the split design falls into local
+    memory; none on kernel 6's warp instance or kernel 8's runtime-d
+    one)."""
     args = [a.to(card) for a in _inputs(r, s, c, seed=10 * s + c + r,
                                         dtype=dtype)]
     kern = getattr(sweep_cuda, f"{stem}_cuda")
     other = "launches_warp" if stem == _SWEEPS[0] else "launches_rt"
+    design = f"launches_{sweep_cuda._elim_design(stem, dtype, r, c)}"
     with torch.no_grad():
-        n, n_split, n_other = (kern.launches, kern.launches_split,
-                               getattr(kern, other))
+        n, n_design, n_other = (kern.launches, getattr(kern, design),
+                                getattr(kern, other))
         got = kern(*args, _JITTER)
         again = kern(*args, _JITTER)
         torch.cuda.synchronize()
-        assert (kern.launches - n, kern.launches_split - n_split,
+        assert (kern.launches - n, getattr(kern, design) - n_design,
                 getattr(kern, other) - n_other) == (2, 2, 0)
         ref = getattr(sweep_cuda, f"{stem}_plain")(*args, _JITTER)
     assert all(bool(torch.equal(a, b)) for a, b in zip(got, again))
