@@ -48,15 +48,23 @@ Phases, one line of output each (or more):
               the thread blocks an SM holds, failing if a float32 rank-5
               instance uses any stack or spill, and their thread-per-lane
               instances (float64 ranks 7 and 8) with the table that routes
-              to them (sweep_cuda.THREAD_F64).
+              to them (sweep_cuda.THREAD_F64); kernel 2 (the per-gap
+              (e, Q)) in both its designs (R lanes a gap, a row each, at
+              small M; one thread a gap above) at every rank, failing if
+              a rank-5 instance uses any stack or spill.
   3. kernels  each kernel against its plain PyTorch twin on the card, at
               the main path's shapes (LEG rank 5, N = 1e6 irregular gaps,
               s = 128, C = 7,813), with the error against its tolerance,
               the median CUDA-event time of kernel and twin, and the
-              card's least time for the same work (its bound).  The three
-              backward kernels get the inputs the two-kernel route's
+              card's least time for the same work (its bound); kernel 2's
+              two designs each against the twin at the sizes the paths
+              launch it at (M = C, 65,536, 2^17, 1e6; intercast's 4P in
+              phase 7), timed in turns, with the profiler's device time a
+              launch ([tn-pick]: failing where the table
+              expm_cuda.TN_ROWS_MAX_M picks the slower design).
+              The three backward kernels get the inputs the two-kernel route's
               backward hands them.  Kernel 5 gives the same bits on a
-              second run; then kernels 5, 4 and 3 at their edge shapes
+              second run; then kernels 5, 4, 2 and 3 at their edge shapes
               ([emission]: ranks 1, 5 and 8; gaps of 0-9 squaring rounds
               and both branches in every warp, padded gaps; C = 35 and 45
               lanes, s = 6 and 7 rows) against their twins, 5 and 3 also
@@ -83,8 +91,8 @@ Phases, one line of output each (or more):
   6. train    three Adam train steps on the fused N = 1e6 route, launch
               counts reset just before and read just after, every launch
               of kernels 4, 5, 3, 7 and 6 on their redesigned kernels and
-              of kernels 1, 6, 8 and 10 on the design the table names; then
-              one step under torch.profiler (every launch of 6 split, of
+              of kernels 2, 1, 6, 8 and 10 on the design the table names;
+              then one step under torch.profiler (every launch of 6 split, of
               1, 6, 8, 10 on the table's design; its busy share against
               the profiled wall and against the unprofiled median; its ten
               largest device ops and every split kernel below them; the
@@ -94,7 +102,15 @@ Phases, one line of output each (or more):
               gradient with backend="auto" against "torch", and two steps
               of fit(loss=None), which must pick "cr_residual", with the
               launch counts of kernels 2, 3, 5-9 (every launch of 9, 8 and
-              6 on its split design, of 1, 6, 8, 10 on the table's).
+              6 on its split design, of 1, 6, 8, 10 on the table's, of 2
+              on the design its table picks); then [kalman], the float32 defaults on
+              smaller and uniform grids: "kalman" on an irregular grid of
+              2^17 points and "kalman_regular" on a uniform one of 16,384
+              (the pick, value and gradient against backend="torch",
+              three fit(loss=None) steps with kernel 2's launches, one
+              profiled step), the uniform grid one point longer, where
+              fit must pick "kalman_ss" and raise, and the blocked filter
+              at N = 1e6 (value, gradient, peak memory).
   7. posterior the four posterior kernels against their twins on the inputs
               one insample_posterior(method="precision") call hands them
               at N = 1e6; kernels 9 and 11 at their edge shapes
@@ -194,6 +210,7 @@ Phases, one line of output each (or more):
               at the edge shapes of [solve-rt].
  12. a JSON line of the kernels, then the final JSON status line.
 
+A [clock] line before each phase gives the seconds since the start.
 Any failure exits non-zero before the final line.  There is no CPU path:
 without a CUDA device, or without the package beside this script, it
 fails.
@@ -204,6 +221,11 @@ times only the four elimination sweeps (kernels 1, 6, 8, 10) on the LEG
 main path (sweeps_main), with the port imported from DIR (an unpacked
 ``git archive`` of another commit) or from this checkout: run parent,
 change, change, parent in one call to compare two commits on one card.
+
+    python3 chip_smoke.py --tn [--root DIR] [--label TEXT]
+
+times only kernel 2, through its wrapper, at the sizes the paths launch it
+at (tn_main), in the same way.
 """
 
 import functools
@@ -256,13 +278,15 @@ def cuda_ms(fn, reps=REPS, warm=True):
     return statistics.median(times)
 
 
-def profiled(fn):
+def profiled(fn, cpu=True):
     """(wall ms with the profiler on, {device op name: (ms, calls)}) of
-    fn() under torch.profiler."""
+    fn() under torch.profiler; ``cpu=False`` records the device activity
+    alone (for tens of thousands of ops, where sorting out the host's
+    events would take tens of seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -350,7 +374,7 @@ def _nbytes(tensors):
 
 def _rounds(g, dt):
     """(squaring rounds per gap, Van Loan-regime mask): the scaling rule
-    of csrc/blockmath.cuh tn_math, on this run's gaps."""
+    of csrc/gapsmem.cuh (rounds, van_loan), on this run's gaps."""
     from cyclic_gps_tpu_torch.ops import expm_cuda
 
     _, half, augn = expm_cuda._generator_norms(g.double())
@@ -361,14 +385,17 @@ def _rounds(g, dt):
 
 
 def _tn_flops(g, dt):
-    """Operations of the per-gap (e, Q1) forward: the structured Pade-7
-    (13 products, LU solves with R and 2R right-hand sides), the
-    squaring rounds (4 products in the Van Loan regime, else 1) and Q."""
+    """Operations the per-gap (e, Q1) forward needs: where dt ||G/2|| < 1
+    (Van Loan) the structured Pade-7 (13 products, LU solves with R and 2R
+    right-hand sides), 4 products a squaring round and Q from g1 f1^T;
+    elsewhere only e's Pade-7 (a2, a4, a6, a p: 4 products, an LU solve
+    with R right-hand sides), 1 product a round and Q = I - e e^T."""
     r = g.shape[0]
     nsq, small = _rounds(g, dt)
     per_round = torch.where(small, 8.0, 2.0) * r ** 3
-    pade = (26 + 2 / 3 + 2 + 2 / 3 + 4) * r ** 3
-    return float(dt.numel() * (pade + 2 * r ** 3) + (nsq * per_round).sum())
+    pade = torch.where(small, 26 + 2 / 3 + 2 + 2 / 3 + 4,
+                       8 + 2 / 3 + 2) * r ** 3
+    return float((pade + 2 * r ** 3 + nsq * per_round).sum())
 
 
 def _q1_terms_flops(r):
@@ -1697,7 +1724,7 @@ def mixed_gaps(expm_cuda, g, s, c, seed, dev):
                  .to(dev) for a in (dt, gv))
 
 
-def run_emission_edges(dev, check_kernel, leg, expm_cuda):
+def run_emission_edges(dev, check_kernel, leg, expm_cuda, _build):
     """Kernels 5 (the emission adjoint, each block's gaps sorted by branch
     and rounds, rounds past the 4 stored ones recomputed), 4 (the fused
     emission sweep, 32 lanes a block in tiles of 3 rows) and 3 (the K
@@ -1746,6 +1773,19 @@ def run_emission_edges(dev, check_kernel, leg, expm_cuda):
             (g, boost, dt, gv, real, wrap, y), 1e-3, 1e-4,
             f"{where}; atol 1e-4 of each output's scale", atol_of_scale=True,
             gaps_of=dt, record=False, phase="emission", reps=1)
+        dt2 = dt.reshape(-1).contiguous()
+        got2 = check_kernel(
+            "transition_and_noise", "", "",
+            expm_cuda.transition_and_noise_cuda,
+            expm_cuda.transition_and_noise_plain, (g, dt2), 1e-4, 1e-6,
+            f"{where}; the [kernels] row's bars", gaps_of=dt2, record=False,
+            phase="emission", reps=1)
+        with torch.no_grad():
+            ref2 = expm_cuda.transition_and_noise_plain(g, dt2)
+            for design in TN_KERNELS:
+                compare(f"transition_and_noise rank {r}, {design} design",
+                        expm_cuda._tn_launch(design, g, dt2), ref2, 1e-4,
+                        1e-6)
         args3 = (g, boost, dt, gv, real, wrap)
         check_kernel(
             "k_system", "", "", expm_cuda.k_system_cuda,
@@ -1758,9 +1798,9 @@ def run_emission_edges(dev, check_kernel, leg, expm_cuda):
             torch.cuda.synchronize()
         if not all(bool(torch.equal(a, b)) for a, b in zip(once, twice)):
             fail(f"k_system at rank {r}: two runs differ")
-    say(f"[emission] kernels 5, 4 and 3 agree with their twins at "
-        f"{len(EMISSION_EDGES)} edge shapes; kernels 5 and 3 give the same "
-        "bits on a second run at each")
+    say(f"[emission] kernels 5, 4, 2 and 3 agree with their twins at "
+        f"{len(EMISSION_EDGES)} edge shapes (kernel 2 in both its designs); "
+        "kernels 5 and 3 give the same bits on a second run at each")
 
 
 # kernel 7 at ranks 1-8 (32 chunk lanes a block, or 16 / 8 where shared
@@ -2250,6 +2290,7 @@ def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
         "backward_solve_takahashi": sweep_cuda.backward_solve_takahashi_cuda}
     for w in wrappers.values():
         w.launches = 0
+    tn0 = tn_watch(expm_cuda)
     split = ("backward_substitute", "forward_sweep_collect",
              "forward_sweep_solveinv")
     for k in split:
@@ -2282,15 +2323,388 @@ def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
         if n_split[k] != counts[k]:
             fail(f"{k}: a launch in the residual train steps did not take "
                  "the split design")
+    check_tn_path("train", "residual steps (gap slabs of at most "
+                  f"{leg._ADJ_SLAB})", expm_cuda, tn0)
     check_elim_designs("train", "residual steps", sweep_cuda, elim0)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2 at the sizes the paths launch it at: its two designs.
+# ---------------------------------------------------------------------------
+
+TN_PROFILE_LAUNCHES = 20  # launches per size under the profiler
+TN_KERNELS = {"rows": "transition_and_noise_rows_kernel",
+              "thread": "transition_and_noise_thread_kernel"}
+
+
+def tn_counts(expm_cuda):
+    """Kernel 2's counters: (launches, launches_rows, launches_thread)."""
+    k2 = expm_cuda.transition_and_noise_cuda
+    return k2.launches, k2.launches_rows, k2.launches_thread
+
+
+def tn_watch(expm_cuda):
+    """Start recording the gap count M of every kernel-2 launch (the
+    wrapper asks expm_cuda._tn_design once a launch); returns the watch
+    that check_tn_path reads and ends."""
+    sizes, pick = [], expm_cuda._tn_design
+
+    def spy(m):
+        sizes.append(m)
+        return pick(m)
+
+    expm_cuda._tn_design = spy
+    return sizes, pick, tn_counts(expm_cuda)
+
+
+def check_tn_path(phase, what, expm_cuda, watch, m=None):
+    """End ``watch`` (tn_watch) and check kernel 2's launches in ``what``:
+    fails where there were none, where the counters do not split them by
+    the design the table picks at each launch's M, or (``m`` given) where
+    a launch's M is not the path's ``m``."""
+    sizes, pick, before = watch
+    expm_cuda._tn_design = pick
+    n, w, t = (a - b for a, b in zip(tn_counts(expm_cuda), before))
+    by_m = {}
+    for x in sizes:
+        by_m[x] = by_m.get(x, 0) + 1
+    say(f"[{phase}] {what}: kernel 2 launches {n} (rows design {w}, thread "
+        f"design {t}); launches by M {dict(sorted(by_m.items()))}")
+    if n <= 0 or n != len(sizes):
+        fail(f"{what}: kernel 2 was not launched, or not through its "
+             "table")
+    if w != sum(pick(x) == "rows" for x in sizes) or w + t != n:
+        fail(f"{what}: kernel 2's counters do not match its table")
+    if m is not None and set(by_m) != {m}:
+        fail(f"{what}: kernel 2 launched at M = {sorted(by_m)}, not {m}")
+
+
+def tn_device_us(fn, name):
+    """Device microseconds per launch of the kernel ``name`` (a part of its
+    mangled name) over TN_PROFILE_LAUNCHES calls of fn, from torch.profiler;
+    None where the profiler saw no device events."""
+    def launches():
+        for _ in range(TN_PROFILE_LAUNCHES):
+            fn()
+
+    _, by_name = profiled(launches)
+    hits = [(ms, n) for k, (ms, n) in by_name.items() if name in k]
+    if not hits:
+        return None
+    return 1e3 * sum(ms for ms, _ in hits) / sum(n for _, n in hits)
+
+
+def run_tn_sizes(phase, expm_cuda, g, cases):
+    """Kernel 2 at each (label, gaps) of ``cases``: the wrapper (counting
+    its launches) and both designs (expm_cuda._tn_launch, counting
+    nothing) against the plain twin under the [kernels] row's bars (rtol
+    1e-4, atol 1e-6: one float32 Pade-7); both designs timed in turns
+    (rows, thread, thread, rows: CUDA-event medians around one launch,
+    which at small M are the host's enqueue time) and by their device time
+    a launch (profiler); the bound.  [tn-pick]: fails where the table
+    (expm_cuda._tn_design) picks the design whose device time a launch
+    (the events' where the profiler saw none) is the longer by more than
+    PICK_TIE."""
+    k2 = expm_cuda.transition_and_noise_cuda
+    for label, dt in cases:
+        m = dt.shape[0]
+        with torch.no_grad():
+            got = k2(g, dt)
+            torch.cuda.synchronize()
+            ref = expm_cuda.transition_and_noise_plain(g, dt)
+            compare(f"transition_and_noise {label} vs twin", got, ref,
+                    1e-4, 1e-6)
+            for design in TN_KERNELS:
+                compare(f"transition_and_noise {label}, {design} design vs "
+                        "twin", expm_cuda._tn_launch(design, g, dt), ref,
+                        1e-4, 1e-6)
+            del ref
+            ms = {d: [] for d in TN_KERNELS}
+            for design in ("rows", "thread", "thread", "rows"):
+                ms[design].append(cuda_ms(
+                    lambda: expm_cuda._tn_launch(design, g, dt)))
+            dev = {d: tn_device_us(
+                lambda: expm_cuda._tn_launch(d, g, dt), name)
+                for d, name in TN_KERNELS.items()}
+        b_ms, b_by = bound("transition_and_noise", (g, dt), got, g, dt)
+        pick = expm_cuda._tn_design(m)
+        other = "thread" if pick == "rows" else "rows"
+        if None in dev.values():
+            t = {d: 1e3 * sum(v) / len(v) for d, v in ms.items()}
+            by = "CUDA events"
+        else:
+            t, by = dev, "device time"
+        ratio = t[pick] / t[other]
+        fmt = (lambda v: "not measured" if v is None else f"{v:.2f} us")
+        say(f"[{phase}] transition_and_noise at M = {m} ({label}): rows "
+            f"design {ms['rows'][0]:.4f} / {ms['rows'][1]:.4f} ms, thread "
+            f"design {ms['thread'][0]:.4f} / {ms['thread'][1]:.4f} ms (CUDA "
+            "events around one launch, in turns); device time a launch rows "
+            f"{fmt(dev['rows'])}, thread {fmt(dev['thread'])} (profiler, "
+            f"{TN_PROFILE_LAUNCHES} launches); bound {1e3 * b_ms:.2f} us "
+            f"({b_by}, {1e3 * b_ms / t[pick]:.1%} of the picked design's "
+            f"{by})")
+        say(f"[tn-pick] M = {m}: the table picks {pick}, {ratio:.3f} of the "
+            f"{other} design's {by}"
+            + (" (a tie)" if 1 < ratio <= 1 + PICK_TIE else ""))
+        if ratio > 1 + PICK_TIE:
+            fail(f"transition_and_noise at M = {m}: the table picks the "
+                 f"{pick} design, slower than the {other} one")
+
+
+def tn_main(root, label):
+    """``--tn``: kernel 2 through its wrapper (whatever design the package
+    at ``root``, an unpacked ``git archive`` of another commit, or this
+    checkout, picks) at the sizes the paths launch it at on the LEG main
+    path (rank 5, float32 seeded weights): M = 1,024 and 4,096 (the first
+    of N = 1e6's chunk-crossing gaps: C at N = 2^17 and 2^19), M = C =
+    7,813 (N = 1e6's chunk-crossing gaps), 65,536 (a residual slab), 2^17
+    (the Kalman loss), 1e6 - 1 (every gap of N = 1e6) and intercast's 4P
+    at P = 1e6 + 3; CUDA-event medians around one call, and device time a
+    launch of any kernel named transition_and_noise (profiler), so that
+    two commits are timed on one card in turns (parent, change, change,
+    parent)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    sys.path.insert(0, root or os.path.dirname(os.path.abspath(__file__)))
+    from cyclic_gps_tpu_torch.data.synthetic import generate_data
+    from cyclic_gps_tpu_torch.models import leg
+    from cyclic_gps_tpu_torch.ops import _build, expm_cuda
+
+    tag = f"tn{' ' + label if label else ''}"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    say(f"[{tag}] {smi.stdout.strip()}; package {expm_cuda.__file__}")
+    so, secs = _build.build()
+    say(f"[{tag}] library {so.name}: "
+        + ("cached" if secs is None else f"built in {secs:.1f} s"))
+    dev = torch.device("cuda", 0)
+    params = leg.init_params(RANK, OBS, generator=torch.Generator()
+                             .manual_seed(0), dtype=torch.float32,
+                             device=dev)
+    with torch.no_grad():
+        g = leg.g_matrix(params).contiguous()
+    ts, xs = generate_data(N_BIG, OBS, dtype=torch.float64, seed=0,
+                           device=dev)
+    xs = xs.float()
+    gaps = (ts[1:] - ts[:-1]).float().contiguous()
+    # the chunk-crossing gaps and intercast's, as the paths form them: one
+    # likelihood value and one make_predictions call at P = 1e6 + 3 (the
+    # [posterior] targets) with the wrapper watched
+    seen = {}
+    orig = expm_cuda.transition_and_noise_cuda
+
+    @functools.wraps(orig)
+    def spy(g_, dt_):
+        seen[dt_.shape[0]] = dt_
+        return orig(g_, dt_)
+
+    mid = 0.5 * (ts[1:] + ts[:-1])
+    edge = torch.tensor([3.0, 0.5], dtype=ts.dtype, device=dev)
+    targets = torch.cat([ts[0] - edge, mid, ts[-1] + edge.flip(0)])
+    # leg's _wrap_row calls the wrapper by the name leg imported
+    expm_cuda.transition_and_noise_cuda = leg.transition_and_noise_cuda = spy
+    try:
+        with torch.no_grad():
+            leg.log_likelihood(params, ts, xs)
+            m_c = min(seen)
+            leg.make_predictions(params, ts, xs, targets, method="precision")
+            torch.cuda.synchronize()
+    finally:
+        expm_cuda.transition_and_noise_cuda = orig
+        leg.transition_and_noise_cuda = orig
+    cases = [("C at N = 2^17", seen[m_c][:1024].contiguous()),
+             ("C at N = 2^19", seen[m_c][:4096].contiguous()),
+             ("M = C, the chunk-crossing gaps", seen[m_c]),
+             ("a residual slab", gaps[:65536].contiguous()),
+             ("the Kalman loss's gaps", gaps[:N_KALMAN].contiguous()),
+             ("every gap", gaps),
+             ("intercast's 4P", seen[max(seen)])]
+    del targets, mid
+    with torch.no_grad():
+        for what, dt in cases:
+            k2 = expm_cuda.transition_and_noise_cuda
+            k2(g, dt)
+            ms = [cuda_ms(lambda: k2(g, dt)), cuda_ms(lambda: k2(g, dt))]
+            us = tn_device_us(lambda: k2(g, dt), "transition_and_noise")
+            say(f"[{tag}] kernel 2 at M = {dt.shape[0]} ({what}): "
+                f"{ms[0]:.4f} / {ms[1]:.4f} ms (CUDA-event medians of "
+                f"{REPS}); device time a launch "
+                + ("not measured" if us is None else f"{us:.2f} us")
+                + f" (profiler, {TN_PROFILE_LAUNCHES} launches)")
+
+
+# ---------------------------------------------------------------------------
+# The Kalman filter losses float32 fit(loss=None) picks.
+# ---------------------------------------------------------------------------
+
+N_KALMAN = 1 << 17  # the largest irregular grid JAX's float32 default trains
+# with "kalman" (kalman.SMOOTHER_BLOCK; above it "cr_residual")
+N_KALMAN_REG = 16_384  # 8 SS_T0: the largest uniform grid that takes
+# "kalman_regular" without the steady-state check
+N_KALMAN_BIG = 1_000_000  # the blocked filter, loss="kalman" by hand
+
+
+def run_kalman_phase(dev, leg, loop, kalman, expm_cuda, grad_bar):
+    """[kalman]: on the grids where JAX's float32 fit(loss=None) picks
+    each Kalman loss (rank 5, obs 2, seeded weights, float64 timestamps),
+    the pick, the value and gradient with backend="auto" against
+    "torch", three steps of fit(loss=None) with kernel 2's launches
+    (every one on the design the table picks), one profiled step; a uniform
+    grid one point longer than the steady-state threshold, where JAX picks
+    "kalman_ss" and the port must raise; the blocked filter at N = 1e6,
+    one value and gradient with its peak memory."""
+    from cyclic_gps_tpu_torch.data.synthetic import generate_data
+
+    t_phase = time.perf_counter()
+    leaves = ("n_params", "r_params", "lambda_params", "b")
+
+    def params():
+        return leg.init_params(RANK, OBS, generator=torch.Generator()
+                               .manual_seed(4), dtype=torch.float32,
+                               device=dev)
+
+    def grid(n, spacing):
+        ts, xs = generate_data(n, OBS, dtype=torch.float64, spacing=spacing,
+                               seed=5, device=dev)
+        return ts, xs.float()
+
+    for spacing, n, want in (("irregular", N_KALMAN, "kalman"),
+                             ("regular", N_KALMAN_REG, "kalman_regular")):
+        ts, xs = grid(n, spacing)
+        p = params()
+        picked = loop._steady_state_loss(p, ts, xs,
+                                         loop._default_loss(ts, xs))
+        say(f"[kalman] {spacing} N {n} float32: fit(loss=None) picks "
+            f"{picked!r}")
+        if picked != want:
+            fail(f"fit(loss=None) on the {spacing} N = {n} grid picks "
+                 f"{picked!r}, not {want!r} as the JAX package does")
+        fn = loop.LOSSES[picked]
+
+        def value_and_grads(backend):
+            v = fn(p, ts, xs, backend=backend)
+            return v.detach(), torch.autograd.grad(v, list(p.parameters()))
+
+        ms_a, (v_a, g_a) = host_ms(lambda: value_and_grads("auto"), reps=1)
+        ms_t, (v_t, g_t) = host_ms(lambda: value_and_grads("torch"),
+                                   reps=1)
+        rel = abs(float(v_a) - float(v_t)) / abs(float(v_t))
+        g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
+        ok = (bool(torch.isfinite(v_a)) and rel <= 1e-4
+              and max(g_rels) <= grad_bar
+              and all(bool(torch.isfinite(a).all()) for a in g_a))
+        say(f"[kalman] {picked} N {n}: value + gradient auto "
+            f"{float(v_a):.6f} ({ms_a:.1f} ms), torch {float(v_t):.6f} "
+            f"({ms_t:.1f} ms), rel diff {rel:.3e} <= 1e-4; gradient "
+            "per-leaf rel diff "
+            + ", ".join(f"{k} {v:.2e}" for k, v in zip(leaves, g_rels))
+            + f" <= {grad_bar:g} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{picked}: backend='auto' disagrees with 'torch'")
+        del g_a, g_t
+
+        tn0 = tn_watch(expm_cuda)
+        stamps = []
+
+        def stamp(step, loss):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = loop.fit(p, ts, xs, num_steps=TRAIN_STEPS, log_every=0,
+                       callback=stamp)
+        step_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1],
+                                                  stamps)]
+        say(f"[kalman] fit(loss=None, num_steps={TRAIN_STEPS}) {spacing} N "
+            f"{n}: losses {res.losses}, step ms "
+            f"{[round(t, 2) for t in step_ms]}, median of the steps after "
+            f"the first {statistics.median(step_ms[1:]):.2f} ms (host clock,"
+            " synchronised)")
+        if not all(math.isfinite(v) for v in res.losses):
+            fail(f"non-finite {picked} training loss: {res.losses}")
+        # the irregular grid's T gaps (its first twice); one gap on the
+        # uniform grid
+        check_tn_path("kalman", f"fit(loss=None) {spacing} N {n}", expm_cuda,
+                      tn0, n if spacing == "irregular" else 1)
+        opt = loop.make_optimizer("adam", 1e-2)
+        wall, by_kernel = profiled(
+            lambda: loop.train_step(p, opt, ts, xs, loss=picked), cpu=False)
+        if not by_kernel:
+            say(f"[kalman] profiled {picked} step: the profiler saw no "
+                "device events; device ops and busy share not measured")
+        else:
+            dev_ms = sum(ms for ms, _ in by_kernel.values())
+            n_ops = sum(c for _, c in by_kernel.values())
+            med = statistics.median(step_ms[1:])
+            k2_ms = sum(ms for k, (ms, _) in by_kernel.items()
+                        if "transition_and_noise" in k)
+            say(f"[kalman] profiled {picked} step N {n}: wall {wall:.2f} ms "
+                f"(profiler on, device activity only), {n_ops} device ops, "
+                f"device {dev_ms:.2f} ms,"
+                f" busy share {dev_ms / wall:.3f}, against the unprofiled "
+                f"median {med:.2f} ms {dev_ms / med:.3f}; kernel 2 "
+                f"{k2_ms:.3f} ms of it")
+            for key, (ms, c) in sorted(by_kernel.items(),
+                                       key=lambda kv: -kv[1][0])[:8]:
+                say(f"[kalman]   {key[:80]}: {ms:.3f} ms, {c} calls")
+        del p, opt
+
+    # one point past the steady-state threshold: JAX picks "kalman_ss"
+    ts, xs = grid(N_KALMAN_REG + 1, "regular")
+    p = params()
+    picked = loop._steady_state_loss(p, ts, xs, loop._default_loss(ts, xs))
+    try:
+        loop.fit(p, ts, xs, num_steps=1, log_every=0)
+        raised = None
+    except NotImplementedError as err:
+        raised = str(err)
+    say(f"[kalman] regular N {N_KALMAN_REG + 1}: fit(loss=None) picks "
+        f"{picked!r} and raises NotImplementedError: {raised}")
+    if picked != "kalman_ss" or raised is None:
+        fail("past the steady-state threshold fit(loss=None) must pick "
+             "'kalman_ss', as the JAX package does, and raise")
+
+    # the blocked filter: N = 1e6, loss="kalman" by hand
+    ts, xs = grid(N_KALMAN_BIG, "irregular")
+    p = params()
+    tn0 = tn_watch(expm_cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    v = loop.nll_loss_kalman(p, ts, xs)
+    grads = torch.autograd.grad(v, list(p.parameters()))
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(v)) and all(
+        bool(torch.isfinite(x).all()) for x in grads)
+    say(f"[kalman] blocked filter N {N_KALMAN_BIG} irregular (loss='kalman',"
+        f" {-(-N_KALMAN_BIG // kalman.SMOOTHER_BLOCK)} blocks of "
+        f"{kalman.SMOOTHER_BLOCK}): value {float(v):.6f} and gradient in "
+        f"{wall:.1f} ms (host clock, synchronised, first call), peak "
+        f"device memory {peak:.2f} GiB; finite {finite}")
+    if not finite:
+        fail("the blocked filter gave a non-finite value or gradient")
+    check_tn_path("kalman", f"the blocked filter N {N_KALMAN_BIG}", expm_cuda,
+                  tn0, N_KALMAN_BIG)
+    say(f"[kalman] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a card")
+    t_start = time.perf_counter()
+
+    def clock(label):
+        """The seconds since the start, before each phase: where the
+        script's time limit goes."""
+        say(f"[clock] {label} at {time.perf_counter() - t_start:.1f} s")
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from cyclic_gps_tpu_torch.baselines import dense
+    from cyclic_gps_tpu_torch.baselines import dense, kalman
     from cyclic_gps_tpu_torch.data.synthetic import generate_data
     from cyclic_gps_tpu_torch.entry import entry
     from cyclic_gps_tpu_torch.models import leg
@@ -2444,6 +2858,20 @@ def main():
     if stack >= 1024 or spill > 0:
         fail(f"{warp12} runs from local memory (stack {stack} B, spill "
              f"stores {spill} B)")
+    # kernel 2 at every rank, both designs; neither's rank-5 instance may
+    # touch local memory
+    for r in _build.RANKS:
+        for label, kname in TN_KERNELS.items():
+            rep = [v for k, v in _build.ptxas_report(r).items()
+                   if f"{len(kname)}{kname}I" in k and v[0] is not None]
+            if len(rep) != 1:
+                fail(f"{kname}<{r}>: no single entry in the compiler's report")
+            regs, stack, spill = rep[0]
+            say(f"[build] {kname}<{r}> (kernel 2, {label} design): registers "
+                f"{regs}, stack {stack} B, spill stores {spill} B")
+            if r == RANK and (stack or spill):
+                fail(f"{kname}<{r}> uses local memory (stack {stack} B, "
+                     f"spill stores {spill} B)")
     # kernels 5 and 4 at every rank: one thread per gap, each block's 128
     # gaps sorted (5); 32 lanes a block in tiles of 3 rows (4); rank 5's
     # adjoint must not touch local memory
@@ -2562,6 +2990,7 @@ def main():
         f"chunk count on (sweep_cuda.THREAD_F64): {sweep_cuda.THREAD_F64}")
 
     # ---- 3. kernels vs plain twins at the slice's shapes -----------------
+    clock("kernels")
     gen = torch.Generator().manual_seed(0)
     params = leg.init_params(RANK, OBS, generator=gen, dtype=torch.float32,
                              device=dev)
@@ -2687,6 +3116,24 @@ def main():
         expm_cuda.transition_and_noise_plain, (g, gaps), 1e-4, 1e-6,
         "same float32 Pade-7 algorithm; differs by FMA contraction and "
         "rsqrt/log rounding", gaps_of=gaps)
+    # kernel 2 at the sizes the paths launch it at: the chunk-crossing gaps
+    # (_wrap_row, M = C; and C = 1,024 and 4,096, N = 2^17's and 2^19's,
+    # on the rows design's side of the table: the first of N = 1e6's), a
+    # residual slab (65,536), the Kalman loss's gaps at N = 2^17 (its first
+    # gap twice, as leg_to_ssm forms them) and the main path's 1e6 - 1
+    # gaps; intercast's 4P in [posterior]
+    ts_k, _ = generate_data(N_KALMAN, OBS, dtype=torch.float64, seed=5,
+                            device=dev)
+    gaps_k = (ts_k[1:] - ts_k[:-1]).float()
+    gaps_k = torch.cat([gaps_k[:1], gaps_k]).contiguous()
+    run_tn_sizes("kernels", expm_cuda, g, [
+        ("C at N = 2^17", diffs[s - 1][:1024].contiguous()),
+        ("C at N = 2^19", diffs[s - 1][:4096].contiguous()),
+        ("the chunk-crossing gaps, _wrap_row", diffs[s - 1].contiguous()),
+        ("a residual slab", gaps[:65536].contiguous()),
+        (f"the Kalman loss at N = {N_KALMAN}", gaps_k),
+        ("the main path's gaps", gaps)])
+    del ts_k, gaps_k
     k_sys = check_kernel(
         "k_system",
         "cyclic_gps_tpu_torch/csrc/gap_emission.cu",
@@ -2752,13 +3199,16 @@ def main():
         fail("k_system_adjoint: two runs on the main path's inputs differ")
     say("[kernels] k_system_adjoint: the same bits on a second run")
     del once, twice
-    run_emission_edges(dev, check_kernel, leg, expm_cuda)
+    clock("emission")
+    run_emission_edges(dev, check_kernel, leg, expm_cuda, _build)
     run_walk_edges(dev, check_kernel, sweep_cuda, pt)
     run_elim_edges(dev, sweep_cuda, pt)
+    clock("elim-pick")
     run_elim_pick(dev, sweep_cuda, pt, _build)
     by_name = {r["name"]: r for r in rows}
 
     # ---- 4. the main path through the user entry points -------------------
+    clock("path")
     fn, (p_e, ts_e, xs_e) = entry(device=dev)
     ts_r, xs_r = generate_data(N_BIG, OBS, dtype=torch.float32,
                                spacing="regular", seed=1, device=dev)
@@ -2831,6 +3281,7 @@ def main():
             fail("small-N likelihood disagrees with the dense oracle")
 
     # ---- 5. gradients: backend="auto" vs "torch" on every route -----------
+    clock("grad")
     grad_bar = 1e-3
     say(f"[grad] bar: ||g_auto - g_torch||_inf / ||g_torch||_inf <= "
         f"{grad_bar:g} per leaf (float32 gradients summed over up to 1e6 "
@@ -2885,6 +3336,7 @@ def main():
         fail("the float64 gradient disagrees with the dense oracle")
 
     # ---- 6. training: Adam steps on the fused N = 1e6 route ---------------
+    clock("train")
     p_train = leg.init_params(RANK, OBS, generator=torch.Generator()
                               .manual_seed(0), device=dev)
     opt = loop.make_optimizer("adam", 1e-2)
@@ -2893,6 +3345,7 @@ def main():
     expm_cuda.gap_mahal_sweep_cuda.launches_tiled = 0
     expm_cuda.k_system_adjoint_cuda.launches_sorted = 0
     expm_cuda.k_system_cuda.launches_tiled = 0
+    tn0 = tn_watch(expm_cuda)
     sweep_cuda.backward_solve_takahashi_cuda.launches_split = 0
     sweep_cuda.forward_sweep_solveinv_cuda.launches_split = 0
     elim0 = elim_counts(sweep_cuda)
@@ -2920,11 +3373,14 @@ def main():
                "forward_sweep_solveinv":
                sweep_cuda.forward_sweep_solveinv_cuda.launches_split}
     say(f"[train] launches of kernels 4 (tiled), 5 (sorted), 3 (tiled), "
-        f"7 and 6 (split) in the {TRAIN_STEPS} steps: {designs}")
+        f"7 and 6 (split) in the {TRAIN_STEPS} steps: "
+        f"{designs}")
     for key, n in designs.items():
         if n != by_name[key]["launches"]:
             fail(f"{key}: {n} of {by_name[key]['launches']} launches in the "
                  "train steps took the redesigned kernel")
+    check_tn_path("train", f"{TRAIN_STEPS} Adam steps (the chunk-crossing "
+                  "gaps)", expm_cuda, tn0, c)
     check_elim_designs("train", f"{TRAIN_STEPS} Adam steps", sweep_cuda,
                        elim0)
     if not all(math.isfinite(v) for v in losses):
@@ -2938,7 +3394,7 @@ def main():
     def top_ops(by_kernel):
         """The ten device ops with the most time, then every split-design
         kernel of ranks 1-8 below them (the LEG kernels 6-9 and 11 that
-        earlier PRs and this one redesigned), as (name, (ms, calls))."""
+        earlier PRs redesigned), as (name, (ms, calls))."""
         ops = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
         return ops[:10] + [kv for kv in ops[10:] if "split_kernel" in kv[0]]
 
@@ -2970,10 +3426,17 @@ def main():
         say(f"[train]   {key[:80]}: {ms:.3f} ms, {n} calls")
     elim_profile("train", by_kernel)
     # the float32 default on this grid: the residual loss
+    clock("residual")
     run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
                        grad_bar)
+    # the float32 defaults on smaller and uniform grids: the Kalman losses
+    torch.cuda.empty_cache()
+    clock("kalman")
+    run_kalman_phase(dev, leg, loop, kalman, expm_cuda, grad_bar)
+    torch.cuda.empty_cache()
 
     # ---- 7. posterior: kernels 8-11, bench.py's solve, the path ----------
+    clock("posterior")
     post_kernels = ("forward_sweep_collect", "backward_substitute",
                     "forward_sweep_inverse", "takahashi_backward")
     captured.clear()
@@ -3051,6 +3514,7 @@ def main():
     for r in rows:
         r["kernel"].launches = 0
     expm_cuda.k_system_cuda.launches_tiled = 0
+    tn0 = tn_watch(expm_cuda)
     split_walks = {key: getattr(sweep_cuda, f"{key}_cuda") for key in
                    ("forward_sweep_collect", "backward_substitute",
                     "takahashi_backward")}
@@ -3072,6 +3536,8 @@ def main():
     if expm_cuda.k_system_cuda.launches_tiled != post_launches["k_system"]:
         fail("k_system: a launch in the posterior call did not take the "
              "tiled design")
+    check_tn_path("posterior", "one insample_posterior call (the "
+                  "chunk-crossing gaps)", expm_cuda, tn0, c)
     for key, n in post_split.items():
         if n != post_launches[key]:
             fail(f"{key}: {n} of {post_launches[key]} launches in the "
@@ -3136,6 +3602,23 @@ def main():
                                         targets_d, method="precision",
                                         backend=b)),
     ]
+    # intercast's gaps through kernel 2: counted over one call of the
+    # P = 1e6 + 3 case, its largest launch kept to be timed below
+    captured.clear()
+    orig = capture(expm_cuda, "transition_and_noise_cuda")
+    tn0 = tn_watch(expm_cuda)  # the spy's counters, which count in place
+    with torch.no_grad():
+        pred_cases[0][1]("auto")
+        torch.cuda.synchronize()
+    check_tn_path("posterior", f"make_predictions P={targets.shape[0]}",
+                  expm_cuda, tn0)
+    expm_cuda.transition_and_noise_cuda = orig
+    if "transition_and_noise_cuda" not in captured:
+        fail("make_predictions: kernel 2 was not launched")
+    g_p, dt_p = captured.pop("transition_and_noise_cuda")[0]
+    run_tn_sizes("posterior", expm_cuda, g_p, [
+        ("intercast's gaps, 4P", dt_p)])
+    del g_p, dt_p
     for label, call in pred_cases:
         with torch.no_grad():
             ms_auto, got = host_ms(lambda: call("auto"), reps=1)
@@ -3186,6 +3669,7 @@ def main():
     elim_profile("posterior", by_kernel)
 
     # ---- 8. celerite: nblocks 8 (rank 16), the bench grid ------------------
+    clock("celerite")
     from cyclic_gps_tpu_torch.models import celerite
     from cyclic_gps_tpu_torch.ops import celerite_cuda
 
@@ -3454,18 +3938,22 @@ def main():
                "backward_solve_takahashi"), EDGES16)
 
     # ---- 9. wide: block sizes 9-15 (kernels 16, 21, 22) --------------------
+    clock("wide")
     run_wide_phase(dev, rows, captured, capture, check_kernel, profiled,
                    grad_bar, celerite, loop, pt, ts_c, xs_c)
 
     # ---- 10. solve-rt: the solve and selected inversion at 9-15 ------------
+    clock("solve-rt")
     run_solve_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
                        pt)
 
     # ---- 11. sweep-rt: kernel 1 at 9-15 and the paths it opens --------------
+    clock("sweep-rt")
     run_sweep_rt_phase(dev, rows, captured, capture, check_kernel, grad_bar,
                        pt, celerite, ts_c, xs_c)
 
     # ---- 12. summary -------------------------------------------------------
+    clock("summary")
     say(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms",
@@ -3478,7 +3966,17 @@ def main():
 
 
 if __name__ == "__main__":
-    if "--sweeps" in sys.argv[1:]:
+    if "--tn" in sys.argv[1:]:
+        import argparse
+
+        ap = argparse.ArgumentParser(description=tn_main.__doc__)
+        ap.add_argument("--tn", action="store_true", required=True)
+        ap.add_argument("--root", default=None,
+                        help="checkout whose cyclic_gps_tpu_torch to time")
+        ap.add_argument("--label", default="", help="tag of every line")
+        a = ap.parse_args()
+        tn_main(a.root, a.label)
+    elif "--sweeps" in sys.argv[1:]:
         import argparse
 
         ap = argparse.ArgumentParser(description=sweeps_main.__doc__)

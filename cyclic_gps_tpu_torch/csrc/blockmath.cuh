@@ -11,8 +11,6 @@
 //   solve_lower    pallas_sweep._solve_lower
 //   solve_lower_t  pallas_sweep._solve_lower_t
 //   lu_solve       expm_pallas._lu_solve_k (unpivoted)
-//   pade7_vanloan  expm_pallas._pade7_vanloan
-//   tn_math        expm_pallas._tn_math (per-lane squaring count)
 //   elim_step      pallas_sweep._sweep_kernel / expm_pallas._fused_elim_cell
 //
 // Layouts: chunk-major matrices [s, R, R, L] and vectors [s, R, L] with the
@@ -312,7 +310,7 @@ __device__ __forceinline__ void lu_solve(const T (&a)[R][R], const T (&b)[R][E],
 }
 
 // ---------------------------------------------------------------------------
-// Gap emission: e = expm(-dG/2), Q1 = I - e e^T (expm_pallas._tn_math).
+// Gap emission constants (the emission itself is gapsmem.cuh's).
 // ---------------------------------------------------------------------------
 
 // degree-7 diagonal Pade coefficients of exp
@@ -327,206 +325,6 @@ __device__ __forceinline__ void lu_solve(const T (&a)[R][R], const T (&b)[R][E],
 // single-precision Pade-7 accuracy radius and the squaring cap
 #define CGT_THETA7 3.92f
 #define CGT_MAXSQ 40
-
-// The generator and the two scalars every gap needs: the half-generator
-// inf-norm (branch threshold) and the augmented Van Loan inf-norm
-// (scaling), computed per thread from g -- no host round trip.
-template <int R>
-struct Generator {
-  float g[R][R];
-  float sym[R][R];  // (G + G^T) / 2
-  float half;       // ||-G/2||_inf
-  float augn;       // ||[[A, S], [0, -A^T]]||_inf
-};
-
-template <int R>
-__device__ __forceinline__ void load_generator(const float* gp,
-                                               Generator<R>& gen) {
-  load_dense<float, R>(gp, gen.g);
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k)
-      gen.sym[i][k] = 0.5f * (gen.g[i][k] + gen.g[k][i]);
-  float half = 0.f, top = 0.f, col = 0.f;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    float row_a = 0.f, row_as = 0.f, col_a = 0.f;
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      row_a += fabsf(-0.5f * gen.g[i][k]);
-      row_as += fabsf(-0.5f * gen.g[i][k]) + fabsf(gen.sym[i][k]);
-      col_a += fabsf(-0.5f * gen.g[k][i]);
-    }
-    half = fmaxf(half, row_a);
-    top = fmaxf(top, row_as);
-    col = fmaxf(col, col_a);
-  }
-  gen.half = half;
-  gen.augn = fmaxf(top, col);
-}
-
-// Structured blockwise Pade-7 of the scaled Van Loan matrix
-// M = [[a, sm], [0, -a^T]]: X = (V - U)^{-1} (V + U) = [[f1, g1], [0, f3]].
-template <int R>
-__device__ __forceinline__ void pade7_vanloan(const float (&a)[R][R],
-                                              const float (&sm)[R][R],
-                                              float (&f1)[R][R],
-                                              float (&g1)[R][R],
-                                              float (&f3)[R][R]) {
-  float a2[R][R], s2[R][R], a4[R][R], s4[R][R], a6[R][R], s6[R][R];
-  float t1[R][R], t2[R][R];
-  mm<float, R>(a, a, a2);
-  mm<float, R>(a, sm, t1);
-  mm_tb<float, R>(sm, a, t2);
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) s2[i][k] = t1[i][k] - t2[i][k];
-  mm<float, R>(a2, a2, a4);
-  mm<float, R>(a2, s2, t1);
-  mm_tb<float, R>(s2, a2, t2);
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) s4[i][k] = t1[i][k] + t2[i][k];
-  mm<float, R>(a2, a4, a6);
-  mm<float, R>(a2, s4, t1);
-  mm_tb<float, R>(s2, a4, t2);
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) s6[i][k] = t1[i][k] + t2[i][k];
-
-  float p_a[R][R], p_s[R][R], v_tl[R][R], v_tr[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const float id = (i == k) ? 1.f : 0.f;
-      p_a[i][k] = CGT_PADE7_B7 * a6[i][k] + CGT_PADE7_B5 * a4[i][k] +
-                  CGT_PADE7_B3 * a2[i][k] + CGT_PADE7_B1 * id;
-      p_s[i][k] = CGT_PADE7_B7 * s6[i][k] + CGT_PADE7_B5 * s4[i][k] +
-                  CGT_PADE7_B3 * s2[i][k];
-      v_tl[i][k] = CGT_PADE7_B6 * a6[i][k] + CGT_PADE7_B4 * a4[i][k] +
-                   CGT_PADE7_B2 * a2[i][k] + CGT_PADE7_B0 * id;
-      v_tr[i][k] = CGT_PADE7_B6 * s6[i][k] + CGT_PADE7_B4 * s4[i][k] +
-                   CGT_PADE7_B2 * s2[i][k];
-    }
-  // u_tl = a p_a ;  u_tr = a p_s + sm p_a^T
-  float u_tl[R][R], u_tr[R][R];
-  mm<float, R>(a, p_a, u_tl);
-  mm<float, R>(a, p_s, t1);
-  mm_tb<float, R>(sm, p_a, t2);
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) u_tr[i][k] = t1[i][k] + t2[i][k];
-
-  float nu[R][R], de[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      nu[i][k] = v_tl[i][k] + u_tl[i][k];
-      de[i][k] = v_tl[i][k] - u_tl[i][k];
-    }
-  // bottom-right blocks of V -/+ U are Nu^T / De^T: f3 = Nu^{-T} De^T
-  transpose<float, R>(nu, t1);
-  transpose<float, R>(de, t2);
-  lu_solve<float, R, R>(t1, t2, f3);
-  // rhs_g = (v_tr + u_tr) - (v_tr - u_tr) f3
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) t1[i][k] = v_tr[i][k] - u_tr[i][k];
-  mm<float, R>(t1, f3, t2);
-  float rhs[R][2 * R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      rhs[i][k] = nu[i][k];
-      rhs[i][R + k] = (v_tr[i][k] + u_tr[i][k]) - t2[i][k];
-    }
-  float x[R][2 * R];
-  lu_solve<float, R, 2 * R>(de, rhs, x);
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      f1[i][k] = x[i][k];
-      g1[i][k] = x[i][R + k];
-    }
-}
-
-// dt -> (e, q) for one gap.  Van Loan branch (cancellation-free Q) where
-// dt*||G/2|| < 1, direct I - e e^T elsewhere; scaling from the augmented
-// norm; each lane squares back exactly its own number of times (the TPU
-// kernel masks every lane to a batch-wide count: the values are the same).
-// Not inlined: the three emission kernels share one compiled copy per R.
-template <int R>
-__device__ __noinline__ void tn_math(const Generator<R>& gen, float dt,
-                                     float (&e)[R][R], float (&q)[R][R]) {
-  const bool small = dt * gen.half < 1.f;
-  float sc = ceilf(log2f(fmaxf(dt * gen.augn / CGT_THETA7, 1.f)));
-  sc = fminf(fmaxf(sc, 0.f), float(CGT_MAXSQ));
-  const int nsq = int(sc);
-  const float scale = ldexpf(dt, -nsq);
-  float a[R][R], sm[R][R];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      a[i][k] = gen.g[i][k] * (-0.5f) * scale;
-      sm[i][k] = gen.sym[i][k] * scale;
-    }
-  float f1[R][R], g1[R][R], f3[R][R];
-  pade7_vanloan<R>(a, sm, f1, g1, f3);
-
-  // squaring back to the true gap: f1 on every lane, the Van Loan blocks
-  // only in the cancellation regime (the growing f3 stays bounded)
-  for (int k = 0; k < nsq; ++k) {
-    float f1n[R][R];
-    mm<float, R>(f1, f1, f1n);
-    if (small) {
-      float t1[R][R], t2[R][R];
-      mm<float, R>(f1, g1, t1);
-      mm<float, R>(g1, f3, t2);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < R; ++c) g1[i][c] = t1[i][c] + t2[i][c];
-      mm<float, R>(f3, f3, t1);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int c = 0; c < R; ++c) f3[i][c] = t1[i][c];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int c = 0; c < R; ++c) f1[i][c] = f1n[i][c];
-  }
-
-  float qq[R][R];
-  if (small) {
-    mm_tb<float, R>(g1, f1, qq);
-  } else {
-    mm_tb<float, R>(f1, f1, qq);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int c = 0; c < R; ++c) qq[i][c] = ((i == c) ? 1.f : 0.f) - qq[i][c];
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < R; ++c) {
-      q[i][c] = 0.5f * (qq[i][c] + qq[c][i]);
-      e[i][c] = f1[i][c];
-    }
-}
 
 // ---------------------------------------------------------------------------
 // One step of the chunk-interior elimination (pallas_sweep._sweep_kernel).

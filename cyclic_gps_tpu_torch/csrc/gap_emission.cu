@@ -2,12 +2,12 @@
 // blocks, the chunk-major posterior-precision (K) system, and the K system
 // fused into its forward elimination.  All three share one body of math:
 // structured Pade-7 (e, Q1), the Cholesky of Q1 with the push-through
-// precision terms (blockmath.cuh for kernel 2, its copy with the generator
-// in shared memory, gapsmem.cuh, for kernels 3 and 4), and (kernel 4) one
-// elimination step.
+// precision terms (gapsmem.cuh: the emission with the generator in shared
+// memory), and (kernel 4) one elimination step.
 //
 // Replaces (cyclic_gps_tpu/ops/expm_pallas.py):
-//   transition_and_noise_kernel  <- :297 transition_and_noise_pallas
+//   transition_and_noise_thread_kernel, transition_and_noise_rows_kernel
+//                                <- :297 transition_and_noise_pallas
 //                                   (kernel body _tn_kernel, :279)
 //   k_system_tiled_kernel        <- :530 k_system_pallas (_ksys_kernel, :482)
 //   gap_mahal_sweep_kernel       <- :769 gap_mahal_sweep_pallas
@@ -15,12 +15,37 @@
 //
 // What bounds them on the H100: arithmetic per byte is high (a rank-5 gap
 // costs ~25 small matrix products, two LU solves and a Cholesky, against 4
-// bytes of input), so none is bandwidth-bound.  transition_and_noise runs
-// one thread per gap and is bound by per-thread instruction latency and the
-// registers the Pade temporaries take.  Every gap is built where it is
-// used, so device memory sees only dt (and v) in and the outputs out; the
-// lane axis is innermost so loads and stores coalesce; the squaring loop
-// runs each lane's own count.
+// bytes of input), so kernels 3 and 4 are not bandwidth-bound.  Kernel 2
+// writes e and Q, 2 R^2 floats a gap against ~17 R^3 operations, so it sits
+// near both of the card's limits (at rank 5 its bytes need ~90 % of the
+// time its operations do).  Every gap is built where it is used, so device
+// memory sees only dt (and v) in and the outputs out; the lane axis is
+// innermost so loads and stores coalesce; the squaring loop runs each
+// lane's own count.
+//
+// Kernel 2 has two designs, picked by the gap count M (expm_cuda.py's
+// TN_ROWS_MAX_M).  At large M, one thread per gap
+// (transition_and_noise_thread_kernel): the generator and its norms once
+// per block in shared memory (gapsmem.cuh's GenS) and the emission from
+// gapsmem.cuh's inlined helpers, the code kernels 3-5 run, so no stack
+// frame and three blocks an SM at rank 5.  At small M (the chunk-crossing
+// gaps, M = C = 7,813 at N = 1e6) one thread a gap leaves most of the
+// card's warp schedulers idle and the time is one thread's chain of ~33 R^3
+// operations.  There R lanes can build a gap, a row each
+// (transition_and_noise_rows_kernel), which cuts the chain to ~R^2 a
+// product but costs ~2.3x the thread design's issue slots a gap (R^2
+// shuffles a lane a product): on the H100 at rank 5 it is the faster up to
+// 4,096 gaps, a tie at M = C = 7,813 and the slower from 12,000 on.  One
+// warp a gap, an entry a lane, its products read from shared memory, was
+// slower than one thread a gap from 4,096 gaps on (the shared-memory reads
+// bound it; not kept).  Two more changes to the thread
+// design were timed on the card and dropped, both slower at M = 1e6:
+// sorting each block's gaps by (branch, squaring rounds) so a warp runs
+// one branch and one round count (the stores of the sorted gaps scatter,
+// or, parked in shared memory for coalesced stores, the block waits at a
+// barrier for its slowest warp), and giving the direct branch only the a
+// terms of the Pade-7 (a second copy of the code, or the guarded one,
+// spilled).
 //
 // k_system (kernel 3) and gap_mahal_sweep (kernel 4) first ran one thread
 // per chunk lane, walking the lane's s gaps in order (61 thread blocks at
@@ -43,21 +68,305 @@
 
 namespace {
 
-using cgt::Generator;
-
+// Kernel 2 at large M: one thread per gap, CGT_THREADS gaps a block, three
+// blocks an SM up to rank 5 (168 registers, nothing on a stack at rank 5;
+// at ranks 6-8 the emission alone needs all 255 and spills a little).
 template <int R>
-__global__ void __launch_bounds__(CGT_THREADS)
-transition_and_noise_kernel(const float* __restrict__ g,
-                            const float* __restrict__ diffs, int M,
-                            float* e_out, float* q_out) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(CGT_THREADS, R <= 5 ? 3 : 1)
+transition_and_noise_thread_kernel(const float* __restrict__ g,
+                                   const float* __restrict__ diffs, int M,
+                                   float* __restrict__ e_out,
+                                   float* __restrict__ q_out) {
+  __shared__ gsm::GenS<R> gs;
+  gsm::load_gen<R>(g, gs);
+  __syncthreads();
+  const int m = blockIdx.x * CGT_THREADS + threadIdx.x;
   if (m >= M) return;
-  Generator<R> gen;
-  cgt::load_generator<R>(g, gen);
+  const float dt = diffs[m];
+  const bool vl = gsm::van_loan<R>(gs, dt);
+  const int nsq = gsm::rounds<R>(gs, dt);
   float e[R][R], q[R][R];
-  cgt::tn_math<R>(gen, diffs[m], e, q);
+  {
+    float g1[R][R], f3[R][R];
+    gsm::pade7<R>(gs, ldexpf(dt, -nsq), e, g1, f3);
+#pragma unroll 1
+    for (int k = 0; k < nsq; ++k) gsm::square<R>(vl, e, g1, f3);
+    gsm::q_of<R>(vl, e, g1, q);
+  }
   cgt::store_mat<float, R>(e_out, 0, M, m, e);
   cgt::store_mat<float, R>(q_out, 0, M, m, q);
+}
+
+// Kernel 2 at small M: R lanes a gap, lane i holding row i of every R x R
+// block of its gap in registers; 32 / R gaps a warp, TNR_WARPS warps a
+// block.  A product A B is, for lane i, row i of A times the rows of B
+// shuffled from the gap's lanes (R^2 shuffles and multiply-adds a lane,
+// gsm::pade7's operands and summation order), so the gap's chain is ~R^2
+// a product instead of R^3.  The two unpivoted LU solves (cgt::lu_solve's
+// steps) give each lane its own right-hand-side columns: every lane
+// eliminates the gap's matrix, read from the gap's area of shared memory,
+// and solves its columns; the solutions come back to rows through that
+// area.  A warp squares to its gaps' largest round count, each gap keeping
+// only its own rounds, and forms both Q branches, each gap keeping its
+// own: the shuffles need the whole warp.  The block writes its gaps' e
+// and Q through shared memory, consecutive gaps an entry.
+#define TNR_WARPS 4
+#define TNR_FULL 0xffffffffu
+
+template <int R>
+struct TnR {
+  static constexpr int G = 32 / R;            // gaps a warp
+  static constexpr int GAPS = TNR_WARPS * G;  // gaps a block
+  static constexpr int RR = R * R;
+  // a gap's blocks in shared memory, each RR floats at offset (name) * RR
+  enum { NU, DE, VPU, X1, X2, NB };
+  static constexpr int AREA = NB * RR + 1;  // odd: gaps' areas spread over
+                                            // the banks
+};
+
+// out = row i of A B: a is row i of A; row p of B is b in lane base + p
+template <int R>
+__device__ __forceinline__ void rmm(const float (&a)[R], const float (&b)[R],
+                                    int base, float (&out)[R]) {
+#pragma unroll
+  for (int p = 0; p < R; ++p)
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float bpk = __shfl_sync(TNR_FULL, b[k], base + p);
+      out[k] = p == 0 ? a[0] * bpk : out[k] + a[p] * bpk;
+    }
+}
+
+// out = row i of A B^T (row k of B is b in lane base + k)
+template <int R>
+__device__ __forceinline__ void rmm_tb(const float (&a)[R],
+                                       const float (&b)[R], int base,
+                                       float (&out)[R]) {
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+#pragma unroll
+    for (int p = 0; p < R; ++p) {
+      const float bkp = __shfl_sync(TNR_FULL, b[p], base + k);
+      out[k] = p == 0 ? a[0] * bkp : out[k] + a[p] * bkp;
+    }
+}
+
+// cgt::lu_solve of the R x R matrix at p (row-major; its transpose where
+// T) for this lane's NC right-hand-side columns x[c], solved in place
+template <int R, int NC, bool T>
+__device__ __forceinline__ void lane_lu(const float* p, float (&x)[NC][R]) {
+  float m[R][R], pinv[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int k = 0; k < R; ++k) m[r][k] = T ? p[k * R + r] : p[r * R + k];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    pinv[j] = 1.f / m[j][j];
+#pragma unroll
+    for (int r = j + 1; r < R; ++r) {
+      const float f = m[r][j] * pinv[j];
+#pragma unroll
+      for (int k = j + 1; k < R; ++k) m[r][k] -= f * m[j][k];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) x[c][r] -= f * x[c][j];
+    }
+  }
+#pragma unroll
+  for (int r = R - 1; r >= 0; --r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float acc = x[c][r];
+#pragma unroll
+      for (int k = r + 1; k < R; ++k) acc -= m[r][k] * x[c][k];
+      x[c][r] = acc * pinv[r];
+    }
+}
+
+template <int R>
+__global__ void __launch_bounds__(TNR_WARPS * 32)
+transition_and_noise_rows_kernel(const float* __restrict__ g,
+                                 const float* __restrict__ diffs, int M,
+                                 float* __restrict__ e_out,
+                                 float* __restrict__ q_out) {
+  using W = TnR<R>;
+  constexpr int RR = W::RR, G = W::G, GAPS = W::GAPS;
+  __shared__ gsm::GenS<R> gs;
+  __shared__ float work[TNR_WARPS * G * W::AREA];
+  __shared__ float stage[2 * RR * GAPS];  // [e, q][entry][gap]
+  gsm::load_gen<R>(g, gs);
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gw = lane / R;    // the lane's gap in its warp
+  const bool slot = gw < G;   // the last 32 - G R lanes hold no gap
+  const int i = lane % R;     // the lane's row
+  const int base = gw * R;    // its gap's first lane
+  const int gb = warp * G + (slot ? gw : 0);  // its gap in the block
+  const int m = blockIdx.x * GAPS + gb;
+  const bool live = slot && m < M;
+  float* const area = work + gb * W::AREA;
+  const float dt = live ? diffs[m] : 0.f;
+  const bool vl = gsm::van_loan<R>(gs, dt);
+  const int nsq = gsm::rounds<R>(gs, dt);
+  const float sc = ldexpf(dt, -nsq);
+  float a[R], sm[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    a[k] = gs.gh[i * R + k] * sc;
+    sm[k] = gs.sy[i * R + k] * sc;
+  }
+  // the Pade-7 polynomials (gsm::pade_parts)
+  float a2[R], s2[R], a4[R], s4[R];
+  {
+    float t1[R], t2[R];
+    rmm<R>(a, a, base, a2);
+    rmm<R>(a, sm, base, t1);
+    rmm_tb<R>(sm, a, base, t2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) s2[k] = t1[k] - t2[k];
+    rmm<R>(a2, a2, base, a4);
+    rmm<R>(a2, s2, base, t1);
+    rmm_tb<R>(s2, a2, base, t2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) s4[k] = t1[k] + t2[k];
+  }
+  float pa[R], ps[R], vtl[R], vtr[R];
+  {
+    float a6[R], t1[R], t2[R];
+    rmm<R>(a2, a4, base, a6);
+    rmm<R>(a2, s4, base, t1);
+    rmm_tb<R>(s2, a4, base, t2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float s6 = t1[k] + t2[k];
+      const float id = (i == k) ? 1.f : 0.f;
+      pa[k] = CGT_PADE7_B7 * a6[k] + CGT_PADE7_B5 * a4[k] +
+              CGT_PADE7_B3 * a2[k] + CGT_PADE7_B1 * id;
+      ps[k] = CGT_PADE7_B7 * s6 + CGT_PADE7_B5 * s4[k] +
+              CGT_PADE7_B3 * s2[k];
+      vtl[k] = CGT_PADE7_B6 * a6[k] + CGT_PADE7_B4 * a4[k] +
+               CGT_PADE7_B2 * a2[k] + CGT_PADE7_B0 * id;
+      vtr[k] = CGT_PADE7_B6 * s6 + CGT_PADE7_B4 * s4[k] +
+               CGT_PADE7_B2 * s2[k];
+    }
+  }
+  // gsm::pade_sums
+  float de[R], vpu[R], vmu[R];
+  {
+    float utl[R], t1[R], t2[R];
+    rmm<R>(a, pa, base, utl);
+    rmm<R>(a, ps, base, t1);
+    rmm_tb<R>(sm, pa, base, t2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float utr = t1[k] + t2[k];
+      if (slot) area[W::NU * RR + i * R + k] = vtl[k] + utl[k];
+      de[k] = vtl[k] - utl[k];
+      vpu[k] = vtr[k] + utr;
+      vmu[k] = vtr[k] - utr;
+      if (slot) area[W::DE * RR + i * R + k] = de[k];
+    }
+  }
+  __syncwarp();
+  // f3 = nu^{-T} de^T: this lane's right-hand side is de^T's column i,
+  // de's row i; its solution f3's column i
+  float f3[R];
+  {
+    float x[1][R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[0][r] = de[r];
+    lane_lu<R, 1, true>(area + W::NU * RR, x);
+    if (slot) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) area[W::X1 * RR + r * R + i] = x[0][r];
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < R; ++k) f3[k] = area[W::X1 * RR + i * R + k];
+  {
+    float t[R];
+    rmm<R>(vmu, f3, base, t);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      vpu[k] -= t[k];
+      if (slot) area[W::VPU * RR + i * R + k] = vpu[k];
+    }
+  }
+  __syncwarp();
+  // [f1 | g1] = de^{-1} [nu | v_tr + u_tr]: this lane's columns i of nu
+  // and of v_tr + u_tr, its solutions f1's and g1's columns i
+  {
+    float x[2][R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      x[0][r] = area[W::NU * RR + r * R + i];
+      x[1][r] = area[W::VPU * RR + r * R + i];
+    }
+    lane_lu<R, 2, false>(area + W::DE * RR, x);
+    if (slot) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        area[W::X1 * RR + r * R + i] = x[0][r];
+        area[W::X2 * RR + r * R + i] = x[1][r];
+      }
+    }
+  }
+  __syncwarp();
+  float f1[R], g1[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    f1[k] = area[W::X1 * RR + i * R + k];
+    g1[k] = area[W::X2 * RR + i * R + k];
+  }
+  // the squaring rounds (gsm::square), to the warp's largest count
+  const int nmax = __reduce_max_sync(TNR_FULL, nsq);
+#pragma unroll 1
+  for (int n = 0; n < nmax; ++n) {
+    float f1n[R], t1[R], t2[R], f3n[R];
+    rmm<R>(f1, f1, base, f1n);
+    rmm<R>(f1, g1, base, t1);
+    rmm<R>(g1, f3, base, t2);
+    rmm<R>(f3, f3, base, f3n);
+    if (n < nsq) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        if (vl) {
+          g1[k] = t1[k] + t2[k];
+          f3[k] = f3n[k];
+        }
+        f1[k] = f1n[k];
+      }
+    }
+  }
+  // Q1 (gsm::q_of): sym(g1 f1^T) or sym(I - f1 f1^T); the unsymmetrised
+  // rows parked in the NU block, which nothing reads any more
+  {
+    float t[R], u[R];
+    rmm_tb<R>(g1, f1, base, t);
+    rmm_tb<R>(f1, f1, base, u);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      t[k] = vl ? t[k] : ((i == k) ? 1.f : 0.f) - u[k];
+      if (slot) area[W::NU * RR + i * R + k] = t[k];
+    }
+    __syncwarp();
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        stage[(i * R + k) * GAPS + gb] = f1[k];
+        stage[(RR + i * R + k) * GAPS + gb] =
+            0.5f * (t[k] + area[W::NU * RR + k * R + i]);
+      }
+    }
+  }
+  __syncthreads();
+  const int m0 = blockIdx.x * GAPS;
+  for (int u = threadIdx.x; u < 2 * RR * GAPS; u += TNR_WARPS * 32) {
+    const int gap = u % GAPS, x = (u / GAPS) % RR;
+    if (m0 + gap < M)
+      (u < RR * GAPS ? e_out : q_out)[size_t(x) * M + m0 + gap] = stage[u];
+  }
 }
 
 // Kernel 3 fused into the forward sweep: gap 0 gives the chunk-boundary row
@@ -338,9 +647,23 @@ extern "C" {
 int cgt_transition_and_noise_f32(const float* g, const float* diffs, int r,
                                  int M, float* e, float* q, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define CGT_LAUNCH(RR)                                                    \
-  transition_and_noise_kernel<RR><<<blocks_for(M), CGT_THREADS, 0, st>>>( \
-      g, diffs, M, e, q)
+#define CGT_LAUNCH(RR)                         \
+  transition_and_noise_thread_kernel<RR>       \
+      <<<blocks_for(M), CGT_THREADS, 0, st>>>(g, diffs, M, e, q)
+  CGT_RANK_SWITCH(r, CGT_LAUNCH)
+#undef CGT_LAUNCH
+  return int(cudaGetLastError());
+}
+
+// kernel 2 at small M: R lanes a gap
+int cgt_transition_and_noise_rows_f32(const float* g, const float* diffs,
+                                      int r, int M, float* e, float* q,
+                                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define CGT_LAUNCH(RR)                                                   \
+  transition_and_noise_rows_kernel<RR>                                   \
+      <<<(M + TnR<RR>::GAPS - 1) / TnR<RR>::GAPS, TNR_WARPS * 32, 0, st>>>( \
+          g, diffs, M, e, q)
   CGT_RANK_SWITCH(r, CGT_LAUNCH)
 #undef CGT_LAUNCH
   return int(cudaGetLastError());

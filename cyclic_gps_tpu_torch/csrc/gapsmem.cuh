@@ -1,18 +1,18 @@
-// The LEG gap emission with the generator in shared memory: the helpers of
-// the K-system emission (kernel 3) and the fused emission sweep (kernel 4),
-// both in gap_emission.cu, and of the emission adjoint (kernel 5,
-// gap_adjoint.cu).
+// The LEG gap emission with the generator in shared memory
+// (expm_pallas._tn_math and _pade7_vanloan): the helpers of the (e, Q)
+// emission (kernel 2), the K-system emission (kernel 3) and the fused
+// emission sweep (kernel 4), all in gap_emission.cu, and of the emission
+// adjoint (kernel 5, gap_adjoint.cu).
 //
-// blockmath.cuh's tn_math holds the generator in each thread's registers
-// (2 R^2 + 2 floats: 52 at rank 5) and computes the emission in a
-// __noinline__ function that takes its matrices by reference, so a kernel
-// that calls it keeps a stack frame.  Kernel 2 keeps that helper as it is;
-// kernels 3-5 take these copies instead: the scaled generator blocks a = -G/2 * scale and
-// sm = sym * scale are read from the thread block's shared copy of -G/2
-// and (G + G^T)/2 when a product needs them (all threads read the same
-// address: a broadcast), and everything is inlined, so no frame remains.
-// The operations, and their order, are those of blockmath.cuh's pade7_vanloan
-// and tn_math, and of expm_pallas._gap_row_terms (row_terms).
+// The generator's scaled blocks a = -G/2 * scale and sm = sym * scale are
+// read from the thread block's shared copy of -G/2 and (G + G^T)/2 when a
+// product needs them (all threads read the same address: a broadcast), so
+// no thread holds the generator in its registers, and everything is
+// inlined, so no kernel keeps a stack frame for it.  Van Loan's structured
+// Pade-7 where dt ||G/2|| < 1 (Q without cancellation), the direct
+// I - e e^T elsewhere; the scaling from the augmented norm, each gap
+// squaring back exactly its own number of times (the TPU kernel masks
+// every lane to a batch-wide count: the values are the same).
 #pragma once
 
 #include "blockmath.cuh"
@@ -20,7 +20,8 @@
 namespace gsm {
 
 // The generator as the block shares it: gh = -G/2 (exact: a power of two),
-// sy = (G + G^T)/2, and blockmath.cuh's two norms.
+// sy = (G + G^T)/2, and the two norms every gap needs: ||-G/2||_inf (the
+// branch) and the augmented Van Loan norm (the scaling).
 template <int R>
 struct GenS {
   float gh[R * R];
@@ -31,7 +32,6 @@ struct GenS {
 
 // Fill gs from the row-major [R, R] generator g: thread 0 does the whole of
 // it (R^2 <= 64 numbers); the caller synchronises the block afterwards.
-// The norms are cgt::load_generator's, term by term.
 template <int R>
 __device__ __forceinline__ void load_gen(const float* __restrict__ g,
                                          GenS<R>& gs) {
@@ -56,7 +56,7 @@ __device__ __forceinline__ void load_gen(const float* __restrict__ g,
   gs.augn = fmaxf(top, col);
 }
 
-// A gap's branch and scaling (blockmath.cuh tn_math): the Van Loan branch
+// A gap's branch and scaling: the Van Loan branch
 // where dt ||G/2|| < 1, and the squaring count from the augmented norm.
 template <int R>
 __device__ __forceinline__ bool van_loan(const GenS<R>& gs, float dt) {
@@ -109,7 +109,7 @@ __device__ __forceinline__ void zero(float (&a)[R][R]) {
 }
 
 // The polynomial half of the structured Pade-7 of the scaled Van Loan
-// matrix (cgt::pade7_vanloan up to its solves): p_a, p_s, v_tl, v_tr.
+// matrix up to its solves: p_a, p_s, v_tl, v_tr.
 // keep(a2, s2, a4, s4) sees the even powers before they die.
 struct NoKeep {
   template <typename M>
@@ -208,7 +208,8 @@ __device__ __forceinline__ void pade_sums(const GenS<R>& gs, float scale,
     }
 }
 
-// X = (V - U)^{-1} (V + U) = [[f1, g1], [0, f3]] (cgt::pade7_vanloan)
+// X = (V - U)^{-1} (V + U) = [[f1, g1], [0, f3]]: the bottom-right
+// blocks of V -/+ U are nu^T / de^T, so f3 = nu^{-T} de^T
 template <int R>
 __device__ __forceinline__ void pade7(const GenS<R>& gs, float scale,
                                       float (&f1)[R][R], float (&g1)[R][R],
@@ -249,7 +250,7 @@ __device__ __forceinline__ void pade7(const GenS<R>& gs, float scale,
     }
 }
 
-// One squaring round back towards the true gap (tn_math's loop body): f1
+// One squaring round back towards the true gap: f1
 // always, the Van Loan blocks g1, f3 only in that branch.
 template <int R>
 __device__ __forceinline__ void square(bool vl, float (&f1)[R][R],
@@ -297,7 +298,7 @@ __device__ __forceinline__ void q_of(bool vl, const float (&f1)[R][R],
     for (int c = 0; c < R; ++c) q[i][c] = 0.5f * (qq[i][c] + qq[c][i]);
 }
 
-// One gap's precision ingredients (expm_pallas._gap_row_terms on tn_math):
+// One gap's precision ingredients (expm_pallas._gap_row_terms):
 // off = -Q1^{-1} e, d_left = Q1^{-1} - I, d_right = e^T Q1^{-1} e, valid-
 // masked by gv; returns log|Q1| (times gv).
 template <int R>

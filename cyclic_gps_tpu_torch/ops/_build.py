@@ -54,6 +54,7 @@ _SIGNATURES = {
     "cgt_forward_sweep_f64": [_P, _P, _P, ctypes.c_double, _I, _I, _I]
     + [_P] * 9 + [_P],
     "cgt_transition_and_noise_f32": [_P, _P, _I, _I, _P, _P, _P],
+    "cgt_transition_and_noise_rows_f32": [_P, _P, _I, _I, _P, _P, _P],
     "cgt_k_system_f32": [_P] * 6 + [_I, _I, _I] + [_P] * 3 + [_P],
     "cgt_gap_mahal_sweep_f32": [_P] * 7 + [_I, _I, _I] + [_P] * 11 + [_P],
     "cgt_forward_sweep_solveinv_f32": [_P, _P, _P, ctypes.c_float, _I, _I,

@@ -460,15 +460,51 @@ def _check_generator(name: str, g: Tensor, boost: Tensor = None) -> int:
     return r
 
 
+# Kernel 2's design by the gap count M: up to TN_ROWS_MAX_M gaps R lanes
+# build a gap, a row each (csrc/gap_emission.cu's
+# transition_and_noise_rows_kernel), above it one thread does
+# (transition_and_noise_thread_kernel).  On the H100 at rank 5 the rows
+# design is faster up to 4,096 gaps (5.3-6.2 against 6.1-6.8 µs a launch),
+# a tie at 7,813 and slower from 12,000 on, where one thread a gap has
+# warps enough to hide its chain (PERF.md §6).  chip_smoke.py's [tn-pick]
+# times both designs on both sides of the bound and fails where this picks
+# the slower.
+TN_ROWS_MAX_M = 4096
+_TN_SYMBOL = {"thread": "cgt_transition_and_noise_f32",
+              "rows": "cgt_transition_and_noise_rows_f32"}
+
+
+def _tn_design(m: int) -> str:
+    """Kernel 2's design at ``m`` gaps: "rows" or "thread"."""
+    return "rows" if m <= TN_ROWS_MAX_M else "thread"
+
+
+def _tn_launch(design: str, g: Tensor, diffs: Tensor):
+    """Launch kernel 2's ``design`` on CUDA float32 g [r, r] and diffs [M]
+    (M > 0) and return (e, q), counting nothing."""
+    r, m = g.shape[0], diffs.shape[0]
+    e = diffs.new_empty((r, r, m))
+    q = diffs.new_empty((r, r, m))
+    lib = _build.load()
+    with torch.cuda.device(diffs.device):
+        err = getattr(lib, _TN_SYMBOL[design])(
+            g.data_ptr(), diffs.data_ptr(), r, m, e.data_ptr(), q.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "transition_and_noise_cuda")
+    return e, q
+
+
 def transition_and_noise_cuda(g: Tensor, diffs: Tensor):
     """Fused (e, Q) construction per gap: g [r, r], diffs [M] float32 ->
     element-major (e [r, r, M], q [r, r, M]), e = expm(-dG/2) and
     Q = I - e e^T formed without cancellation (leg.transition_and_noise_em
     values).
 
-    CUDA tensors launch ``csrc/gap_emission.cu`` on the current stream
-    (``transition_and_noise_cuda.launches`` counts the launches); CPU
-    tensors run `transition_and_noise_plain`.
+    CUDA tensors launch ``csrc/gap_emission.cu`` on the current stream, the
+    design `_tn_design` picks by M (R lanes a gap, a row each, up to
+    TN_ROWS_MAX_M gaps; one thread a gap above);
+    ``transition_and_noise_cuda.launches`` counts the launches,
+    ``.launches_rows`` and ``.launches_thread`` those of each design.  CPU tensors run `transition_and_noise_plain`.
     """
     name = "transition_and_noise_cuda"
     _build.check_no_grad(name, g, diffs)
@@ -477,21 +513,21 @@ def transition_and_noise_cuda(g: Tensor, diffs: Tensor):
     _build.check_tensors(name, (torch.float32,), g=g, diffs=diffs)
     r = _check_generator(name, g)
     (m,) = diffs.shape
-    e = diffs.new_empty((r, r, m))
-    q = diffs.new_empty((r, r, m))
     if m == 0:
-        return e, q
-    lib = _build.load()
-    with torch.cuda.device(diffs.device):
-        err = lib.cgt_transition_and_noise_f32(
-            g.data_ptr(), diffs.data_ptr(), r, m, e.data_ptr(), q.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, name)
+        return diffs.new_empty((r, r, 0)), diffs.new_empty((r, r, 0))
+    design = _tn_design(m)
+    e, q = _tn_launch(design, g, diffs)
     transition_and_noise_cuda.launches += 1
+    if design == "rows":
+        transition_and_noise_cuda.launches_rows += 1
+    else:
+        transition_and_noise_cuda.launches_thread += 1
     return e, q
 
 
 transition_and_noise_cuda.launches = 0
+transition_and_noise_cuda.launches_rows = 0
+transition_and_noise_cuda.launches_thread = 0
 
 
 def k_system_cuda(g: Tensor, boost: Tensor, dt_cm: Tensor, gv_cm: Tensor,

@@ -10,8 +10,9 @@ plateau scale, applied to Adam's learning rate (Adam's step is linear in
 it, so this equals scaling the update).
 
 Parameters are updated in place; `train_step` and `fit` run on the
-device the parameters live on.  Losses and optimizers the JAX package
-has but this one does not yet raise ``NotImplementedError`` naming their
+device the parameters live on.  The Kalman filter losses run
+``baselines/kalman.py``.  Losses and optimizers the JAX package has but
+this one does not yet raise ``NotImplementedError`` naming their
 ROADMAP.md item.  Checkpoints are ``.npz`` files with the JAX package's
 keys, so either package loads the other's.
 """
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from cyclic_gps_tpu_torch import resolve_device
+from cyclic_gps_tpu_torch.baselines import kalman
 from cyclic_gps_tpu_torch.models import leg
 
 Tensor = torch.Tensor
@@ -45,14 +47,47 @@ def nll_loss_residual(params: leg.LEGParams, ts: Tensor,
     return -leg.log_likelihood_residual(params, ts, xs) / xs.numel()
 
 
-LOSSES = {"cr": nll_loss, "cr_residual": nll_loss_residual}
+def _kalman_ll(params: leg.LEGParams, ts: Tensor, xs: Tensor,
+               regular: bool, backend: str) -> Tensor:
+    ssm = kalman.leg_to_ssm(params, ts, regular=regular, backend=backend)
+    if xs.shape[0] > kalman.SMOOTHER_BLOCK:
+        # the flat scan's working set grows with T; the blocked filter
+        # carries (m, P, ll) across checkpointed blocks, so the value and
+        # the gradient run in O(block) memory
+        return kalman.log_likelihood_blocked(ssm, xs)
+    return kalman.filter_parallel(ssm, xs)[2]
+
+
+def nll_loss_kalman(params: leg.LEGParams, ts: Tensor, xs: Tensor,
+                    backend: str = "auto") -> Tensor:
+    """The same NLL through the parallel Kalman filter
+    (`kalman.filter_parallel`; above 2^17 points the blocked filter).
+    Mathematically `nll_loss`, but robust at single precision: the
+    filter's innovation covariances are bounded below by the observation
+    noise, where the precision form's blocks grow like 1/(dt
+    lambda_min(sym G)).  On the card at float32 every gap's (A, Q) comes
+    from the (e, Q) kernel; ``backend`` as for `leg.log_likelihood`."""
+    return -_kalman_ll(params, ts, xs, False, backend) / xs.numel()
+
+
+def nll_loss_kalman_regular(params: leg.LEGParams, ts: Tensor, xs: Tensor,
+                            backend: str = "auto") -> Tensor:
+    """`nll_loss_kalman` for a uniform grid: one (A, Q) broadcast over
+    the T steps instead of one per gap."""
+    return -_kalman_ll(params, ts, xs, True, backend) / xs.numel()
+
+
+LOSSES = {"cr": nll_loss, "cr_residual": nll_loss_residual,
+          "kalman": nll_loss_kalman,
+          "kalman_regular": nll_loss_kalman_regular}
 
 # losses of the JAX package still to port, and where they stand in line
 _UNPORTED_LOSSES = {
-    "kalman": "ROADMAP.md, Queue 1: baselines/kalman.py",
-    "kalman_regular": "ROADMAP.md, Queue 1: baselines/kalman.py",
-    "kalman_ss": "ROADMAP.md, Queue 1: baselines/kalman.py",
+    "kalman_ss": "ROADMAP.md, Queue 1 item 3b: the steady-state filter "
+                 "of baselines/kalman.py",
 }
+
+SS_T0 = 2048  # the steady-state filter's switch point (JAX train/loop.py)
 
 
 def _loss_fn(name: str):
@@ -180,18 +215,34 @@ def train_step(params: leg.LEGParams, opt: Optimizer, ts: Tensor,
 
 
 def _default_loss(ts: Tensor, xs: Tensor) -> str:
-    """The loss the JAX package's ``fit(loss=None)`` picks, but for the
-    steady-state check that can turn "kalman_regular" into "kalman_ss"
-    (both are unported): "cr" at float64; at float32 "kalman_regular" on
-    a uniform grid, "cr_residual" on an irregular grid of more than
-    2^17 points and "kalman" below."""
+    """The loss the JAX package's ``fit(loss=None)`` picks from the grid
+    alone: "cr" at float64; at float32 "kalman_regular" on a uniform grid,
+    "cr_residual" on an irregular grid of more than 2^17 points and
+    "kalman" below.  `fit` then runs the steady-state check
+    (`_steady_state_loss`) that can turn "kalman_regular" into
+    "kalman_ss"."""
     if xs.dtype == torch.float64:
         return "cr"
     d = np.diff(ts.detach().cpu().numpy())
     if d.size > 0 and np.allclose(d, d[0], rtol=1e-6, atol=0):
         return "kalman_regular"
-    # kalman.SMOOTHER_BLOCK = 2**17 in the JAX package
-    return "cr_residual" if xs.shape[0] > 2 ** 17 else "kalman"
+    return ("cr_residual" if xs.shape[0] > kalman.SMOOTHER_BLOCK
+            else "kalman")
+
+
+def _steady_state_loss(params: leg.LEGParams, ts: Tensor, xs: Tensor,
+                       loss: str) -> str:
+    """JAX's second step of the default: on a uniform grid of more than
+    8 SS_T0 points, "kalman_ss" where the Riccati recursion at the initial
+    parameters has converged by SS_T0 / 2 steps (relative residual below
+    1e-6), else ``loss`` unchanged."""
+    if loss != "kalman_regular" or xs.shape[0] <= 8 * SS_T0:
+        return loss
+    with torch.no_grad():
+        ssm0 = kalman.leg_to_ssm(params, ts[:SS_T0 + 2], regular=True)
+        gap = kalman.steady_state_gap(ssm0.a[0], ssm0.q[0], ssm0.h, ssm0.r,
+                                      t0=SS_T0 // 2)
+    return "kalman_ss" if gap < 1e-6 else loss
 
 
 @dataclass
@@ -212,15 +263,19 @@ def fit(
     loss: Optional[str] = None,
 ) -> FitResult:
     """Full-batch training loop on the params' device.  ``loss``: "cr"
-    (the partitioned likelihood, `nll_loss`) or "cr_residual" (its
-    float32-safe precision form, `nll_loss_residual`).  ``loss=None``
-    picks what the JAX package picks (`_default_loss`): "cr" at float64;
-    at float32 "cr_residual" on an irregular grid of more than 2^17
-    points, else the Kalman losses, which are not ported yet and raise
+    (the partitioned likelihood, `nll_loss`), "cr_residual" (its
+    float32-safe precision form, `nll_loss_residual`), "kalman" or
+    "kalman_regular" (the parallel Kalman filter, `nll_loss_kalman`).
+    ``loss=None`` picks what the JAX package picks (`_default_loss`, then
+    `_steady_state_loss`): "cr" at float64; at float32 "cr_residual" on an
+    irregular grid of more than 2^17 points, "kalman" on a smaller one,
+    and on a uniform grid "kalman_regular", or "kalman_ss" where the
+    steady-state check passes; "kalman_ss" is not ported yet and raises
     ``NotImplementedError``."""
     device = params.b.device
     ts, xs = ts.to(device), xs.to(device)
-    loss = loss or _default_loss(ts, xs)
+    if loss is None:
+        loss = _steady_state_loss(params, ts, xs, _default_loss(ts, xs))
     _loss_fn(loss)
     opt = make_optimizer(optimizer, lr)
     losses = []

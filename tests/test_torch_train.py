@@ -131,11 +131,21 @@ def test_unported_losses_raise(loss):
     NotImplementedError naming its ROADMAP item, before any work; an
     unknown loss raises ValueError.  "cr_residual" has since been ported
     (`loop.nll_loss_residual`): its step runs, and below the chunked
-    threshold its loss is the "cr" loss, as in the JAX package."""
+    threshold its loss is the "cr" loss, as in the JAX package.  "kalman"
+    and "kalman_regular" have since been ported too
+    (`loop.nll_loss_kalman`, `nll_loss_kalman_regular`): the step's loss
+    == the JAX loss on the same float64 inputs to 1e-10 relative (the
+    same parallel filter on the same combination tree)."""
     p = params_from_jax(_jax_params(1), device="cpu")
     ts, xs = generate_data(16, 2, seed=1, device="cpu")
     opt = loop.make_optimizer()
-    if loss in loop.LOSSES:
+    if loss in ("kalman", "kalman_regular"):
+        want = float(jloop.LOSSES[loss](_jax_params(1),
+                                        jnp.asarray(ts.numpy()),
+                                        jnp.asarray(xs.numpy())))
+        got = float(loop.train_step(p, opt, ts, xs, loss=loss))
+        assert abs(got - want) <= 1e-10 * abs(want)
+    elif loss in loop.LOSSES:
         with torch.no_grad():
             want = float(loop.nll_loss(p, ts, xs))
         assert float(loop.train_step(p, opt, ts, xs, loss=loss)) == want
@@ -158,8 +168,10 @@ def test_lbfgs_not_ported(name):
 def test_fit_default_loss(spacing):
     """fit(loss=None) at float64 trains with "cr" (losses finite and
     falling over 3 steps); at float32 it picks what the JAX package picks
-    (a Kalman loss here), which is not ported, and raises -- it does not
-    fall back to "cr"."""
+    on these 64 points ("kalman" on the irregular grid, "kalman_regular"
+    on the uniform one: JAX train/loop.py's rule, the steady-state check
+    only above 16,384 points) and trains with it, losses finite and
+    falling over 3 steps."""
     p = params_from_jax(_jax_params(2), device="cpu")
     ts, xs = generate_data(64, 2, spacing=spacing, seed=2, device="cpu")
     res = loop.fit(p, ts, xs, num_steps=3, log_every=0)
@@ -168,5 +180,11 @@ def test_fit_default_loss(spacing):
     assert res.losses[-1] < res.losses[0]
     p32 = loop.params_from_arrays(*params_to_numpy(p), dtype=torch.float32,
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="kalman"):
-        loop.fit(p32, ts.float(), xs.float(), num_steps=1)
+    ts32, xs32 = ts.float(), xs.float()
+    picked = loop._steady_state_loss(p32, ts32, xs32,
+                                     loop._default_loss(ts32, xs32))
+    assert picked == ("kalman" if spacing == "irregular"
+                      else "kalman_regular")
+    res = loop.fit(p32, ts32, xs32, num_steps=3, log_every=0)
+    assert np.all(np.isfinite(res.losses))
+    assert res.losses[-1] < res.losses[0]
