@@ -109,8 +109,12 @@ Phases, one line of output each (or more):
               (the pick, value and gradient against backend="torch",
               three fit(loss=None) steps with kernel 2's launches, one
               profiled step), the uniform grid one point longer, where
-              fit must pick "kalman_ss" and raise, and the blocked filter
-              at N = 1e6 (value, gradient, peak memory).
+              fit must pick "kalman_ss" and train three steps,
+              "kalman_ss" against "kalman_regular" on a uniform 2^17
+              grid (value 1e-4, gradient leaves 1e-3), "kalman_ss" at
+              N = 1e6 (value and gradient against backend="torch", a timed
+              and a profiled step), and the blocked filter at N = 1e6
+              (value, gradient, peak memory).
   7. posterior the four posterior kernels against their twins on the inputs
               one insample_posterior(method="precision") call hands them
               at N = 1e6; kernels 9 and 11 at their edge shapes
@@ -129,7 +133,24 @@ Phases, one line of output each (or more):
               N = 48 predictive against the dense GP oracle; one profiled
               insample_posterior call (busy share against the profiled and
               the unprofiled wall; the summed device time and launches of
-              kernels 1, 6, 8 and 10).
+              kernels 1, 6, 8 and 10); then [smoother]: float32
+              insample_posterior(method="auto"), the parallel RTS smoother
+              with kernel 2 on every gap, at N = 2^17 (flat) and 1e6
+              (blocked, 8 blocks) against backend="torch", the 2^17 one
+              also against the float64 precision route, its wall and a
+              profiled call, and make_predictions(method="auto") at
+              N = 1024, P = 4096; then [stacked]: 64 series of seeded
+              lengths (~1e6 points, boundaries inside chunks and on a wrap
+              row), kernels 1-11 against their twins on the inputs the
+              stacked likelihood, its gradient and
+              insample_posterior_stacked hand them, the launch counts of
+              one train_step_stacked and one insample_posterior_stacked
+              (set to 0 just before), the stacked value against 8 of its
+              series run alone, the walls and profiled calls, and on 64 x
+              16,384 points log_likelihood_per_series,
+              insample_posterior_stacked and make_predictions_batch (256
+              targets a series) against backend="torch", and
+              nll_loss_kalman_stacked at 2^17 points.
   8. celerite the celerite family at nblocks = 8 (rank 16), obs 1, N = 1e6
               on the bench grid (gaps randint(1, 5) * 0.125, float32): the
               four celerite kernels against their twins, and the engine's
@@ -244,7 +265,7 @@ N_BIG = 1_000_000
 N_SMALL = 48
 RANK, OBS = 5, 2
 CEL_NB, CEL_NB_SMALL = 8, 2  # celerite: rank 16 (the full width) and 4
-REPS = 7  # timed runs per kernel (median reported; a twin takes 3 at most)
+REPS = 7  # timed runs per kernel (median reported; a twin's one run)
 TRAIN_STEPS = 3
 # published peaks of one H100 SXM (the bound's denominators)
 PEAK_FLOPS_F32 = 67e12
@@ -2245,6 +2266,85 @@ def run_elim_pick(dev, sweep_cuda, pt, _build):
             torch.cuda.empty_cache()
 
 
+def profile_summary(phase, what, fn, wall_med, top=6, part=None):
+    """One profiled call of fn (device activity only): its device ms, op
+    count and busy share against the profiled wall and the unprofiled
+    median ``wall_med``, the summed ms of the ops whose names hold
+    ``part``, and its ``top`` largest device ops; returns the device ms
+    (None where the profiler saw no device events)."""
+    wall, by_kernel = profiled(fn, cpu=False)
+    if not by_kernel:
+        say(f"[{phase}] profiled {what}: the profiler saw no device events; "
+            "device ms, ops and busy share not measured")
+        return None
+    dev_ms = sum(ms for ms, _ in by_kernel.values())
+    n_ops = sum(c for _, c in by_kernel.values())
+    of_part = "" if part is None else "; {} {:.3f} ms of it".format(
+        part, sum(ms for k, (ms, _) in by_kernel.items() if part in k))
+    say(f"[{phase}] profiled {what}: wall {wall:.2f} ms (profiler on, "
+        f"device activity only), {n_ops} device ops, device {dev_ms:.2f} "
+        f"ms, busy share {dev_ms / wall:.3f}, against the unprofiled "
+        f"median {wall_med:.2f} ms {dev_ms / wall_med:.3f}{of_part}")
+    for key, (ms, c) in sorted(by_kernel.items(),
+                               key=lambda kv: -kv[1][0])[:top]:
+        say(f"[{phase}]   {key[:80]}: {ms:.3f} ms, {c} calls")
+    return dev_ms
+
+
+def value_and_grads_agree(phase, what, fn, params, grad_bar, rtol=1e-4):
+    """fn(backend) -> a scalar: its value and parameter gradient with
+    backend="auto" against "torch" (value within ``rtol`` relative,
+    gradient leaves within ``grad_bar`` of their inf-norm), one host-clock
+    call each; fails on a mismatch or a non-finite value."""
+    leaves = ("n_params", "r_params", "lambda_params", "b")
+
+    def value_and_grads(backend):
+        v = fn(backend)
+        return v.detach(), torch.autograd.grad(v, list(params.parameters()))
+
+    ms_a, (v_a, g_a) = host_ms(lambda: value_and_grads("auto"), reps=1)
+    ms_t, (v_t, g_t) = host_ms(lambda: value_and_grads("torch"), reps=1)
+    rel = abs(float(v_a) - float(v_t)) / abs(float(v_t))
+    g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
+    ok = (bool(torch.isfinite(v_a)) and rel <= rtol
+          and max(g_rels) <= grad_bar
+          and all(bool(torch.isfinite(a).all()) for a in g_a))
+    say(f"[{phase}] {what}: value + gradient auto {float(v_a):.6f} "
+        f"({ms_a:.1f} ms), torch {float(v_t):.6f} ({ms_t:.1f} ms), rel diff "
+        f"{rel:.3e} <= {rtol:g}; gradient per-leaf rel diff "
+        + ", ".join(f"{k} {v:.2e}" for k, v in zip(leaves, g_rels))
+        + f" <= {grad_bar:g} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{what}: backend='auto' disagrees with 'torch'")
+    return v_a, g_a
+
+
+def fit_steps(phase, what, loop, p, ts, xs, expm_cuda, m):
+    """TRAIN_STEPS steps of fit(loss=None), kernel 2's launches (every
+    one at M = ``m``) and the steps' host-clock ms; returns the median of
+    the steps after the first."""
+    tn0 = tn_watch(expm_cuda)
+    stamps = []
+
+    def stamp(step, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = loop.fit(p, ts, xs, num_steps=TRAIN_STEPS, log_every=0,
+                   callback=stamp)
+    step_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
+    med = statistics.median(step_ms[1:])
+    say(f"[{phase}] fit(loss=None, num_steps={TRAIN_STEPS}) {what}: losses "
+        f"{res.losses}, step ms {[round(t, 2) for t in step_ms]}, median of "
+        f"the steps after the first {med:.2f} ms (host clock, synchronised)")
+    if not all(math.isfinite(v) for v in res.losses):
+        fail(f"non-finite training loss on {what}: {res.losses}")
+    check_tn_path(phase, f"fit(loss=None) {what}", expm_cuda, tn0, m)
+    return med
+
+
 def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
                        grad_bar):
     """The float32 training default on a large irregular grid: fit(loss=
@@ -2257,28 +2357,11 @@ def run_residual_phase(dev, leg, loop, sweep_cuda, expm_cuda, ts, xs,
              f"{chosen!r}, not 'cr_residual'")
     p = leg.init_params(RANK, OBS, generator=torch.Generator().manual_seed(3),
                         dtype=torch.float32, device=dev)
-    leaves = ("n_params", "r_params", "lambda_params", "b")
-
-    def value_and_grads(backend):
-        v = leg.log_likelihood_residual(p, ts, xs, backend=backend)
-        return v.detach(), torch.autograd.grad(v, list(p.parameters()))
-
-    ms_a, (v_a, g_a) = host_ms(lambda: value_and_grads("auto"), reps=1)
-    ms_t, (v_t, g_t) = host_ms(lambda: value_and_grads("torch"), reps=1)
-    rel = abs(float(v_a) - float(v_t)) / abs(float(v_t))
-    g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
-    ok = (bool(torch.isfinite(v_a)) and rel <= 1e-4
-          and max(g_rels) <= grad_bar
-          and all(bool(torch.isfinite(a).all()) for a in g_a))
-    say(f"[train] log_likelihood_residual N {N_BIG} irregular float32 (float64"
-        f" timestamps): auto {float(v_a):.6f} ({ms_a:.1f} ms value + "
-        f"gradient), torch {float(v_t):.6f} ({ms_t:.1f} ms), rel diff "
-        f"{rel:.3e} <= 1e-4; gradient per-leaf rel diff "
-        + ", ".join(f"{k} {v:.2e}" for k, v in zip(leaves, g_rels))
-        + f" <= {grad_bar:g} {'ok' if ok else 'MISMATCH'}")
-    if not ok:
-        fail("the residual likelihood: backend='auto' disagrees with 'torch'")
-    del g_a, g_t
+    value_and_grads_agree(
+        "train", f"log_likelihood_residual N {N_BIG} irregular float32 "
+        "(float64 timestamps)",
+        lambda b: leg.log_likelihood_residual(p, ts, xs, backend=b), p,
+        grad_bar)
 
     wrappers = {
         "transition_and_noise": expm_cuda.transition_and_noise_cuda,
@@ -2542,8 +2625,10 @@ def tn_main(root, label):
 N_KALMAN = 1 << 17  # the largest irregular grid JAX's float32 default trains
 # with "kalman" (kalman.SMOOTHER_BLOCK; above it "cr_residual")
 N_KALMAN_REG = 16_384  # 8 SS_T0: the largest uniform grid that takes
-# "kalman_regular" without the steady-state check
-N_KALMAN_BIG = 1_000_000  # the blocked filter, loss="kalman" by hand
+# "kalman_regular" without the steady-state check (one point more takes
+# "kalman_ss", the steady-state filter)
+N_KALMAN_BIG = 1_000_000  # the blocked filter, loss="kalman" by hand; the
+# steady-state loss's largest grid here
 
 
 def run_kalman_phase(dev, leg, loop, kalman, expm_cuda, grad_bar):
@@ -2553,12 +2638,13 @@ def run_kalman_phase(dev, leg, loop, kalman, expm_cuda, grad_bar):
     "torch", three steps of fit(loss=None) with kernel 2's launches
     (every one on the design the table picks), one profiled step; a uniform
     grid one point longer than the steady-state threshold, where JAX picks
-    "kalman_ss" and the port must raise; the blocked filter at N = 1e6,
-    one value and gradient with its peak memory."""
+    "kalman_ss" and it trains three steps; "kalman_ss" against
+    "kalman_regular" on a uniform 2^17 grid; "kalman_ss" at N = 1e6
+    (auto against torch, a timed and a profiled step); the blocked filter
+    at N = 1e6, one value and gradient with its peak memory."""
     from cyclic_gps_tpu_torch.data.synthetic import generate_data
 
     t_phase = time.perf_counter()
-    leaves = ("n_params", "r_params", "lambda_params", "b")
 
     def params():
         return leg.init_params(RANK, OBS, generator=torch.Generator()
@@ -2582,90 +2668,72 @@ def run_kalman_phase(dev, leg, loop, kalman, expm_cuda, grad_bar):
             fail(f"fit(loss=None) on the {spacing} N = {n} grid picks "
                  f"{picked!r}, not {want!r} as the JAX package does")
         fn = loop.LOSSES[picked]
-
-        def value_and_grads(backend):
-            v = fn(p, ts, xs, backend=backend)
-            return v.detach(), torch.autograd.grad(v, list(p.parameters()))
-
-        ms_a, (v_a, g_a) = host_ms(lambda: value_and_grads("auto"), reps=1)
-        ms_t, (v_t, g_t) = host_ms(lambda: value_and_grads("torch"),
-                                   reps=1)
-        rel = abs(float(v_a) - float(v_t)) / abs(float(v_t))
-        g_rels = [rel_inf(a, b) for a, b in zip(g_a, g_t)]
-        ok = (bool(torch.isfinite(v_a)) and rel <= 1e-4
-              and max(g_rels) <= grad_bar
-              and all(bool(torch.isfinite(a).all()) for a in g_a))
-        say(f"[kalman] {picked} N {n}: value + gradient auto "
-            f"{float(v_a):.6f} ({ms_a:.1f} ms), torch {float(v_t):.6f} "
-            f"({ms_t:.1f} ms), rel diff {rel:.3e} <= 1e-4; gradient "
-            "per-leaf rel diff "
-            + ", ".join(f"{k} {v:.2e}" for k, v in zip(leaves, g_rels))
-            + f" <= {grad_bar:g} {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail(f"{picked}: backend='auto' disagrees with 'torch'")
-        del g_a, g_t
-
-        tn0 = tn_watch(expm_cuda)
-        stamps = []
-
-        def stamp(step, loss):
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = loop.fit(p, ts, xs, num_steps=TRAIN_STEPS, log_every=0,
-                       callback=stamp)
-        step_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1],
-                                                  stamps)]
-        say(f"[kalman] fit(loss=None, num_steps={TRAIN_STEPS}) {spacing} N "
-            f"{n}: losses {res.losses}, step ms "
-            f"{[round(t, 2) for t in step_ms]}, median of the steps after "
-            f"the first {statistics.median(step_ms[1:]):.2f} ms (host clock,"
-            " synchronised)")
-        if not all(math.isfinite(v) for v in res.losses):
-            fail(f"non-finite {picked} training loss: {res.losses}")
+        value_and_grads_agree("kalman", f"{picked} N {n}",
+                              lambda b: fn(p, ts, xs, backend=b), p,
+                              grad_bar)
         # the irregular grid's T gaps (its first twice); one gap on the
         # uniform grid
-        check_tn_path("kalman", f"fit(loss=None) {spacing} N {n}", expm_cuda,
-                      tn0, n if spacing == "irregular" else 1)
+        med = fit_steps("kalman", f"{spacing} N {n}", loop, p, ts, xs,
+                        expm_cuda, n if spacing == "irregular" else 1)
         opt = loop.make_optimizer("adam", 1e-2)
-        wall, by_kernel = profiled(
-            lambda: loop.train_step(p, opt, ts, xs, loss=picked), cpu=False)
-        if not by_kernel:
-            say(f"[kalman] profiled {picked} step: the profiler saw no "
-                "device events; device ops and busy share not measured")
-        else:
-            dev_ms = sum(ms for ms, _ in by_kernel.values())
-            n_ops = sum(c for _, c in by_kernel.values())
-            med = statistics.median(step_ms[1:])
-            k2_ms = sum(ms for k, (ms, _) in by_kernel.items()
-                        if "transition_and_noise" in k)
-            say(f"[kalman] profiled {picked} step N {n}: wall {wall:.2f} ms "
-                f"(profiler on, device activity only), {n_ops} device ops, "
-                f"device {dev_ms:.2f} ms,"
-                f" busy share {dev_ms / wall:.3f}, against the unprofiled "
-                f"median {med:.2f} ms {dev_ms / med:.3f}; kernel 2 "
-                f"{k2_ms:.3f} ms of it")
-            for key, (ms, c) in sorted(by_kernel.items(),
-                                       key=lambda kv: -kv[1][0])[:8]:
-                say(f"[kalman]   {key[:80]}: {ms:.3f} ms, {c} calls")
+        profile_summary("kalman", f"{picked} step N {n}",
+                        lambda: loop.train_step(p, opt, ts, xs, loss=picked),
+                        med, top=8, part="transition_and_noise")
         del p, opt
 
-    # one point past the steady-state threshold: JAX picks "kalman_ss"
+    # one point past the steady-state threshold JAX picks "kalman_ss": it
+    # trains (each step's and fit's check's one (A, Q) through kernel 2)
+    t_ss = time.perf_counter()
     ts, xs = grid(N_KALMAN_REG + 1, "regular")
     p = params()
     picked = loop._steady_state_loss(p, ts, xs, loop._default_loss(ts, xs))
-    try:
-        loop.fit(p, ts, xs, num_steps=1, log_every=0)
-        raised = None
-    except NotImplementedError as err:
-        raised = str(err)
-    say(f"[kalman] regular N {N_KALMAN_REG + 1}: fit(loss=None) picks "
-        f"{picked!r} and raises NotImplementedError: {raised}")
-    if picked != "kalman_ss" or raised is None:
+    say(f"[kalman] regular N {N_KALMAN_REG + 1} float32: fit(loss=None) "
+        f"picks {picked!r}")
+    if picked != "kalman_ss":
         fail("past the steady-state threshold fit(loss=None) must pick "
-             "'kalman_ss', as the JAX package does, and raise")
+             "'kalman_ss', as the JAX package does")
+    fit_steps("kalman", f"regular N {N_KALMAN_REG + 1} (kalman_ss)", loop, p,
+              ts, xs, expm_cuda, 1)
+    # the steady-state loss against the exact filter's on a uniform 2^17
+    # grid: the same likelihood once the Riccati recursion has converged
+    ts, xs = grid(N_KALMAN, "regular")
+    p = params()
+    out = {}
+    for name in ("kalman_ss", "kalman_regular"):
+        v = loop.LOSSES[name](p, ts, xs)
+        out[name] = (v.detach(), torch.autograd.grad(
+            v, list(p.parameters())))
+    (v_s, g_s), (v_r, g_r) = out["kalman_ss"], out["kalman_regular"]
+    rel = abs(float(v_s) - float(v_r)) / abs(float(v_r))
+    g_rels = [rel_inf(a, b) for a, b in zip(g_s, g_r)]
+    ok = rel <= 1e-4 and max(g_rels) <= 1e-3
+    say(f"[kalman] kalman_ss vs kalman_regular, regular N {N_KALMAN} "
+        f"float32: values {float(v_s):.6f} / {float(v_r):.6f}, rel diff "
+        f"{rel:.3e} <= 1e-4; gradient per-leaf rel diff "
+        + ", ".join(f"{v:.2e}" for v in g_rels) + " <= 1e-3 (float32: the "
+        "constant-gain tail's convolution against the exact filter's "
+        f"log-depth combine) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("kalman_ss disagrees with kalman_regular on a converged grid")
+    del out, g_s, g_r
+    # the steady-state loss at N = 1e6: kernel 2 against the plain emission
+    ts, xs = grid(N_KALMAN_BIG, "regular")
+    p = params()
+    value_and_grads_agree(
+        "kalman", f"kalman_ss regular N {N_KALMAN_BIG}",
+        lambda b: loop.nll_loss_kalman_steady(p, ts, xs, backend=b), p,
+        grad_bar)
+    opt = loop.make_optimizer("adam", 1e-2)
+    med, _ = host_ms(lambda: loop.train_step(p, opt, ts, xs,
+                                             loss="kalman_ss"), reps=3)
+    say(f"[kalman] kalman_ss step regular N {N_KALMAN_BIG}: median "
+        f"{med:.2f} ms of 3 (host clock, synchronised, after a warm-up)")
+    profile_summary("kalman", f"kalman_ss step N {N_KALMAN_BIG}",
+                    lambda: loop.train_step(p, opt, ts, xs,
+                                            loss="kalman_ss"), med)
+    say(f"[kalman] the steady-state loss took "
+        f"{time.perf_counter() - t_ss:.1f} s")
+    del p, opt
 
     # the blocked filter: N = 1e6, loss="kalman" by hand
     ts, xs = grid(N_KALMAN_BIG, "irregular")
@@ -2691,6 +2759,331 @@ def run_kalman_phase(dev, leg, loop, kalman, expm_cuda, grad_bar):
     check_tn_path("kalman", f"the blocked filter N {N_KALMAN_BIG}", expm_cuda,
                   tn0, N_KALMAN_BIG)
     say(f"[kalman] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# The smoother behind float32 method="auto" posteriors.
+# ---------------------------------------------------------------------------
+
+N_SMOOTH = 1 << 17  # the flat smoother's largest grid (kalman.SMOOTHER_BLOCK)
+SMOOTH_F64_BAR = 1e-3  # the float32 smoother against the float64 precision
+# route, of each output's scale: PERF.md section 2's float32 posterior bar
+
+
+def one_call_ms(fn):
+    """(host-clock ms, value) of one synchronised call of fn."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def run_smoother_phase(dev, leg, kalman, expm_cuda, params, post_bar):
+    """[smoother]: float32 insample_posterior(method="auto"), which takes
+    the parallel RTS smoother ((A, Q) of every gap by kernel 2, which
+    launches once at M = N), at N = 2^17 (the flat scan) and N = 1e6 (the
+    blocked one, 8 blocks), each against backend="torch" within the
+    float32 posterior bar; at 2^17 also against the float64 precision
+    route, the wall (median of 3) and one profiled call; then
+    make_predictions(method="auto") at N = 1024, P = 4,096."""
+    from cyclic_gps_tpu_torch.data.synthetic import generate_data
+
+    t_phase = time.perf_counter()
+    params64 = leg.LEGParams(*[t.detach().double() for t in
+                               (params.n_params, params.r_params,
+                                params.lambda_params, params.b)])
+    for n in (N_SMOOTH, N_BIG):
+        ts, xs = generate_data(n, OBS, dtype=torch.float64, seed=6,
+                               device=dev)
+        xs = xs.float()
+        blocks = -(-n // kalman.SMOOTHER_BLOCK)
+        what = (f"insample_posterior(method='auto') N {n} float32 ("
+                + ("flat scan" if n <= kalman.SMOOTHER_BLOCK
+                   else f"blocked, {blocks} blocks of "
+                   f"{kalman.SMOOTHER_BLOCK}") + ")")
+        tn0 = tn_watch(expm_cuda)
+        with torch.no_grad():
+            ms_first, got = one_call_ms(
+                lambda: leg.insample_posterior(params, ts, xs))
+        check_tn_path("smoother", what, expm_cuda, tn0, n)
+        with torch.no_grad():
+            if n == N_SMOOTH:
+                ms_a, got = host_ms(
+                    lambda: leg.insample_posterior(params, ts, xs), reps=3)
+            else:
+                ms_a = ms_first
+            ms_t, ref = one_call_ms(lambda: leg.insample_posterior(
+                params, ts, xs, backend="torch"))
+        compare(f"smoother N {n} auto vs torch", got, ref, 0.0, post_bar,
+                atol_of_scale=True)
+        say(f"[smoother] {what}: auto {ms_a:.2f} ms ("
+            + ("median of 3 after the first call, "
+               if n == N_SMOOTH else "")
+            + f"first call {ms_first:.2f} ms), torch {ms_t:.2f} ms (host "
+            f"clock, synchronised); agree within {post_bar:g} of each "
+            "output's scale (float32: Pade-7 kernel vs the Pade-13 plain "
+            "emission, the same scans)")
+        del ref
+        if n == N_SMOOTH:
+            with torch.no_grad():
+                ref64 = leg.insample_posterior(params64, ts, xs.double(),
+                                               method="precision")
+            compare(f"smoother N {n} float32 vs the float64 precision route",
+                    got, ref64, 0.0, SMOOTH_F64_BAR, atol_of_scale=True)
+            say(f"[smoother] N {n}: the float32 smoother agrees with the "
+                f"float64 precision route within {SMOOTH_F64_BAR:g} of "
+                "each output's scale (PERF.md section 2's float32 "
+                "posterior bar)")
+            del ref64
+            with torch.no_grad():
+                profile_summary("smoother", what, lambda: leg.
+                                insample_posterior(params, ts, xs), ms_a)
+        del got
+        torch.cuda.empty_cache()
+
+    ts_d, xs_d = generate_data(1024, OBS, dtype=torch.float64, seed=3,
+                               device=dev)
+    targets_d = torch.sort(ts_d[0] - 1.0 + (ts_d[-1] - ts_d[0] + 2.0)
+                           * torch.rand(4096, dtype=torch.float64,
+                                        generator=torch.Generator()
+                                        .manual_seed(4)).to(dev)).values
+    with torch.no_grad():
+        ms_a, got = host_ms(lambda: leg.make_predictions(
+            params, ts_d, xs_d.float(), targets_d), reps=3)
+        ms_t, ref = one_call_ms(lambda: leg.make_predictions(
+            params, ts_d, xs_d.float(), targets_d, backend="torch"))
+    compare("make_predictions(method='auto') N 1024, P 4096", got, ref, 0.0,
+            post_bar, atol_of_scale=True)
+    say(f"[smoother] make_predictions(method='auto') N 1024, P 4096 "
+        f"float32: auto {ms_a:.2f} ms (median of 3), torch {ms_t:.2f} ms; "
+        f"agree within {post_bar:g} of each output's scale")
+    say(f"[smoother] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# The stacked multi-series entries: kernels 1-11 under a series mask.
+# ---------------------------------------------------------------------------
+
+N_SERIES = 64
+SERIES_LENS = (8192, 24576)  # seeded lengths: ~1e6 points in all
+BATCH_LEN, BATCH_TARGETS = 16_384, 256  # the equal-length batch
+STACK_KERNELS = {
+    # key: (module of the wrapper, rtol, atol, of scale, why)
+    "transition_and_noise": ("expm", 1e-4, 1e-6, False,
+                             "the chunk-crossing gaps (_wrap_row, M = C)"),
+    "k_system": ("expm", 1e-3, 1e-4, False,
+                 "K ~ Q1^{-1} amplifies (e, Q1) rounding for small gaps"),
+    "gap_mahal_sweep": ("expm", 1e-3, 1e-4, False,
+                        "kernels 3 and 1 fused"),
+    "k_system_adjoint": ("expm", 1e-3, 1e-4, True,
+                         "c_dt against 4x the float32 twin's error"),
+    "forward_sweep": ("sweep", 1e-3, 1e-4, False,
+                      "127 dependent elimination steps"),
+    "forward_sweep_solveinv": ("sweep", 1e-3, 1e-4, True,
+                               "elimination and the hats"),
+    "backward_solve_takahashi": ("sweep", 1e-3, 1e-4, True,
+                                 "back-substitution and the walk"),
+    "forward_sweep_collect": ("sweep", 1e-3, 1e-4, True,
+                              "elimination and three back substitutions"),
+    "backward_substitute": ("sweep", 1e-3, 1e-4, True,
+                            "127 dependent multiply-add steps"),
+    "forward_sweep_inverse": ("sweep", 1e-3, 1e-4, True,
+                              "elimination, the raw factors"),
+    "takahashi_backward": ("sweep", 1e-3, 1e-4, True,
+                           "the Takahashi recursion in the hat form"),
+}
+LEG_WRAPPERS = ("transition_and_noise", "k_system", "gap_mahal_sweep",
+                "k_system_adjoint")  # called through models/leg.py's names
+
+
+def stack(leg, parts):
+    """leg.stack_series of float64-timestamp series with float32 values."""
+    return leg.stack_series([(t, x.float()) for t, x in parts])
+
+
+def run_stacked_phase(dev, leg, loop, pt, expm_cuda, sweep_cuda, params,
+                      rows, captured, capture, check_kernel, grad_bar,
+                      post_bar, step_dev_ms):
+    """[stacked]: 64 series of seeded lengths in 8,192-24,576 (~1e6 points,
+    the first 12,800 long so that a boundary falls on a chunk's wrap row,
+    the others inside chunks), float32, float64 timestamps restarting at
+    every boundary.  Kernels 1-11 against their twins on the inputs the
+    stacked likelihood, its gradient and insample_posterior_stacked hand
+    them; the launch counts of one train_step_stacked ("cr") step and one
+    insample_posterior_stacked call (counts set to 0 just before); the
+    stacked value against 8 of its series run alone; the stacked
+    likelihood's wall and the profiled step; log_likelihood_per_series,
+    insample_posterior_stacked and make_predictions_batch on 64 x 16,384
+    points with 256 targets each against backend="torch";
+    nll_loss_kalman_stacked at 2^17 points in all."""
+    from cyclic_gps_tpu_torch.data.synthetic import generate_data
+
+    t_phase = time.perf_counter()
+    lengths = torch.randint(SERIES_LENS[0], SERIES_LENS[1] + 1, (N_SERIES,),
+                            generator=torch.Generator().manual_seed(8))
+    lengths[0] = 100 * 128  # its last gap is row s - 1 of chunk 99
+    parts = [generate_data(int(n), OBS, dtype=torch.float64, seed=100 + i,
+                           device=dev) for i, n in enumerate(lengths)]
+    ts, xs, ids = stack(leg, parts)
+    n = ts.shape[0]
+    s = pt.default_chunk_len(n)
+    cuts = torch.cumsum(lengths, 0)[:-1] - 1  # the masked gaps
+    on_wrap = int((cuts % s == s - 1).sum())
+    say(f"[stacked] {N_SERIES} series, N {n} float32 (float64 timestamps), "
+        f"rank {RANK}, s {s}, C {-(-n // s)}: {len(cuts)} masked boundary "
+        f"gaps, {on_wrap} on a chunk's wrap row, {len(cuts) - on_wrap} "
+        "inside chunks")
+
+    # the kernels' inputs on the stacked paths (each one's largest call)
+    modules = {"expm": expm_cuda, "sweep": sweep_cuda}
+    captured.clear()
+    spied = [(leg if k in LEG_WRAPPERS else modules[m], f"{k}_cuda")
+             for k, (m, *_) in STACK_KERNELS.items()]
+    origs = [(owner, attr, capture(owner, attr)) for owner, attr in spied]
+    try:
+        v = leg.log_likelihood_stacked(params, ts, xs, ids)
+        torch.autograd.grad(v, list(params.parameters()))
+        with torch.no_grad():
+            leg.insample_posterior_stacked(params, ts, xs, ids)
+        torch.cuda.synchronize()
+    finally:
+        for owner, attr, orig in origs:
+            setattr(owner, attr, orig)
+    missing = [a for _, a in spied if a not in captured]
+    if missing:
+        fail(f"the stacked paths did not reach {missing}")
+    by_name = {r["name"]: r for r in rows}  # each kernel's source, TPU line
+    for key, (m, rtol, atol, of_scale, why) in STACK_KERNELS.items():
+        args_k, kw_k = captured[f"{key}_cuda"]
+        module = modules[m]
+        extra = {}
+        if key == "transition_and_noise":
+            extra["gaps_of"] = args_k[1]
+        elif key in ("k_system", "gap_mahal_sweep"):
+            extra["gaps_of"] = args_k[2]
+        elif key == "k_system_adjoint":
+            extra.update(gaps_of=args_k[1], f64_outputs=(2,))
+        check_kernel(key, by_name[key]["source"], by_name[key]["replaces"],
+                     getattr(module, f"{key}_cuda"),
+                     getattr(module, f"{key}_plain"), args_k, rtol, atol,
+                     f"under the series mask; {why}", kw=kw_k,
+                     atol_of_scale=of_scale, record=False, phase="stacked",
+                     reps=1, **extra)
+    captured.clear()
+
+    # the path: one train_step_stacked and one insample_posterior_stacked,
+    # counts set to 0 just before and read just after
+    wrappers = {k: getattr(modules[m], f"{k}_cuda")
+                for k, (m, *_) in STACK_KERNELS.items()}
+    p = leg.init_params(RANK, OBS, generator=torch.Generator()
+                        .manual_seed(9), device=dev)
+    opt = loop.make_optimizer("adam", 1e-2)
+    for w in wrappers.values():
+        w.launches = 0
+    loss = loop.train_step_stacked(p, opt, ts, xs, ids)
+    with torch.no_grad():
+        leg.insample_posterior_stacked(p, ts, xs, ids)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    say(f"[stacked] launches in one train_step_stacked('cr') step (loss "
+        f"{float(loss):.6f}) and one insample_posterior_stacked call: "
+        f"{counts}")
+    for k, c in counts.items():
+        if c <= 0:
+            fail(f"kernel {k} was not launched by the stacked paths")
+    if not math.isfinite(float(loss)):
+        fail("non-finite stacked training loss")
+
+    # the stacked value against 8 of its series run alone
+    ts8, xs8, ids8 = stack(leg, parts[:8])
+    with torch.no_grad():
+        v8 = float(leg.log_likelihood_stacked(p, ts8, xs8, ids8))
+        own = sum(float(leg.log_likelihood(p, t, x.float()))
+                  for t, x in parts[:8])
+    rel = abs(v8 - own) / abs(own)
+    say(f"[stacked] log_likelihood_stacked of the first 8 series "
+        f"{v8:.6f} vs the sum of their own log_likelihood {own:.6f}: rel "
+        f"diff {rel:.3e} <= 1e-4 {'ok' if rel <= 1e-4 else 'MISMATCH'}")
+    if rel > 1e-4:
+        fail("the stacked likelihood is not the sum of its series'")
+
+    # walls and device time
+    with torch.no_grad():
+        ms_v, _ = host_ms(lambda: leg.log_likelihood_stacked(p, ts, xs, ids))
+    ms_s, _ = host_ms(lambda: loop.train_step_stacked(p, opt, ts, xs, ids))
+    say(f"[stacked] N {n}: log_likelihood_stacked {ms_v:.2f} ms, "
+        f"train_step_stacked {ms_s:.2f} ms (medians of 3, host clock)")
+    with torch.no_grad():
+        profile_summary("stacked", f"log_likelihood_stacked N {n}",
+                        lambda: leg.log_likelihood_stacked(p, ts, xs, ids),
+                        ms_v)
+    dev_ms = profile_summary("stacked", f"train_step_stacked N {n}",
+                             lambda: loop.train_step_stacked(
+                                 p, opt, ts, xs, ids), ms_s)
+    if dev_ms is not None and step_dev_ms:
+        say(f"[stacked] the stacked step's device time is "
+            f"{dev_ms / step_dev_ms:.3f} of the single-series LEG step's "
+            f"({step_dev_ms:.2f} ms, [train], N {N_BIG})")
+    del parts, ts, xs, ids, ts8, xs8, ids8, opt
+    torch.cuda.empty_cache()
+
+    # the equal-length batch: per-series likelihoods, posterior, predictions
+    parts = [generate_data(BATCH_LEN, OBS, dtype=torch.float64,
+                           seed=300 + i, device=dev)
+             for i in range(N_SERIES)]
+    ts_b = torch.stack([t for t, _ in parts])
+    xs_b = torch.stack([x for _, x in parts]).float()
+    ts, xs, ids = stack(leg, parts)
+    gen = torch.Generator().manual_seed(10)
+    span = ts_b[:, -1:] - ts_b[:, :1]
+    tg_b = torch.sort(ts_b[:, :1] - 1.0 + (span + 2.0) * torch.rand(
+        N_SERIES, BATCH_TARGETS, dtype=torch.float64,
+        generator=gen).to(dev), dim=1).values
+    what = f"{N_SERIES} x {BATCH_LEN} points"
+    with torch.no_grad():
+        ms_a, ll_a = host_ms(lambda: leg.log_likelihood_per_series(
+            p, ts, xs, ids, N_SERIES), reps=1)
+        ms_t, ll_t = one_call_ms(lambda: leg.log_likelihood_per_series(
+            p, ts, xs, ids, N_SERIES, backend="torch"))
+        total = float(leg.log_likelihood_stacked(p, ts, xs, ids))
+    rel = float(((ll_a - ll_t).abs() / ll_t.abs()).max())
+    rel_sum = abs(float(ll_a.sum()) - total) / abs(total)
+    ok = rel <= 1e-4 and rel_sum <= 1e-4 and bool(torch.isfinite(ll_a).all())
+    say(f"[stacked] log_likelihood_per_series {what}: auto {ms_a:.2f} ms, "
+        f"torch {ms_t:.2f} ms; per-series rel diff {rel:.3e} <= 1e-4, sum "
+        f"vs log_likelihood_stacked {rel_sum:.3e} <= 1e-4 "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("log_likelihood_per_series disagrees")
+    for label, call in (
+            ("insample_posterior_stacked",
+             lambda b: leg.insample_posterior_stacked(p, ts, xs, ids,
+                                                      backend=b)),
+            (f"make_predictions_batch ({BATCH_TARGETS} targets a series)",
+             lambda b: leg.make_predictions_batch(p, ts_b, xs_b, tg_b,
+                                                  backend=b))):
+        with torch.no_grad():
+            ms_a, got = host_ms(lambda: call("auto"), reps=1)
+            ms_t, ref = one_call_ms(lambda: call("torch"))
+        compare(f"{label} {what}", got, ref, 0.0, post_bar,
+                atol_of_scale=True)
+        say(f"[stacked] {label} {what}: auto {ms_a:.2f} ms, torch "
+            f"{ms_t:.2f} ms (host clock); agree within {post_bar:g} of "
+            "each output's scale")
+        del got, ref
+
+    # the Kalman twin of the stacked loss at 2^17 points in all
+    k = (1 << 17) // BATCH_LEN
+    ts_k, xs_k, ids_k = stack(leg, parts[:k])
+    tn0 = tn_watch(expm_cuda)
+    value_and_grads_agree(
+        "stacked", f"nll_loss_kalman_stacked, {k} series, N "
+        f"{ts_k.shape[0]}", lambda b: loop.nll_loss_kalman_stacked(
+            p, ts_k, xs_k, ids_k, backend=b), p, grad_bar)
+    check_tn_path("stacked", "nll_loss_kalman_stacked (auto, then torch)",
+                  expm_cuda, tn0, ts_k.shape[0])
+    say(f"[stacked] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -3063,8 +3456,7 @@ def main():
         terms far larger than themselves).  ``record=False`` checks
         without adding a row to the kernels line (another block size of
         a kernel that has its row), printed under ``phase``; ``reps`` timed
-        runs of the kernel, and up to three of the twin (one for a check
-        without a row)."""
+        runs of the kernel, and one of the twin."""
         kw = kw or {}
         def outputs(fn, *a):
             out = fn(*a, **kw)
@@ -3087,12 +3479,10 @@ def main():
                         f"{e_kern:.3e}, float32 twin {e_twin:.3e}")
             err = compare(key, got, ref, rtol, atol, atol_of_scale, atols)
             ms = cuda_ms(lambda: kernel(*args, **kw), reps)
-            # the twins take 0.03-5 s a call: three runs give their median
-            # for a kernel's row, one run (the comparison's warmed it up)
-            # for a check that adds no row
-            plain_ms = (cuda_ms(lambda: twin(*args, **kw), min(reps, 3))
-                        if record else
-                        cuda_ms(lambda: twin(*args, **kw), 1, warm=False))
+            # the twins take 0.03-5 s a call: one timed run (the
+            # comparison's warmed it up), a kernel's row too (a median of
+            # three runs would cost ~45 s of the time limit)
+            plain_ms = cuda_ms(lambda: twin(*args, **kw), 1, warm=False)
         # an emission kernel's generator is its first argument
         b_ms, b_by = bound(key, args, got,
                            g if gaps_of is None else args[0], gaps_of)
@@ -3407,11 +3797,12 @@ def main():
         fail("forward_sweep_solveinv: not launched in the profiled step, or "
              "a launch did not take the split design")
     _, by_fwd = profiled(lambda: loop.nll_loss(p_train, ts, xs))
+    train_dev_ms = None  # the LEG step's device ms, for [stacked]
     if not by_kernel:
         say("[train] profiled step: the profiler saw no device events; "
             "device ops and busy share not measured")
     else:
-        dev_ms = sum(ms for ms, _ in by_kernel.values())
+        dev_ms = train_dev_ms = sum(ms for ms, _ in by_kernel.values())
         fwd_ms = sum(ms for ms, _ in by_fwd.values())
         n_ops = sum(n for _, n in by_kernel.values())
         med = statistics.median(step_ms[1:])
@@ -3667,6 +4058,20 @@ def main():
     for key, (ms, n) in top_ops(by_kernel):
         say(f"[posterior]   {key[:80]}: {ms:.3f} ms, {n} calls")
     elim_profile("posterior", by_kernel)
+    del post_cases, pred_cases
+    torch.cuda.empty_cache()
+
+    # ---- 7b. the smoother: float32 method="auto" posteriors ---------------
+    clock("smoother")
+    run_smoother_phase(dev, leg, kalman, expm_cuda, params, post_bar)
+    torch.cuda.empty_cache()
+
+    # ---- 7c. stacked series: kernels 1-11 under a series mask -------------
+    clock("stacked")
+    run_stacked_phase(dev, leg, loop, pt, expm_cuda, sweep_cuda, params,
+                      rows, captured, capture, check_kernel, grad_bar,
+                      post_bar, train_dev_ms)
+    torch.cuda.empty_cache()
 
     # ---- 8. celerite: nblocks 8 (rank 16), the bench grid ------------------
     clock("celerite")

@@ -1,10 +1,11 @@
-"""Kalman filtering for the LEG <-> SSM bridge (PyTorch): the filter
-losses the float32 training default picks.
+"""Kalman filtering and RTS smoothing for the LEG <-> SSM bridge
+(PyTorch): the filter losses and the posterior route that the float32
+defaults pick.
 
 Counterpart of ``cyclic_gps_tpu/baselines/kalman.py`` (its SSM bridge,
-sequential and parallel filters, blocked filter and steady-state check;
-the smoothers are ROADMAP.md Queue 1 item 3b).  The LEG model on a grid
-is exactly a discrete-time linear-Gaussian SSM:
+sequential and parallel filters and smoothers, the blocked filter and
+smoother, sampling and the steady-state filter).  The LEG model on a
+grid is exactly a discrete-time linear-Gaussian SSM:
 
     z_{k+1} = A z_k + w_k,   A = expm(-0.5 dt G),  Cov(w) = Q = I - A A^T
     x_k     = H z_k + e_k,   H = B,                Cov(e) = R = Lambda Lambda^T
@@ -22,6 +23,12 @@ is exactly a discrete-time linear-Gaussian SSM:
   in blocks of `SMOOTHER_BLOCK` steps composed through the exact filtered
   (m, P) carry, each block under ``torch.utils.checkpoint`` (JAX:
   ``jax.checkpoint``), so value and gradient run in O(block) memory.
+* `smooth_sequential`, `smooth_parallel(_full)` and
+  `smooth_parallel_full_blocked`: the RTS smoother, one step at a time
+  (the tests' oracle), as a reverse associative scan over the filtered
+  moments, and in blocks composed in reverse through the smoothed carry.
+* `log_likelihood_steady`: on a uniform grid, the exact filter for t0
+  steps and then the constant-gain tail as dense products.
 
 Per-step transition matrices (A, Q stacked [T, r, r]) let irregular grids
 work; `leg_to_ssm` builds them from LEG parameters, where on the card at
@@ -155,6 +162,24 @@ def log_likelihood_sequential(ssm: SSM, xs: Tensor) -> Tensor:
     return filter_sequential(ssm, xs)[2]
 
 
+@leg._highest_precision
+def smooth_sequential(ssm: SSM, xs: Tensor) -> Tuple[Tensor, Tensor]:
+    """RTS smoother, one step at a time: (smoothed means [T, r], covs
+    [T, r, r]).  Smoothing step k uses the transition into k+1."""
+    ms, ps, _ = filter_sequential(ssm, xs)
+    m_s, p_s = ms[-1], ps[-1]
+    out_m, out_p = [m_s], [p_s]
+    for k in range(xs.shape[0] - 2, -1, -1):
+        m, p, a, q = ms[k], ps[k], ssm.a[k + 1], ssm.q[k + 1]
+        pp = a @ p @ a.T + q  # predicted covariance into k+1
+        gain = torch.linalg.solve(pp.T, (p @ a.T).T).T
+        m_s = m + gain @ (m_s - a @ m)
+        p_s = p + gain @ (p_s - pp) @ gain.T
+        out_m.append(m_s)
+        out_p.append(p_s)
+    return torch.stack(out_m[::-1]), torch.stack(out_p[::-1])
+
+
 # ---------------------------------------------------------------------------
 # Parallel (associative-scan) filtering.
 # ---------------------------------------------------------------------------
@@ -168,8 +193,8 @@ def _interleave(a: Tensor, b: Tensor) -> Tensor:
     return torch.cat([sb.interleave(a[..., :-1], b), a[..., -1:]], dim=-1)
 
 
-def associative_scan(fn: Callable, elems: Tuple[Tensor, ...]
-                     ) -> Tuple[Tensor, ...]:
+def associative_scan(fn: Callable, elems: Tuple[Tensor, ...],
+                     reverse: bool = False) -> Tuple[Tensor, ...]:
     """Inclusive scan of ``elems`` (a tuple of tensors, scanned along
     their last axis) under the associative ``fn(a, b)``: entry k is
     a_0 . a_1 . ... . a_k.
@@ -179,7 +204,14 @@ def associative_scan(fn: Callable, elems: Tuple[Tensor, ...]
     odd entries), then combine each odd entry with the next even input
     (the even entries), and interleave.  Each entry is therefore grouped
     as JAX groups it, so float32 results match the JAX package's up to the
-    rounding of ``fn`` itself."""
+    rounding of ``fn`` itself.  ``reverse=True`` is JAX's reverse scan:
+    every input flipped along the axis, the same tree with ``fn``
+    unchanged, the outputs flipped back (so ``fn`` receives (accumulated
+    suffix, current))."""
+    if reverse:
+        out = associative_scan(fn, tuple(torch.flip(e, (-1,))
+                                         for e in elems))
+        return tuple(torch.flip(e, (-1,)) for e in out)
     n = elems[0].shape[-1]
     if n < 2:
         return tuple(elems)
@@ -305,6 +337,73 @@ def filter_parallel(ssm: SSM, xs: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     return sb.vec_from_em(ms), sb.from_em(ps), ll
 
 
+def _smoother_combine_em(ea, eb):
+    """Composition for the reverse suffix scan (element-major).  With
+    ``reverse=True`` the scan hands over (accumulated suffix, current),
+    and the result is the current element composed with the suffix:
+    m_s(i) = E_i m_s(i+1) + g_i applied outermost."""
+    e_a, g_a, l_a = ea  # g carried as [r, 1, T]
+    e_b, g_b, l_b = eb
+    e = sb.matmul(e_b, e_a)
+    g = sb.matmul(e_b, g_a) + g_b
+    ell = sb.matmul(sb.matmul(e_b, l_a), e_b, tb=True) + l_b
+    return e, g, ell
+
+
+def _smoother_elements(ms, ps, a, q):
+    """The smoothing elements from the filtered moments, element-major
+    (ms [r, T], ps, a, q [r, r, T]; a and q the transitions INTO each
+    step).  Returns (gain, e, g, ell): gain_k = P_k A_{k+1}^T
+    (A_{k+1} P_k A_{k+1}^T + Q_{k+1})^{-1}, and at the last step e = 0,
+    g = m, ell = P (it has no successor)."""
+    t = ms.shape[-1]
+    last = (torch.arange(t, device=ms.device) == t - 1).to(ms.dtype)
+    not_last = (1.0 - last)[None, None]
+    a_n = torch.cat([a[..., 1:], a[..., -1:]], dim=-1)
+    q_n = torch.cat([q[..., 1:], q[..., -1:]], dim=-1)
+    pp = sb.matmul(sb.matmul(a_n, ps), a_n, tb=True) + q_n
+    gain = sb.transpose(_solve_spd(pp, sb.matmul(a_n, ps)))  # p a_n^T pp^-1
+    e = not_last * gain
+    g = ms - not_last[0] * sb.matvec(gain, sb.matvec(a_n, ms))
+    ell = ps - not_last * sb.matmul(sb.matmul(gain, pp), gain, tb=True)
+    return gain, e, g, ell
+
+
+def _smooth_flat(ssm: SSM, xs: Tensor):
+    """(smoothed means [r, T], covs [r, r, T], gains [r, r, T]): the
+    filter, then one reverse associative scan over the smoothing
+    elements."""
+    ms, ps, _ = filter_parallel(ssm, xs)
+    gain, e, g, ell = _smoother_elements(
+        sb.vec_to_em(ms), sb.to_em(ps), sb.to_em(ssm.a), sb.to_em(ssm.q))
+    _, g_s, ell_s = associative_scan(_smoother_combine_em,
+                                     (e, g[:, None, :], ell), reverse=True)
+    return g_s[:, 0, :], ell_s, gain
+
+
+@leg._highest_precision
+def smooth_parallel(ssm: SSM, xs: Tensor) -> Tuple[Tensor, Tensor]:
+    """O(log T)-depth RTS smoother: (smoothed means [T, r], covs
+    [T, r, r]), by a reverse associative scan over the filtered moments
+    (element-major internals, as `filter_parallel`)."""
+    means, covs, _ = _smooth_flat(ssm, xs)
+    return sb.vec_from_em(means), sb.from_em(covs)
+
+
+@leg._highest_precision
+def smooth_parallel_full(ssm: SSM, xs: Tensor
+                         ) -> Tuple[Tensor, Tensor, Tensor]:
+    """`smooth_parallel` plus the lag-1 cross-covariances
+    Cov(z_{k+1}, z_k | x) = P^s_{k+1} G_k^T (G_k the smoother gain):
+    (means [T, r], covs [T, r, r], cross [T-1, r, r]), everything the LEG
+    in-sample posterior needs.  Robust at float32 (innovation-form
+    recursions), where the precision form's selected inversion is not
+    for very smooth processes."""
+    means, covs, gain = _smooth_flat(ssm, xs)
+    cross = sb.matmul(covs[..., 1:], gain[..., :-1], tb=True)
+    return sb.vec_from_em(means), sb.from_em(covs), sb.from_em(cross)
+
+
 # ---------------------------------------------------------------------------
 # Blocked (memory-bounded) parallel filtering: the associative-scan
 # internals hold ~10 [r, r, T] work arrays.  Blocks run the parallel scan
@@ -416,8 +515,127 @@ def log_likelihood_blocked(ssm: SSM, xs: Tensor,
     return ll
 
 
+@leg._highest_precision
+def log_likelihood_rows_blocked(ssm: SSM, xs: Tensor,
+                                block: int = 1 << 17) -> Tensor:
+    """The per-step log-likelihood terms [T] (one-step-ahead predictive
+    log-densities), in O(block) memory like `log_likelihood_blocked`
+    (their sum is its scalar).  On a boundary-masked SSM
+    (`leg_to_ssm(gap_mask=...)`, stacked series) segment sums of the rows
+    by series id are each series' exact filter log-likelihood."""
+    t = xs.shape[0]
+    block = min(block, 1 << max(t - 1, 1).bit_length())  # no giant pad
+    rank = ssm.h.shape[1]
+    a_b, q_b, y_b, v_b, h, r_em, nb = _blocks(ssm, xs, block)
+
+    def body(m_in, p_in, a_k, q_k, y_k, v_k):
+        _, _, _, ll_t, m_out, p_out = _filter_block_em(
+            a_k, q_k, h, r_em, y_k, m_in, p_in, v_k)
+        return m_out, p_out, ll_t
+
+    m = xs.new_zeros((rank,))
+    p = torch.eye(rank, dtype=xs.dtype, device=xs.device)
+    rows = []
+    for k in range(nb):
+        m, p, ll_t = checkpoint(body, m, p, a_b[k], q_b[k], y_b[k], v_b[k],
+                                use_reentrant=False)
+        rows.append(ll_t)
+    return torch.cat(rows)[:t]
+
+
+@leg._highest_precision
+def smooth_parallel_full_blocked(ssm: SSM, xs: Tensor, block: int = 1 << 17
+                                 ) -> Tuple[Tensor, Tensor, Tensor]:
+    """`smooth_parallel_full` with O(block) scan memory: the blocked
+    filter forward, then the blocks in reverse order, each a reverse
+    associative scan, composed through the smoothed (m, P) of the next
+    block's first state.  Padded steps (A = I, Q = 0) carry the last
+    real filtered state, and the links into them are the identity
+    (gain = I, g = 0, ell = 0), so the carry passes through them
+    unchanged.  Those links are set exactly, not solved for: in float32
+    the solved ones are the identity only to roundoff, which the scan
+    sums over the padded tail (up to block - 1 steps; ~1e-3 of scale
+    after 48,576 steps at rank 5).  The same outputs as the flat
+    smoother."""
+    t = xs.shape[0]
+    rank = ssm.h.shape[1]
+    ms_nat, ps_nat, _ = filter_parallel_blocked(ssm, xs, block=block)
+    a, q, _, _, nb, pad = _pad_ssm_blocks(ssm, xs, block)
+    ms, ps = sb.vec_to_em(ms_nat), sb.to_em(ps_nat)
+    if pad:
+        ms = torch.cat([ms, ms[:, -1:].expand(rank, pad)], dim=-1)
+        ps = torch.cat([ps, ps[:, :, -1:].expand(rank, rank, pad)], dim=-1)
+    gain, e, g, ell = _smoother_elements(ms, ps, sb.to_em(a), sb.to_em(q))
+    if pad:
+        # the links from the last real step into the padding, and through
+        # it up to the last padded step, which has no successor
+        idx = torch.arange(nb * block, device=ms.device)
+        link = (idx >= t - 1) & (idx < nb * block - 1)
+        eye = sb.eye_em(rank, ms)
+        gain = torch.where(link, eye, gain)
+        e = torch.where(link, eye, e)
+        g = torch.where(link, 0.0, g)
+        ell = torch.where(link, 0.0, ell)
+
+    m_c = xs.new_zeros((rank,))  # smoothed first state of the NEXT block
+    p_c = xs.new_zeros((rank, rank))
+    outs = []
+    for k in reversed(range(nb)):
+        sl = slice(k * block, (k + 1) * block)
+        es, gs, ells = associative_scan(
+            _smoother_combine_em, (e[..., sl], g[:, None, sl], ell[..., sl]),
+            reverse=True)
+        m_s = sb.matvec(es, m_c[:, None].expand(rank, block)) + gs[:, 0, :]
+        p_s = sb.matmul(sb.matmul(es, p_c[:, :, None]), es, tb=True) + ells
+        # cross_j = P^s_{j+1} gain_j^T; the block's last entry uses the
+        # carried first covariance of the next block
+        p_next = torch.cat([p_s[..., 1:], p_c[:, :, None]], dim=-1)
+        outs.append((m_s, p_s, sb.matmul(p_next, gain[..., sl], tb=True)))
+        m_c, p_c = m_s[:, 0], p_s[:, :, 0]
+    m_s, p_s, cross = (torch.cat(x, dim=-1) for x in zip(*outs[::-1]))
+    return (sb.vec_from_em(m_s[:, :t]), sb.from_em(p_s[..., :t]),
+            sb.from_em(cross[..., :t - 1]))
+
+
+def _sample_path(ssm: SSM, ws: Tensor) -> Tensor:
+    """The latent path z_k = A_k z_{k-1} + chol(Q_k) w_k from z = 0,
+    given the standard-normal draws ws [T, r]."""
+    rank = ssm.h.shape[1]
+    chol_q = torch.linalg.cholesky(
+        ssm.q + 1e-12 * torch.eye(rank, dtype=ssm.q.dtype,
+                                  device=ssm.q.device))
+    z = ws.new_zeros((rank,))
+    zs = []
+    for a, qc, w in zip(ssm.a, chol_q, ws):
+        z = a @ z + qc @ w
+        zs.append(z)
+    return torch.stack(zs)
+
+
+def sample_states(ssm: SSM, generator: torch.Generator) -> Tensor:
+    """A latent sample path [T, r]: start at 0, then predict and inject
+    process noise at every step.  ``generator`` takes the place of the
+    JAX key (the two give different numbers from one seed); its draws are
+    made on its own device and moved to the SSM's."""
+    ws = torch.randn((ssm.a.shape[0], ssm.h.shape[1]), generator=generator,
+                     dtype=ssm.a.dtype, device=generator.device)
+    return _sample_path(ssm, ws.to(ssm.a.device))
+
+
 # ---------------------------------------------------------------------------
-# The steady-state check behind fit's default loss on long uniform grids.
+# The steady-state filter behind fit's default loss on long uniform grids.
+#
+# On a uniform grid the Riccati recursion is data-independent and
+# converges geometrically; past the switch point t0 the filter has
+# constant (F, G, S):
+#
+#     m^-_{k+1} = F m^-_k + G y_k,     e_k = y_k - H m^-_k,
+#     ll_k = -1/2 (e_k^T S^{-1} e_k + log|2 pi S|),
+#
+# a constant-coefficient affine recurrence whose solution is a
+# convolution: the tail, cut into blocks of B steps, collapses into dense
+# matrix products with the powers F^j and the block-Toeplitz response
+# H F^{j-1-i} G, plus an [r, r] affine recurrence over the block carries.
 # ---------------------------------------------------------------------------
 
 
@@ -451,3 +669,113 @@ def steady_state_gap(a: Tensor, q: Tensor, h: Tensor, r_obs: Tensor,
         p_last = _riccati_step(a, q, h, r_obs, p)[0]
         return float(torch.max(torch.abs(p_last - p))
                      / torch.clamp(torch.max(torch.abs(p_last)), min=1e-30))
+
+
+def _powers(f: Tensor, n: int) -> Tensor:
+    """[n + 1, r, r]: f^j for j = 0..n, by doubling (log2 n products of
+    stacks)."""
+    pows = torch.eye(f.shape[0], dtype=f.dtype, device=f.device)[None]
+    cur = f
+    while pows.shape[0] < n + 1:
+        pows = torch.cat([pows, pows @ cur], dim=0)
+        cur = cur @ cur
+    return pows[:n + 1]
+
+
+def _affine_prefix(fB: Tensor, u: Tensor, m0: Tensor,
+                   b2: int = 128) -> Tensor:
+    """The start values m_c [C, r] of m_{c+1} = fB m_c + u_c, m_0 = m0.
+    Two levels: super-chunks of b2 steps through the powers of fB and one
+    block-Toeplitz product, then a short recurrence over the ~C / b2
+    super-chunk carries."""
+    c, rank = u.shape
+    c2 = -(-c // b2)
+    u_pad = torch.cat([u, u.new_zeros((c2 * b2 - c, rank))]).reshape(
+        c2, b2, rank)
+    pows = _powers(fB, b2)  # pows[j] = fB^j
+    # super-chunk carry inputs: u2_k = sum_i fB^{b2-1-i} u_{k,i}
+    u2 = torch.einsum("irs,kis->kr", torch.flip(pows[:b2], (0,)), u_pad)
+    m, starts = m0, []
+    for k in range(c2):  # the super-chunk starts
+        starts.append(m)
+        m = pows[b2] @ m + u2[k]
+    m2 = torch.stack(starts)
+    # within a super-chunk: m_{k,j} = fB^j m2_k + sum_{i<j} fB^{j-1-i} u_i
+    idx = torch.arange(b2, device=u.device)
+    ji = idx[:, None] - 1 - idx[None, :]
+    t4 = torch.where((ji >= 0)[:, :, None, None],
+                     pows[torch.clamp(ji, 0, b2 - 1)], 0.0)
+    m2mat = t4.permute(0, 2, 1, 3).reshape(b2 * rank, b2 * rank)
+    conv = (u_pad.reshape(c2, b2 * rank) @ m2mat.T).reshape(c2, b2, rank)
+    m_start = torch.einsum("jrs,ks->kjr", pows[:b2], m2) + conv
+    return m_start.reshape(c2 * b2, rank)[:c]
+
+
+@leg._highest_precision
+def log_likelihood_steady(a: Tensor, q: Tensor, h: Tensor, r_obs: Tensor,
+                          xs: Tensor, t0: int = 512,
+                          block: int = 128) -> Tensor:
+    """Marginal log-likelihood on a uniform grid via the steady-state
+    filter: the exact transient for the first ``t0`` steps, then the
+    constant-gain tail as dense products (chunked convolution).
+
+    a, q [r, r] the per-step transition and process noise, h [obs, r],
+    r_obs [obs, obs]; xs [T, obs] with T > t0.  Equal to
+    ``filter_parallel(ssm, xs)[2]`` once the Riccati recursion has
+    converged by t0 (`steady_state_gap`).  The transient runs the
+    associative-scan filter (`filter_parallel`, log-depth) on t0 steps
+    whose first transition is (A = 0, Q = I), so its first predictive
+    covariance is exactly the JAX function's P = I; the JAX package runs
+    t0 sequential Riccati steps there (the same moments)."""
+    t, obs = xs.shape
+    if t <= t0:
+        raise ValueError(f"the steady-state filter needs more than t0 = {t0}"
+                         f" steps, got {t}")
+    rank = a.shape[0]
+    dtype, device = a.dtype, a.device
+    eye = torch.eye(rank, dtype=dtype, device=device)
+
+    # ---- the transient: t0 filter steps, then the predicted moments at t0
+    a_t = torch.cat([torch.zeros_like(a)[None],
+                     a[None].expand(t0 - 1, rank, rank)])
+    q_t = torch.cat([eye[None], q[None].expand(t0 - 1, rank, rank)])
+    ms, ps, ll = filter_parallel(SSM(a_t, q_t, h, r_obs), xs[:t0])
+    m_t0 = a @ ms[-1]
+    p_inf = a @ ps[-1] @ a.T + q
+    _, f_ss, g_ss, sl_ss, ld_ss = _riccati_step(a, q, h, r_obs, p_inf)
+
+    # ---- the steady-state tail as a chunked convolution
+    tp = t - t0
+    b = block
+    c = -(-tp // b)
+    y_tail = torch.cat([xs[t0:], xs.new_zeros((c * b - tp, obs))])
+    valid = (torch.arange(c * b, device=device) < tp).to(dtype)
+    yc_flat = y_tail.reshape(c, b * obs)
+    pows = _powers(f_ss, b)  # pows[j] = F^j
+    pow_g = pows[:b] @ g_ss  # [B, r, obs]: F^j G
+    hw = (h[None] @ pows[:b]).reshape(b * obs, rank)  # rows H F^j
+    # chunk carry u_c = sum_i F^{B-1-i} G y_i
+    u_mat = torch.flip(pow_g, (0,)).permute(1, 0, 2).reshape(rank, b * obs)
+    u = yc_flat @ u_mat.T  # [C, r]
+    # block-Toeplitz response through H: hM[j, i] = H F^{j-1-i} G, i < j
+    hg = h[None] @ pow_g  # [B, obs, obs]
+    idx = torch.arange(b, device=device)
+    ji = idx[:, None] - 1 - idx[None, :]
+    hm4 = torch.where((ji >= 0)[:, :, None, None],
+                      hg[torch.clamp(ji, 0, b - 1)], 0.0)
+    hM = hm4.permute(0, 2, 1, 3).reshape(b * obs, b * obs)
+    # chunk-start means: m_0 = m_t0, m_{c+1} = F^B m_c + u_c
+    m_start = _affine_prefix(pows[b], u, m_t0)
+    # innovations through H: e = y - (m_start hw^T + yc hM^T)
+    hm = m_start @ hw.T + yc_flat @ hM.T  # [C, B*obs]
+    e = (yc_flat - hm).reshape(c * b, obs)
+    # whitened innovations z = S^{-1/2} e through the [obs, obs] inverse of
+    # chol(S): one product (a triangular solve with T right-hand sides runs
+    # as many tiny batched solves on the card)
+    sl_inv = torch.linalg.solve_triangular(
+        sl_ss, torch.eye(obs, dtype=dtype, device=device), upper=False)
+    z = e @ sl_inv.T
+    quad = torch.sum(z * z, dim=1) * valid
+    ll_tail = -0.5 * (torch.sum(quad)
+                      + tp * (ld_ss + obs * math.log(2 * math.pi)))
+    return ll + ll_tail

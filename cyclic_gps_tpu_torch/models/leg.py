@@ -2,7 +2,8 @@
 the marginal likelihood and its gradient, the posterior and predictions.
 
 Counterpart of ``cyclic_gps_tpu/models/leg.py`` (the likelihood, the
-precision-route posterior, intercast and prior sampling):
+posterior on the precision and smoother routes, intercast, the stacked
+multi-series entries and prior sampling):
 
     z ~ PEG(N, R)           a stationary latent Markov process with unit
                             stationary covariance and generator
@@ -42,7 +43,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,6 +53,7 @@ from cyclic_gps_tpu_torch import resolve_device
 from cyclic_gps_tpu_torch.models.gaussians import (build_2x2_block,
                                                    build_3x3_block,
                                                    gaussian_stitch)
+from cyclic_gps_tpu_torch.ops import cyclic_reduction as cr
 from cyclic_gps_tpu_torch.ops import partitioned as pt
 from cyclic_gps_tpu_torch.ops import smallblock as sb
 from cyclic_gps_tpu_torch.ops.expm_cuda import (gap_mahal_sweep_cuda,
@@ -414,18 +416,29 @@ def _gap_terms_dense_streamed(g: Tensor, backend: str = "auto"):
 # ---------------------------------------------------------------------------
 
 
-def _chunk_gap_geometry(ts: Tensor, s: int, n: int, c: int, dtype):
+def _chunk_gap_geometry(ts: Tensor, s: int, n: int, c: int, dtype,
+                        gap_mask: Optional[Tensor] = None):
     """Chunk-major gap geometry: (diffs [s, C], gap_valid [s, C],
     is_real [s, C]), contiguous.  Natural index i = c*s + j lives at
     [j, c]; padded gaps are 1 (harmless), the last real gap is masked by
     gap_valid.  Gaps are formed at the precision of ``ts`` and cast to
-    ``dtype``."""
+    ``dtype``.
+
+    ``gap_mask`` (natural [n], 1 where gap i between points i and i+1 is
+    real): more invalid gaps.  The stacked multi-series entries mask the
+    series-boundary gaps here, which zeroes their off-diagonal coupling
+    and their d_left / d_right precision terms, so K is exactly
+    block-diagonal over the series (each block that series' own K)."""
     m = c * s
     ts_pad = torch.cat([ts, ts.new_zeros((m - n,))]).reshape(c, s).T
     idx = (torch.arange(s, device=ts.device)[:, None]
            + s * torch.arange(c, device=ts.device)[None, :])  # [s, C]
     gap_valid = (idx < n - 1).to(dtype)
     is_real = (idx < n).to(dtype)
+    if gap_mask is not None:
+        gm = torch.cat([gap_mask.to(dtype),
+                        gap_valid.new_zeros((m - n,))]).reshape(c, s).T
+        gap_valid = gap_valid * gm
     # next timestamp in natural order: [j+1, c], wrapping to [0, c+1]
     next_row = torch.cat([ts_pad[:1, 1:], ts_pad.new_zeros((1, 1))], dim=1)
     ts_next = torch.cat([ts_pad[1:], next_row], dim=0)
@@ -434,20 +447,22 @@ def _chunk_gap_geometry(ts: Tensor, s: int, n: int, c: int, dtype):
 
 
 def _k_gap_parts_plain(g, boost, ts, s, regular, rank, dtype, backend,
-                       gap_fn=None):
+                       gap_fn=None, gap_mask=None):
     """(k_cm [s, r, r, C], off_cm, lq_cm [s, C]): the gap-dependent part
     of the chunk-major K system, assembled with tensor ops from the gap
     emission ``gap_fn`` (diffs [M] -> (off1, d_left, d_right [r, r, M],
     log|Q1| [M]), as `_gap_terms_dense`), by default the dense emission of
     the generator ``g``.  lq_cm is the valid-masked per-gap log|Q1| (the
     prior log-determinant is -sum(lq_cm)).  The dense irregular emission
-    streams in slabs (`_gap_terms_dense_streamed`)."""
+    streams in slabs (`_gap_terms_dense_streamed`).  ``gap_mask``: see
+    `_chunk_gap_geometry`."""
     if gap_fn is None:
         gap_fn = (_gap_terms_dense(g, backend) if regular
                   else _gap_terms_dense_streamed(g, backend))
     n = ts.shape[0]
     c = -(-n // s)
-    diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c, dtype)
+    diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c, dtype,
+                                                    gap_mask)
 
     if regular:
         dt = (ts[1] - ts[0]).to(dtype)
@@ -501,7 +516,9 @@ class _KGapParts(torch.autograd.Function):
     """Kernel version of `_k_gap_parts_plain` (irregular grid, dense G,
     float32): the (e, Q) kernel for the chunk-crossing row, then ONE
     K-system kernel pass emits (k_cm, off_cm, per-gap log|Q1|)
-    chunk-major at the true chunk count.  CPU tensors run the kernels'
+    chunk-major at the true chunk count.  ``gap_mask`` (natural [n] or
+    None; the stacked series' boundaries) rides the kernels' gap_valid
+    input and the chunk-crossing row's.  CPU tensors run the kernels'
     plain twins.
 
     Backward (the JAX ``_k_gap_parts_pallas_bwd``): the K-row cotangents
@@ -511,20 +528,20 @@ class _KGapParts(torch.autograd.Function):
     pulled through the gap geometry to the timestamps."""
 
     @staticmethod
-    def forward(ctx, g, boost, ts, s):
+    def forward(ctx, g, boost, ts, gap_mask, s):
         n = ts.shape[0]
         c = -(-n // s)
         diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c,
-                                                        g.dtype)
+                                                        g.dtype, gap_mask)
         wrap = _wrap_row(g, diffs, gap_valid, s)
         ctx.s = s
-        ctx.save_for_backward(g, ts, diffs, gap_valid, is_real)
+        ctx.save_for_backward(g, ts, gap_mask, diffs, gap_valid, is_real)
         return k_system_cuda(g.contiguous(), boost.contiguous(), diffs,
                              gap_valid, is_real, wrap)
 
     @staticmethod
     def backward(ctx, gk, goff, glq):
-        g, ts, diffs, gap_valid, is_real = ctx.saved_tensors
+        g, ts, gap_mask, diffs, gap_valid, is_real = ctx.saved_tensors
         s = ctx.s
         rank = g.shape[0]
         c = diffs.shape[-1]
@@ -540,9 +557,11 @@ class _KGapParts(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             with torch.enable_grad():
                 t = ts.detach().requires_grad_()
-                geo = _chunk_gap_geometry(t, s, ts.shape[0], c, g.dtype)[0]
+                geo = _chunk_gap_geometry(t, s, ts.shape[0], c, g.dtype,
+                                          gap_mask)[0]
                 (c_ts,) = torch.autograd.grad(geo, t, c_dt)
-        return c_g, c_boost, c_ts, None
+        # the 0/1 gap mask is a set-membership constant: no cotangent
+        return c_g, c_boost, c_ts, None, None
 
 
 class _GapMahalFused(torch.autograd.Function):
@@ -550,18 +569,19 @@ class _GapMahalFused(torch.autograd.Function):
     widths (irregular grid, dense G, float32): the fused gaps -> sweep
     kernel builds and eliminates every chunk interior row without
     storing K; the reduced boundary system finishes on the partitioned
-    ladder.  ``v_cm`` [s, r, C] at the true chunk count C = ceil(n / s).
-    CPU tensors run the kernels' plain twins.
+    ladder.  ``v_cm`` [s, r, C] at the true chunk count C = ceil(n / s);
+    ``gap_mask`` as for `_KGapParts`.  CPU tensors run the kernels' plain
+    twins.
 
     Backward (the JAX ``_gap_mahal_fused_bwd``): replay the two-kernel
     route, whose custom backwards are analytic, by autograd."""
 
     @staticmethod
-    def forward(ctx, g, boost, ts, v_cm, s):
+    def forward(ctx, g, boost, ts, gap_mask, v_cm, s):
         n = ts.shape[0]
         c = -(-n // s)
         diffs, gap_valid, is_real = _chunk_gap_geometry(ts, s, n, c,
-                                                        g.dtype)
+                                                        g.dtype, gap_mask)
         wrap = _wrap_row(g, diffs, gap_valid, s)
         (acc00, accy0, w0l, wl, dl, invdl, mh, ld, lq_sum, k0,
          olast) = gap_mahal_sweep_cuda(g.contiguous(), boost.contiguous(),
@@ -579,25 +599,29 @@ class _GapMahalFused(torch.autograd.Function):
             pt.resolve_backend("auto", v_cm),
         )
         ctx.s = s
-        ctx.save_for_backward(g, boost, ts, v_cm)
+        ctx.save_for_backward(g, boost, ts, v_cm, gap_mask)
         return mh + red_mh, 2.0 * ld + red_ld, -lq_sum
 
     @staticmethod
     def backward(ctx, *cots):
-        needs = ctx.needs_input_grad[:4]
+        needs = (ctx.needs_input_grad[:3]
+                 + ctx.needs_input_grad[4:5])  # g, boost, ts, v_cm
+        *saved, gap_mask = ctx.saved_tensors
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(need)
-                   for t, need in zip(ctx.saved_tensors, needs)]
+                   for t, need in zip(saved, needs)]
             g, boost, ts, v_cm = ins
-            k_cm, off_cm, lq_cm = _KGapParts.apply(g, boost, ts, ctx.s)
+            k_cm, off_cm, lq_cm = _KGapParts.apply(g, boost, ts, gap_mask,
+                                                   ctx.s)
             mh, ld = pt.mahal_and_logdet_cm(k_cm, off_cm, v_cm,
                                             backend="auto")
             wanted = [t for t in ins if t.requires_grad]
             grads = iter(torch.autograd.grad(
                 (mh, ld, -torch.sum(lq_cm)), wanted, cots,
                 allow_unused=True))
-        return tuple(next(grads) if need else None for need in needs) + (
-            None,)
+        g_g, g_boost, g_ts, g_v = (next(grads) if need else None
+                                   for need in needs)
+        return g_g, g_boost, g_ts, None, g_v, None
 
 
 def _v_chunk_major(params, xs, llt, s: int, c: int, dtype):
@@ -623,7 +647,8 @@ def _use_gap_fused(params, regular: bool, backend: str, n: int,
 
 def _k_system_chunked(params, ts: Tensor, xs: Tensor, s: int,
                       regular: bool, backend: str = "auto", gap_fn=None,
-                      return_sig_rows: bool = False):
+                      return_sig_rows: bool = False,
+                      gap_mask: Optional[Tensor] = None):
     """Posterior-precision system K = Sigma^{-1} + I (x) B^T LLT^{-1} B
     emitted DIRECTLY in the partitioned engine's chunk-major layout
     ([s, r, r, C] / [s, r, C]), plus log|Sigma^{-1}|.
@@ -638,9 +663,13 @@ def _k_system_chunked(params, ts: Tensor, xs: Tensor, s: int,
     "torch" is plain end to end.)  ``gap_fn`` overrides the gap emission
     (see `_k_gap_parts_plain`; the celerite closed forms): K is then
     assembled with tensor ops on every backend, and ``params`` needs only
-    its ``b`` and ``lambda_params``.  ``return_sig_rows=True`` appends the
+    its ``b`` and ``lambda_params``.  ``gap_mask`` (natural [n]) marks
+    more invalid gaps (the stacked series' boundaries, see
+    `_chunk_gap_geometry`).  ``return_sig_rows=True`` appends the
     valid-masked per-gap log|Q1| [s, C], whose sum is -log|Sigma^{-1}|
-    (the per-row pairing of `log_likelihood_residual`).
+    (the per-row pairing of `log_likelihood_residual`, the per-series
+    sums of `log_likelihood_per_series`).  ``gap_mask`` (natural [n])
+    marks more invalid gaps, on every route (`_chunk_gap_geometry`).
     """
     rank = params.rank
     llt = lambda_lambda_t(params)
@@ -651,12 +680,12 @@ def _k_system_chunked(params, ts: Tensor, xs: Tensor, s: int,
     if (gap_fn is None and not regular and dtype == torch.float32
             and pt.resolve_backend(backend, llt) == "cuda"):
         k_cm, off_cm, lq_cm = _KGapParts.apply(g_matrix(params), boost, ts,
-                                               s)
+                                               gap_mask, s)
     else:
         g = g_matrix(params) if gap_fn is None else None
         k_cm, off_cm, lq_cm = _k_gap_parts_plain(g, boost, ts, s, regular,
                                                  rank, dtype, backend,
-                                                 gap_fn)
+                                                 gap_fn, gap_mask)
     sig_logdet = -torch.sum(lq_cm)
     v_cm = _v_chunk_major(params, xs, llt, s, k_cm.shape[-1], dtype)
     if return_sig_rows:
@@ -713,7 +742,7 @@ def log_likelihood(
         boost = params.b.T @ torch.linalg.solve(llt, params.b)
         v_cm = _v_chunk_major(params, xs, llt, s, c, llt.dtype)
         k_mahal, k_logdet, sig_inv_logdet = _GapMahalFused.apply(
-            g, boost, ts, v_cm, s
+            g, boost, ts, None, v_cm, s
         )
     elif num_obs >= max(pt._TERMINAL, 2 * s):
         # large-N path: emit K directly in the partitioned engine's
@@ -823,9 +852,237 @@ def _residual_quad_streamed(g: Tensor, diffs: Tensor, z_em: Tensor,
             for i in range(0, m, slab)]
     return torch.sum(torch.stack(sums))
 
+# ---------------------------------------------------------------------------
+# Stacked multi-series entries.  B independent series that share one set
+# of parameters are concatenated into one block-tridiagonal system whose
+# series-boundary gaps are masked (gap_valid = 0): the off-diagonal
+# coupling and the d_left / d_right precision terms of those gaps vanish,
+# so K is exactly block-diagonal over the series, and one pass of the
+# engine (the kernels on the card) serves the whole batch.  Segment sums
+# run on ``index_add_``.
+# ---------------------------------------------------------------------------
+
+
+def stack_series(series) -> Tuple[Tensor, Tensor, Tensor]:
+    """A list of ``(ts_b, xs_b)`` pairs (ragged lengths, no padding) ->
+    the stacked ``(ts, xs, series_ids)`` the stacked entries take (ids
+    int64, on the device of the first series)."""
+    ts = torch.cat([t for t, _ in series])
+    xs = torch.cat([x for _, x in series])
+    ids = torch.cat([torch.full((t.shape[0],), i, dtype=torch.int64,
+                                device=ts.device)
+                     for i, (t, _) in enumerate(series)])
+    return ts, xs, ids
+
+
+def _series_gap_mask(series_ids: Tensor) -> Tensor:
+    """Natural [n] gap mask from sorted series ids: gap i (between points
+    i and i+1) is within a series iff their ids match; the trailing slot
+    (no gap) is False."""
+    same = series_ids[1:] == series_ids[:-1]
+    return torch.cat([same, same.new_zeros((1,))])
+
+
+def _segment_sum(values: Tensor, series_ids: Tensor,
+                 num_series: int) -> Tensor:
+    """[num_series] sums of ``values`` [n] by series id."""
+    return values.new_zeros((num_series,)).index_add(0, series_ids, values)
+
+
+def _cm_to_natural(k_cm, o_cm, v_cm, rank):
+    """A chunk-major K system in natural [m, r, r] / [m, r] order
+    (m = s C; the identity / zero padding rows are exact for every solver
+    entry)."""
+    m = k_cm.shape[0] * k_cm.shape[-1]
+    diag = k_cm.permute(3, 0, 1, 2).reshape(m, rank, rank)
+    off = o_cm.permute(3, 0, 1, 2).reshape(m, rank, rank)[:m - 1]
+    v = v_cm.permute(2, 0, 1).reshape(m, rank)
+    return diag, off, v
+
+
+def _mahal_logdet_cm_any_n(k_cm, o_cm, v_cm, n, rank, backend):
+    """(mahal, logdet) of a chunk-major K system at any total n: the
+    partitioned entry from the chunked size on, else the system in
+    natural order on cyclic reduction."""
+    s = k_cm.shape[0]
+    if n >= max(pt._TERMINAL, 2 * s):
+        return pt.mahal_and_logdet_cm(k_cm, o_cm, v_cm, backend=backend)
+    diag, off, v = _cm_to_natural(k_cm, o_cm, v_cm, rank)
+    return cr.mahal_and_logdet(diag, off, v)
+
+
+def _stacked_system(params, ts, xs, series_ids, regular, backend,
+                    return_sig_rows=False):
+    """`_k_system_chunked` with the series-boundary mask."""
+    s = pt.default_chunk_len(ts.shape[0])
+    return _k_system_chunked(params, ts, xs, s, regular, backend,
+                             return_sig_rows=return_sig_rows,
+                             gap_mask=_series_gap_mask(series_ids))
+
+
+@_highest_precision
+def log_likelihood_stacked(params: LEGParams, ts: Tensor, xs: Tensor,
+                           series_ids: Tensor, regular: bool = False,
+                           backend: str = "auto") -> Tensor:
+    """Sum of the marginal log-likelihoods of B independent series
+    stacked in one [N] array, in one pass of the engine.
+
+    ``series_ids`` [N]: the sorted series label of each point (only
+    adjacent equality is used).  ``ts`` increases within each series and
+    may restart anywhere at a boundary (boundary gaps are masked out
+    exactly).  ``regular=True`` asserts that every series has the gap
+    ts[1] - ts[0] (offsets may differ).  Equal to
+    sum_b log_likelihood(params, ts_b, xs_b).  Routes as
+    `log_likelihood`: on the card at float32 an irregular grid runs the
+    fused gaps -> sweep kernel with the mask in its gap_valid input."""
+    llt = lambda_lambda_t(params)
+    num_obs = ts.shape[0]
+    x_llt_inv = torch.linalg.solve(llt, xs.T).T
+    llt_mahal = torch.sum(x_llt_inv * xs)
+    llt_logdet = num_obs * torch.linalg.slogdet(2.0 * math.pi * llt)[1]
+
+    s = pt.default_chunk_len(num_obs)
+    if _use_gap_fused(params, regular, backend, num_obs, s):
+        c = -(-num_obs // s)
+        boost = params.b.T @ torch.linalg.solve(llt, params.b)
+        v_cm = _v_chunk_major(params, xs, llt, s, c, llt.dtype)
+        k_mahal, k_logdet, sig_inv_logdet = _GapMahalFused.apply(
+            g_matrix(params), boost, ts, _series_gap_mask(series_ids), v_cm,
+            s)
+    else:
+        k_cm, o_cm, v_cm, sig_inv_logdet = _stacked_system(
+            params, ts, xs, series_ids, regular, backend)
+        k_mahal, k_logdet = _mahal_logdet_cm_any_n(
+            k_cm, o_cm, v_cm, num_obs, params.rank, backend)
+    mahal = llt_mahal - k_mahal
+    logdet = llt_logdet + k_logdet - sig_inv_logdet
+    return -0.5 * (mahal + logdet)
+
+
+def _batch_ids(b: int, nb: int, device) -> Tensor:
+    """Consecutive series ids of an equal-length batch, flattened."""
+    return torch.arange(b, device=device).repeat_interleave(nb)
+
+
+def log_likelihood_batch(params: LEGParams, ts_batch: Tensor,
+                         xs_batch: Tensor, regular: bool = False,
+                         backend: str = "auto") -> Tensor:
+    """`log_likelihood_stacked` over an equal-length batch (ts [B, n],
+    xs [B, n, obs]): flattened, with consecutive ids."""
+    b, nb = ts_batch.shape
+    return log_likelihood_stacked(
+        params, ts_batch.reshape(-1), xs_batch.reshape(b * nb, -1),
+        _batch_ids(b, nb, ts_batch.device), regular=regular,
+        backend=backend)
+
+
+@_highest_precision
+def posterior_mean_stacked(params: LEGParams, ts: Tensor, xs: Tensor,
+                           series_ids: Tensor, regular: bool = False,
+                           backend: str = "auto") -> Tensor:
+    """The posterior means of the stacked series' latents [N, r] (rows
+    line up with the inputs), by one solve of the block-diagonal K: the
+    precision route (at float32 the conditioning bound of
+    `_resolve_posterior_method` applies per series; short series keep
+    their gaps moderate).  ``backend`` selects the engine and the
+    emission."""
+    n = ts.shape[0]
+    k_cm, o_cm, v_cm, _ = _stacked_system(params, ts, xs, series_ids,
+                                          regular, backend)
+    if n < max(pt._TERMINAL, 2 * k_cm.shape[0]):
+        diag, off, v = _cm_to_natural(k_cm, o_cm, v_cm, params.rank)
+        return pt.solve(diag, off, v, backend=backend)[:n]
+    x_pad, _ = pt.solve_cm(k_cm, o_cm, v_cm, backend=backend)
+    return x_pad[:n]
+
+
+@_highest_precision
+def insample_posterior_stacked(params: LEGParams, ts: Tensor, xs: Tensor,
+                               series_ids: Tensor, regular: bool = False,
+                               backend: str = "auto"
+                               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Stacked-series `insample_posterior` on the precision route (one
+    solve and one selected inversion of the block-diagonal K): (mean
+    [N, r], cov_diag [N, r, r], cov_off [N-1, r, r]).  The cov_off rows
+    at series boundaries are exactly zero.  As `insample_posterior`,
+    call it under ``torch.no_grad()`` when the parameters require
+    grad."""
+    n = ts.shape[0]
+    k_cm, o_cm, v_cm, _ = _stacked_system(params, ts, xs, series_ids,
+                                          regular, backend)
+    if n < max(pt._TERMINAL, 2 * k_cm.shape[0]):
+        diag, off, v = _cm_to_natural(k_cm, o_cm, v_cm, params.rank)
+        mean = pt.solve(diag, off, v, backend=backend)
+        cov_diag, cov_off = pt.inverse_blocks(diag, off, backend=backend)
+        return mean[:n], cov_diag[:n], cov_off[:n - 1]
+    mean_pad, _ = pt.solve_cm(k_cm, o_cm, v_cm, backend=backend)
+    cov_diag_pad, cov_off_pad = pt.inverse_blocks_cm(k_cm, o_cm,
+                                                     backend=backend)
+    return mean_pad[:n], cov_diag_pad[:n], cov_off_pad[:n - 1]
+
+
+def _cm_rows_to_natural(rows_cm: Tensor, n: int) -> Tensor:
+    """[s, C] chunk-major per-row scalars -> natural [n] (row c*s + j
+    lives at [j, c]; padding rows dropped)."""
+    s, cw = rows_cm.shape
+    return rows_cm.T.reshape(cw * s)[:n]
+
+
+@_highest_precision
+def log_likelihood_per_series(params: LEGParams, ts: Tensor, xs: Tensor,
+                              series_ids: Tensor, num_series: int,
+                              regular: bool = False,
+                              backend: str = "auto") -> Tensor:
+    """The per-series marginal log-likelihoods [num_series] from one
+    stacked pass (`log_likelihood_stacked` gives only their sum).
+
+    ``series_ids`` sorted integers in [0, num_series); entry b equals
+    log_likelihood(params, ts_b, xs_b).  Every term decomposes over the
+    block-diagonal system: mahal_b = sum_{i in b} x_i.(LLT^{-1} x_i) -
+    v_i.(K^{-1} v)_i, logdet_b = n_b log|2 pi LLT| + log|K_b| -
+    log|Sigma_b^{-1}|, log|K_b| a segment sum of the per-row pivot
+    log-dets (`partitioned.solve_and_ld_rows_cm`: kernels 8 and 9 on the
+    card, one sweep for x and the rows) and log|Sigma_b^{-1}| one of the
+    per-gap log|Q1|.  Differentiable through the analytic adjoints (one
+    solve and one selected inversion)."""
+    rank = params.rank
+    llt = lambda_lambda_t(params)
+    n = ts.shape[0]
+    counts = _segment_sum(torch.ones_like(xs[:, 0]), series_ids, num_series)
+    x_llt_inv = torch.linalg.solve(llt, xs.T).T
+    llt_mahal_b = _segment_sum(torch.sum(x_llt_inv * xs, dim=1), series_ids,
+                               num_series)
+    llt_logdet_b = counts * torch.linalg.slogdet(2.0 * math.pi * llt)[1]
+
+    k_cm, o_cm, v_cm, _, lq_cm = _stacked_system(
+        params, ts, xs, series_ids, regular, backend, return_sig_rows=True)
+    # gap i lies between points i and i+1 of one series (masked gaps are
+    # exactly zero, so their attribution does not matter)
+    sig_logdet_b = -_segment_sum(_cm_rows_to_natural(lq_cm, n), series_ids,
+                                 num_series)
+    if n < max(pt._TERMINAL, 2 * k_cm.shape[0]):
+        diag, off, v = _cm_to_natural(k_cm, o_cm, v_cm, rank)
+        x = pt.solve(diag, off, v, backend=backend)[:n]
+        # the identity padding rows come last: the first n rows' pivots
+        # are those of the n-row system (sequential, differentiable)
+        ld_rows = pt.logdet_rows(diag[:n], off[:n - 1])
+        v_nat = v[:n]
+    else:
+        x_pad, rows_cm = pt.solve_and_ld_rows_cm(k_cm, o_cm, v_cm,
+                                                 backend=backend)
+        x = x_pad[:n]
+        ld_rows = _cm_rows_to_natural(rows_cm, n)
+        v_nat = v_cm.permute(2, 0, 1).reshape(-1, rank)[:n]
+    k_mahal_b = _segment_sum(torch.sum(v_nat * x, dim=1), series_ids,
+                             num_series)
+    k_logdet_b = _segment_sum(ld_rows, series_ids, num_series)
+    mahal_b = llt_mahal_b - k_mahal_b
+    logdet_b = llt_logdet_b + k_logdet_b - sig_logdet_b
+    return -0.5 * (mahal_b + logdet_b)
+
 
 # ---------------------------------------------------------------------------
-# The posterior and predictions (the precision route).
+# The posterior and predictions.
 # ---------------------------------------------------------------------------
 
 
@@ -865,27 +1122,36 @@ def _resolve_posterior_method(method: str, dtype) -> str:
     return method
 
 
-def _check_precision_route(params: LEGParams, method: str) -> None:
-    """Resolve ``method`` by the model's dtype (the JAX package reads the
-    timestamps' dtype; here float64 timestamps may drive a float32 model)
-    and refuse the smoother route, which is not ported yet."""
-    if _resolve_posterior_method(method, params.b.dtype) == "smoother":
-        raise NotImplementedError(
-            "the Kalman-smoother posterior route is not ported yet "
-            "(ROADMAP.md, Queue 1 item 3); float32 method='auto' resolves "
-            "to it: pass method='precision'")
+def _smoother(params: LEGParams, ts: Tensor, xs: Tensor, regular: bool,
+              backend: str, cross: bool):
+    """The smoother route: (means, covs), with the lag-1 cross-covariances
+    if ``cross``, by the parallel RTS smoother (on the card at float32
+    every gap's (A, Q) from the (e, Q) kernel); above
+    `kalman.SMOOTHER_BLOCK` points the blocked one, whose working memory
+    is one block's."""
+    from cyclic_gps_tpu_torch.baselines import kalman
+
+    ssm = kalman.leg_to_ssm(params, ts, regular=regular, backend=backend)
+    if ts.shape[0] > kalman.SMOOTHER_BLOCK:
+        return kalman.smooth_parallel_full_blocked(ssm, xs,
+                                                   kalman.SMOOTHER_BLOCK)
+    return (kalman.smooth_parallel_full if cross
+            else kalman.smooth_parallel)(ssm, xs)
 
 
 @_highest_precision
 def posterior_mean(params: LEGParams, ts: Tensor, xs: Tensor,
                    regular: bool = False, method: str = "auto",
                    backend: str = "auto") -> Tensor:
-    """Posterior mean of the latent z at the observation times [N, r], by
-    one solve of the posterior precision K emitted chunk-major.
-    ``method``: see `_resolve_posterior_method` ("smoother", and float32
-    "auto", raise until the smoother is ported).  ``backend`` selects the
-    engine and the emission only."""
-    _check_precision_route(params, method)
+    """Posterior mean of the latent z at the observation times [N, r].
+    ``method``: see `_resolve_posterior_method`, resolved by the model's
+    dtype (the JAX package reads the timestamps'; here float64
+    timestamps may drive a float32 model); "precision" is one solve of
+    the posterior precision K emitted chunk-major, "smoother" the
+    parallel RTS smoother (`_smoother`).  ``backend`` selects the engine
+    and the emission only."""
+    if _resolve_posterior_method(method, params.b.dtype) == "smoother":
+        return _smoother(params, ts, xs, regular, backend, cross=False)[0]
     n = ts.shape[0]
     s = pt.default_chunk_len(n)
     if n < max(pt._TERMINAL, 2 * s):
@@ -914,9 +1180,11 @@ def insample_posterior(params: LEGParams, ts: Tensor, xs: Tensor,
     kernel at float32 and both engine calls run their kernels at every
     ladder level.  The selected inversion's kernels have no backward:
     call this under ``torch.no_grad()`` when the parameters require
-    grad.  ``method``: see `posterior_mean`."""
-    _check_precision_route(params, method)
+    grad.  The smoother route (float32 "auto"): `_smoother` with the
+    lag-1 cross-covariances.  ``method``: see `posterior_mean`."""
     n = ts.shape[0]
+    if _resolve_posterior_method(method, params.b.dtype) == "smoother":
+        return _smoother(params, ts, xs, regular, backend, cross=True)
     s = pt.default_chunk_len(n)
     if n < max(pt._TERMINAL, 2 * s):
         k_diag, k_off = posterior_precision(params, ts, backend)
@@ -1026,12 +1294,31 @@ def intercast(params: LEGParams, ip_mean: Tensor, ip_cov_diag: Tensor,
     exponential batches run in one call: the (e, Q) kernel with Q
     discarded for float32 on the card, the plain Pade-13 exponential
     elsewhere.  `_intercast_batched` is the per-target oracle."""
+    (is_back, is_fwd, hit_first, hit_last, prev_i, _, _,
+     d_back, d_fwd, d1, d2) = _intercast_geometry(ts, target_ts, thresh)
+    m_em, cd_em = sb.vec_to_em(ip_mean), sb.to_em(ip_cov_diag)
+    return _intercast_em(
+        params, ip_mean, ip_cov_diag, ip_cov_off,
+        (is_back, is_fwd, hit_first, hit_last, prev_i, d_back, d_fwd, d1,
+         d2), (m_em[:, :1], cd_em[:, :, :1]), (m_em[:, -1:], cd_em[:, :, -1:]),
+        backend)
+
+
+def _intercast_em(params, ip_mean, ip_cov_diag, ip_cov_off, geometry,
+                  first, last, backend):
+    """`intercast` on a given geometry (is_back, is_fwd, hit_first,
+    hit_last, prev_i, d_back, d_fwd, d1, d2; each [P]), with the moments
+    of the series' first and last observations ``first`` and ``last``
+    ((mean [r, 1 or P], cov [r, r, 1 or P]), per target where P
+    targets belong to several series).  ``prev_i`` indexes the rows of
+    ``ip_mean``; an interpolation target's neighbours are rows prev_i and
+    prev_i + 1 and their cross-covariance ip_cov_off[prev_i]."""
     rank = params.rank
     g = g_matrix(params)
     dtype = g.dtype
-    p = target_ts.shape[0]
-    (is_back, is_fwd, hit_first, hit_last, prev_i, _, _,
-     d_back, d_fwd, d1, d2) = _intercast_geometry(ts, target_ts, thresh)
+    (is_back, is_fwd, hit_first, hit_last, prev_i, d_back, d_fwd, d1,
+     d2) = geometry
+    p = prev_i.shape[0]
 
     gaps = torch.cat([d_back, d_fwd, d1, d2]).to(dtype)  # [4P]
     if dtype == torch.float32 and pt.resolve_backend(backend, gaps) == "cuda":
@@ -1047,8 +1334,6 @@ def intercast(params: LEGParams, ip_mean: Tensor, ip_cov_diag: Tensor,
     # [N, 2r + 3r^2] matrix (m_i, m_{i+1}, cd_i, cd_{i+1}, co_i) by prev_i;
     # for every interpolation target next_i == prev_i + 1 and off_i ==
     # prev_i, and the other targets read finite values that are discarded
-    m_em = sb.vec_to_em(ip_mean)
-    cd_em = sb.to_em(ip_cov_diag)
     n_obs = ip_mean.shape[0]
     r2 = rank * rank
     z_pack = torch.cat([
@@ -1076,10 +1361,9 @@ def intercast(params: LEGParams, ip_mean: Tensor, ip_cov_diag: Tensor,
         return mean, eye - mm(eg, eg, tb=True) + mm(eg_pa, eg, tb=True)
 
     # backward forecast: Cov(z_target, z_first) = expm(-.5 d G)^T
-    mean_b, cov_b = forecast_em(sb.transpose(eg_back), m_em[:, :1],
-                                cd_em[:, :, :1])
+    mean_b, cov_b = forecast_em(sb.transpose(eg_back), *first)
     # forward forecast: Cov(z_target, z_last) = expm(-.5 d G)
-    mean_f, cov_f = forecast_em(eg_fwd, m_em[:, -1:], cd_em[:, :, -1:])
+    mean_f, cov_f = forecast_em(eg_fwd, *last)
 
     # interpolation: condition z_target on (z_prev, z_next)
     eg3 = mm(eg1, eg2)
@@ -1104,10 +1388,10 @@ def intercast(params: LEGParams, ip_mean: Tensor, ip_cov_diag: Tensor,
     mean, cov = select(is_back, mean_b, cov_b, mean_i, cov_i)
     mean, cov = select(is_fwd, mean_f, cov_f, mean, cov)
     # exact hits on the first/last observation pass through unchanged
-    mean, cov = select(hit_first, m_em[:, :1].expand(rank, p),
-                       cd_em[:, :, :1].expand(rank, rank, p), mean, cov)
-    mean, cov = select(hit_last, m_em[:, -1:].expand(rank, p),
-                       cd_em[:, :, -1:].expand(rank, rank, p), mean, cov)
+    mean, cov = select(hit_first, first[0].expand(rank, p),
+                       first[1].expand(rank, rank, p), mean, cov)
+    mean, cov = select(hit_last, last[0].expand(rank, p),
+                       last[1].expand(rank, rank, p), mean, cov)
     return sb.vec_from_em(mean), sb.from_em(cov)
 
 
@@ -1183,6 +1467,73 @@ def make_predictions(params: LEGParams, ts: Tensor, xs: Tensor,
     if include_obs_noise:
         cov = cov + lambda_lambda_t(params)[None]
     return mean, cov
+
+
+def _intercast_geometry_batch(ts_batch: Tensor, target_batch: Tensor,
+                              thresh: float):
+    """`_intercast_geometry` of B equal-length series at once (ts [B, n],
+    targets [B, P], each row sorted), flattened to B P targets:
+    (geometry as `_intercast_em` takes it, with prev_i indexing the B n
+    stacked rows, and each target's series' first and last row)."""
+    b, n = ts_batch.shape
+    idx = torch.searchsorted(ts_batch, target_batch)  # #{i: ts_i < t}
+    first, last = ts_batch[:, :1], ts_batch[:, -1:]
+    prev_l = torch.clamp(idx - 1, 0, n - 1)
+    ts_prev = torch.gather(ts_batch, 1, prev_l)
+    ts_next = torch.gather(ts_batch, 1, torch.clamp(idx, 0, n - 1))
+    base = n * torch.arange(b, device=ts_batch.device)[:, None]
+    ends = (base.expand_as(idx).reshape(-1),
+            (base + n - 1).expand_as(idx).reshape(-1))
+    geometry = tuple(x.reshape(-1) for x in (
+        idx == 0, idx == n,
+        torch.abs(target_batch - first) <= thresh,
+        torch.abs(target_batch - last) <= thresh,
+        prev_l + base,
+        # time gaps, clamped nonnegative so unused branches stay finite
+        torch.clamp(first - target_batch, min=0.0),
+        torch.clamp(target_batch - last, min=0.0),
+        torch.clamp(target_batch - ts_prev, min=0.0),
+        torch.clamp(ts_next - target_batch, min=0.0)))
+    return geometry, ends
+
+
+@_highest_precision
+def make_predictions_batch(params: LEGParams, ts_batch: Tensor,
+                           xs_batch: Tensor, target_batch: Tensor,
+                           include_obs_noise: bool = False,
+                           regular: bool = False,
+                           backend: str = "auto") -> Tuple[Tensor, Tensor]:
+    """`make_predictions` over an equal-length batch of B independent
+    series (ts [B, n], xs [B, n, obs], targets [B, P], each row sorted):
+    (mean [B, P, obs], cov [B, P, obs, obs]).
+
+    The posterior mean and selected inversion run as one stacked
+    block-diagonal system over all B series
+    (`insample_posterior_stacked`, the precision route; the JAX package's
+    too), then one `intercast` stitch over all B P targets, each reading
+    its own series' rows.  Call it under ``torch.no_grad()`` when the
+    parameters require grad."""
+    b, nb = ts_batch.shape
+    p = target_batch.shape[1]
+    rank = params.rank
+    mean, cov_diag, cov_off = insample_posterior_stacked(
+        params, ts_batch.reshape(-1), xs_batch.reshape(b * nb, -1),
+        _batch_ids(b, nb, ts_batch.device), regular=regular,
+        backend=backend)
+    geometry, (first_i, last_i) = _intercast_geometry_batch(
+        ts_batch, target_batch, 1e-10)
+    m_em, cd_em = sb.vec_to_em(mean), sb.to_em(cov_diag)
+    lat_mean, lat_cov = _intercast_em(
+        params, mean, cov_diag, cov_off, geometry,
+        (m_em[:, first_i], cd_em[:, :, first_i]),
+        (m_em[:, last_i], cd_em[:, :, last_i]), backend)
+    lat_mean = lat_mean.reshape(b, p, rank)
+    lat_cov = lat_cov.reshape(b, p, rank, rank)
+    pred_mean = lat_mean @ params.b.T
+    pred_cov = params.b[None, None] @ lat_cov @ params.b.T[None, None]
+    if include_obs_noise:
+        pred_cov = pred_cov + lambda_lambda_t(params)[None, None]
+    return pred_mean, pred_cov
 
 
 @_highest_precision

@@ -11,10 +11,12 @@ it, so this equals scaling the update).
 
 Parameters are updated in place; `train_step` and `fit` run on the
 device the parameters live on.  The Kalman filter losses run
-``baselines/kalman.py``.  Losses and optimizers the JAX package has but
-this one does not yet raise ``NotImplementedError`` naming their
-ROADMAP.md item.  Checkpoints are ``.npz`` files with the JAX package's
-keys, so either package loads the other's.
+``baselines/kalman.py``.  `train_step_stacked` / `fit_stacked` train on
+B stacked series (one block-diagonal system).  The optimizer the JAX
+package has but this one does not yet (LBFGS) raises
+``NotImplementedError`` naming its ROADMAP.md item.  Checkpoints are
+``.npz`` files with the JAX package's keys, so either package loads the
+other's.
 """
 
 from __future__ import annotations
@@ -77,26 +79,101 @@ def nll_loss_kalman_regular(params: leg.LEGParams, ts: Tensor, xs: Tensor,
     return -_kalman_ll(params, ts, xs, True, backend) / xs.numel()
 
 
+SS_T0 = 2048  # steady-state switch point: exact for decay rates
+#               lambda dt > ~ -ln(eps) / (2 SS_T0) ~ 0.004
+
+
+def nll_loss_kalman_steady(params: leg.LEGParams, ts: Tensor, xs: Tensor,
+                           backend: str = "auto") -> Tensor:
+    """Uniform-grid NLL via the steady-state filter
+    (`kalman.log_likelihood_steady`): the exact filter for the first
+    SS_T0 steps, then the constant-gain tail as dense matrix products.
+    Exact to working precision while the Riccati recursion converges
+    within SS_T0 steps; `fit` picks it only after checking
+    `kalman.steady_state_gap` at the initial parameters (a fit drifting
+    to an extremely smooth process, decay rate lambda dt < ~0.004, should
+    force loss="kalman_regular").  ``backend`` reaches the one (A, Q)
+    emission."""
+    ssm = kalman.leg_to_ssm(params, ts, regular=True, backend=backend)
+    return -kalman.log_likelihood_steady(
+        ssm.a[0], ssm.q[0], ssm.h, ssm.r, xs, t0=SS_T0) / xs.numel()
+
+
 LOSSES = {"cr": nll_loss, "cr_residual": nll_loss_residual,
           "kalman": nll_loss_kalman,
-          "kalman_regular": nll_loss_kalman_regular}
-
-# losses of the JAX package still to port, and where they stand in line
-_UNPORTED_LOSSES = {
-    "kalman_ss": "ROADMAP.md, Queue 1 item 3b: the steady-state filter "
-                 "of baselines/kalman.py",
-}
-
-SS_T0 = 2048  # the steady-state filter's switch point (JAX train/loop.py)
+          "kalman_regular": nll_loss_kalman_regular,
+          "kalman_ss": nll_loss_kalman_steady}
 
 
-def _loss_fn(name: str):
-    if name in LOSSES:
-        return LOSSES[name]
-    if name in _UNPORTED_LOSSES:
-        raise NotImplementedError(
-            f"loss {name!r} is not ported yet ({_UNPORTED_LOSSES[name]})")
+def _loss_fn(name: str, losses=None):
+    losses = LOSSES if losses is None else losses
+    if name in losses:
+        return losses[name]
     raise ValueError(f"unknown loss {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# Stacked multi-series losses: B independent series sharing the
+# parameters, stacked into one system (leg.log_likelihood_stacked).
+# ---------------------------------------------------------------------------
+
+
+def nll_loss_stacked(params: leg.LEGParams, ts: Tensor, xs: Tensor,
+                     series_ids: Tensor, regular: bool = False,
+                     backend: str = "auto") -> Tensor:
+    """Mean per-observation NLL over B independent series stacked into one
+    pass of the engine (`leg.log_likelihood_stacked`).  The precision
+    form's float32 caveat applies per series; short series keep dt times
+    the smoothness moderate, where the precision form stays well
+    conditioned."""
+    return -leg.log_likelihood_stacked(params, ts, xs, series_ids,
+                                       regular=regular,
+                                       backend=backend) / xs.numel()
+
+
+def _masked_ssm(params, ts, series_ids, backend):
+    """The boundary-masked SSM: transitions into each series' first point
+    become (A = 0, Q = I), so the filter restarts from the stationary
+    prior at every series."""
+    return kalman.leg_to_ssm(params, ts,
+                             gap_mask=leg._series_gap_mask(series_ids),
+                             backend=backend)
+
+
+def nll_loss_kalman_stacked(params: leg.LEGParams, ts: Tensor, xs: Tensor,
+                            series_ids: Tensor,
+                            backend: str = "auto") -> Tensor:
+    """Stacked multi-series NLL through the Kalman filter: the float32-
+    robust counterpart of `nll_loss_stacked` (the conditioning argument
+    of `nll_loss_kalman`, per series), on the boundary-masked SSM; above
+    2^17 points in all the blocked filter."""
+    ssm = _masked_ssm(params, ts, series_ids, backend)
+    if xs.shape[0] > kalman.SMOOTHER_BLOCK:
+        ll = kalman.log_likelihood_blocked(ssm, xs)
+    else:
+        ll = kalman.filter_parallel(ssm, xs)[2]
+    return -ll / xs.numel()
+
+
+def log_likelihood_per_series_kalman(params: leg.LEGParams, ts: Tensor,
+                                     xs: Tensor, series_ids: Tensor,
+                                     num_series: int,
+                                     backend: str = "auto") -> Tensor:
+    """The per-series log-likelihoods [num_series] through the Kalman
+    filter (the float32-robust twin of `leg.log_likelihood_per_series`):
+    the boundary-masked SSM's per-step predictive log-densities
+    (`kalman.log_likelihood_rows_blocked`, O(block) memory), summed by
+    series id."""
+    ssm = _masked_ssm(params, ts, series_ids, backend)
+    rows = kalman.log_likelihood_rows_blocked(ssm, xs)
+    return leg._segment_sum(rows, series_ids, num_series)
+
+
+STACKED_LOSSES = {
+    "cr": nll_loss_stacked,  # the precision form (the fast path)
+    "kalman": lambda p, t, x, ids, regular=False, backend="auto":
+        nll_loss_kalman_stacked(p, t, x, ids, backend=backend),
+}
 
 
 class ReduceOnPlateau:
@@ -205,13 +282,33 @@ def train_step(params: leg.LEGParams, opt: Optimizer, ts: Tensor,
     device."""
     loss_fn = _loss_fn(loss)
     device = params.b.device
-    value = loss_fn(params, ts.to(device), xs.to(device))
+    return _step(params, opt,
+                 lambda: loss_fn(params, ts.to(device), xs.to(device)))
+
+
+def _step(params: leg.LEGParams, opt: Optimizer, value_fn) -> Tensor:
+    """Zero the gradients, backpropagate ``value_fn()``, take one step of
+    ``opt``; returns the detached loss."""
+    value = value_fn()
     for p in params.parameters():
         p.grad = None
     value.backward()
     value = value.detach()
     opt.step(params, float(value))
     return value
+
+
+def train_step_stacked(params: leg.LEGParams, opt: Optimizer, ts: Tensor,
+                       xs: Tensor, series_ids: Tensor,
+                       regular: bool = False, loss: str = "cr") -> Tensor:
+    """One gradient step on a stacked multi-series batch (``params``
+    updated in place; ``loss`` a key of `STACKED_LOSSES`); returns the
+    loss before the step."""
+    loss_fn = _loss_fn(loss, STACKED_LOSSES)
+    device = params.b.device
+    ts, xs, series_ids = (t.to(device) for t in (ts, xs, series_ids))
+    return _step(params, opt, lambda: loss_fn(params, ts, xs, series_ids,
+                                              regular=regular))
 
 
 def _default_loss(ts: Tensor, xs: Tensor) -> str:
@@ -269,24 +366,56 @@ def fit(
     ``loss=None`` picks what the JAX package picks (`_default_loss`, then
     `_steady_state_loss`): "cr" at float64; at float32 "cr_residual" on an
     irregular grid of more than 2^17 points, "kalman" on a smaller one,
-    and on a uniform grid "kalman_regular", or "kalman_ss" where the
-    steady-state check passes; "kalman_ss" is not ported yet and raises
-    ``NotImplementedError``."""
+    and on a uniform grid "kalman_regular", or "kalman_ss"
+    (`nll_loss_kalman_steady`) where the steady-state check passes."""
     device = params.b.device
     ts, xs = ts.to(device), xs.to(device)
     if loss is None:
         loss = _steady_state_loss(params, ts, xs, _default_loss(ts, xs))
     _loss_fn(loss)
-    opt = make_optimizer(optimizer, lr)
+    return _fit_loop(params, make_optimizer(optimizer, lr), num_steps,
+                     log_every, callback,
+                     lambda opt: train_step(params, opt, ts, xs, loss))
+
+
+def _fit_loop(params, opt, num_steps, log_every, callback, step_fn):
     losses = []
     for step in range(num_steps):
-        loss_f = float(train_step(params, opt, ts, xs, loss))
+        loss_f = float(step_fn(opt))
         losses.append(loss_f)
         if callback is not None:
             callback(step, loss_f)
         elif log_every and step % log_every == 0:
             print(f"step {step:5d}  NLL {loss_f:.6f}")
     return FitResult(params=params, losses=losses)
+
+
+def fit_stacked(
+    params: leg.LEGParams,
+    ts: Tensor,
+    xs: Tensor,
+    series_ids: Tensor,
+    num_steps: int = 1000,
+    optimizer: str = "adam",
+    lr: float = 1e-2,
+    log_every: int = 100,
+    callback: Optional[Callable[[int, float], None]] = None,
+    regular: bool = False,
+    loss: str = "cr",
+) -> FitResult:
+    """Full-batch training on B stacked series (shared parameters, one
+    block-diagonal system a step; see `leg.log_likelihood_stacked`).  For
+    an equal-length batch flatten [B, n] / [B, n, obs] and pass
+    consecutive ids.  ``loss``: "cr" (the precision form, the fast path)
+    or "kalman" (the boundary-masked filter, float32-robust for fits that
+    drift into very smooth regimes; `nll_loss_kalman_stacked`)."""
+    device = params.b.device
+    ts, xs, series_ids = (t.to(device) for t in (ts, xs, series_ids))
+    _loss_fn(loss, STACKED_LOSSES)
+    return _fit_loop(params, make_optimizer(optimizer, lr), num_steps,
+                     log_every, callback,
+                     lambda opt: train_step_stacked(
+                         params, opt, ts, xs, series_ids, regular, loss))
 
 
 # ---------------------------------------------------------------------------

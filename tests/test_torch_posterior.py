@@ -448,26 +448,40 @@ def test_make_predictions_matches_jax(monkeypatch):
                        err_msg=f"{backend} noise={noise}")
 
 
-def test_posterior_method_routing():
+def test_posterior_method_routing(no_persistent_cache_writes):
     """"auto" resolves by dtype as in JAX; an unknown method raises
     ValueError; the smoother route, and float32 "auto" which resolves to
-    it, raise NotImplementedError until the smoother is ported."""
+    it, == JAX's smoother posterior (tests/test_torch_smoother.py's
+    reference: JAX insample_posterior(method="smoother") at float64;
+    1e-10 of each output's scale at float64, 1e-4 at float32), and the
+    precision route still runs."""
+    from test_torch_smoother import _inputs, _port, smoother_reference
+
     for dtype, jdtype in ((torch.float64, jnp.float64),
                           (torch.float32, jnp.float32)):
         assert (leg._resolve_posterior_method("auto", dtype)
                 == jleg._resolve_posterior_method("auto", jdtype))
     with pytest.raises(ValueError):
         leg._resolve_posterior_method("nope", torch.float64)
-    p = leg.init_params(3, 2, generator=torch.Generator().manual_seed(0),
-                        device="cpu")
-    ts = torch.arange(10.0)
-    xs = torch.zeros((10, 2))
-    for method in ("smoother", "auto"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            leg.insample_posterior(p, ts, xs, method=method)
+    ref = smoother_reference()
+    arrays, ts, xs = _inputs()
+    for dtype, method, bar in (("float64", "smoother", 1e-10),
+                               ("float32", "smoother", 1e-4),
+                               ("float32", "auto", 1e-4)):
+        p = _port(arrays, dtype)
+        x = _t(xs).to(p.b.dtype)
+        with torch.no_grad():
+            got = leg.insample_posterior(p, _t(ts), x, method=method)
+            mean = leg.posterior_mean(p, _t(ts), x, method=method)
+        for name, a, b in zip(("mean", "cov_diag", "cov_off", "mean"),
+                              got + (mean,), tuple(ref) + (ref[0],)):
+            scale = np.max(np.abs(b))
+            err = np.max(np.abs(_np(a).astype(np.float64) - b)) / scale
+            assert err <= bar, (dtype, method, name, err)
     with torch.no_grad():
-        mean = leg.posterior_mean(p, ts, xs, method="precision")
-    assert mean.shape == (10, 3) and torch.isfinite(mean).all()
+        mean = leg.posterior_mean(_port(arrays, "float32"), _t(ts),
+                                  _t(xs).float(), method="precision")
+    assert mean.shape == (ts.shape[0], 3) and torch.isfinite(mean).all()
 
 
 def test_sample_from_prior():

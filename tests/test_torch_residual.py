@@ -235,7 +235,9 @@ def test_default_loss_picks_residual():
     assert loop._default_loss(ts, xs.double()) == "cr"
     assert loop._loss_fn("cr_residual") is loop.nll_loss_residual
     assert loop.LOSSES["cr_residual"] is loop.nll_loss_residual
-    assert "cr_residual" not in loop._UNPORTED_LOSSES
+    # every loss of the JAX package is ported
+    assert set(loop.LOSSES) == {"cr", "cr_residual", "kalman",
+                                "kalman_regular", "kalman_ss"}
 
 
 def test_nll_loss_residual_train_step():

@@ -127,31 +127,35 @@ _UNPORTED = ["kalman", "kalman_regular", "kalman_ss", "cr_residual"]
 
 @pytest.mark.parametrize("loss", _UNPORTED)
 def test_unported_losses_raise(loss):
-    """A loss the JAX package has and the port does not yet raises
-    NotImplementedError naming its ROADMAP item, before any work; an
-    unknown loss raises ValueError.  "cr_residual" has since been ported
-    (`loop.nll_loss_residual`): its step runs, and below the chunked
-    threshold its loss is the "cr" loss, as in the JAX package.  "kalman"
-    and "kalman_regular" have since been ported too
-    (`loop.nll_loss_kalman`, `nll_loss_kalman_regular`): the step's loss
-    == the JAX loss on the same float64 inputs to 1e-10 relative (the
-    same parallel filter on the same combination tree)."""
+    """The losses that were not ported when this test was written now run
+    the JAX package's step; an unknown loss raises ValueError.
+    "cr_residual" (`loop.nll_loss_residual`): its step runs, and below
+    the chunked threshold its loss is the "cr" loss, as in the JAX
+    package.  "kalman" and "kalman_regular" (`loop.nll_loss_kalman`,
+    `nll_loss_kalman_regular`): the step's loss == the JAX loss on the
+    same float64 inputs to 1e-10 relative (the same parallel filter on
+    the same combination tree).  "kalman_ss"
+    (`loop.nll_loss_kalman_steady`, the steady-state filter, which needs
+    more than SS_T0 steps: a uniform grid of SS_T0 + 100 points): the
+    step's loss == JAX's nll_loss_kalman_steady to 1e-10 relative (the
+    same transient moments, the same chunked tail)."""
     p = params_from_jax(_jax_params(1), device="cpu")
-    ts, xs = generate_data(16, 2, seed=1, device="cpu")
+    if loss == "kalman_ss":
+        ts, xs = generate_data(loop.SS_T0 + 100, 2, spacing="regular",
+                               seed=1, device="cpu")
+    else:
+        ts, xs = generate_data(16, 2, seed=1, device="cpu")
     opt = loop.make_optimizer()
-    if loss in ("kalman", "kalman_regular"):
+    if loss in ("kalman", "kalman_regular", "kalman_ss"):
         want = float(jloop.LOSSES[loss](_jax_params(1),
                                         jnp.asarray(ts.numpy()),
                                         jnp.asarray(xs.numpy())))
         got = float(loop.train_step(p, opt, ts, xs, loss=loss))
         assert abs(got - want) <= 1e-10 * abs(want)
-    elif loss in loop.LOSSES:
+    else:
         with torch.no_grad():
             want = float(loop.nll_loss(p, ts, xs))
         assert float(loop.train_step(p, opt, ts, xs, loss=loss)) == want
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            loop.train_step(p, opt, ts, xs, loss=loss)
     with pytest.raises(ValueError, match="unknown loss"):
         loop.train_step(p, opt, ts, xs, loss="nope")
 
